@@ -1,0 +1,181 @@
+"""flax.linen layer semantics in PyTorch: ``Conv``, ``Dense``, ``GroupNorm``.
+
+The JAX package builds every network from ``flax.linen`` layers.  These
+modules reproduce their numerics, so weights carried over by
+``utils/from_flax.py`` give the same outputs:
+
+- tensors stay channel-last (NHWC / NDHWC) at every module boundary, as in
+  the JAX package.  A conv permutes to NC(D)HW for the call; on a contiguous
+  channel-last tensor that permute is a ``channels_last`` view, no copy;
+- weights are stored in torch's layout (conv ``(O, I/groups, *k)``, dense
+  ``(O, I)``, norm ``weight``/``bias``) and ``from_flax`` owns the transposes;
+- ``dtype`` follows ``flax``'s ``promote_dtype``: with ``dtype=None`` the
+  compute type is the promotion of the input and the (float32) params, with
+  ``dtype`` set, input, kernel and bias are cast to it and so is the output;
+- init mirrors flax's defaults: lecun-normal kernels (truncated normal,
+  fan-in), zero biases, norm scale 1 and bias 0, drawn from an explicit
+  ``torch.Generator`` by ``init_flax_defaults``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Union
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+# flax's truncated_normal stddev correction for truncation at +-2 sigma
+_TRUNC_STD = 0.87962566103423978
+
+
+def _same_pads(size: int, k: int, s: int):
+    """flax/XLA ``SAME`` padding of one spatial dim.
+
+    TRAP: at stride 2 it is asymmetric -- k=3 on an even side pads (0, 1),
+    not torch's (1, 1); k=5 pads (1, 2).  The extra row goes on the high side.
+    """
+    out = -(-size // s)
+    total = max((out - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _compute_dtype(x: torch.Tensor, w: torch.Tensor, dtype):
+    return dtype if dtype is not None else torch.promote_types(x.dtype, w.dtype)
+
+
+class Conv(nn.Module):
+    """``flax.linen.Conv`` on channel-last input, 2-D or 3-D.
+
+    ``padding`` is ``"SAME"``, ``"VALID"`` or an explicit per-dim list of
+    (lo, hi) pairs.
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: Sequence[int],
+                 strides: Union[int, Sequence[int]] = 1, padding="SAME",
+                 groups: int = 1, use_bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.kernel = tuple(kernel)
+        nd = len(self.kernel)
+        self.strides = ((strides,) * nd if isinstance(strides, int)
+                        else tuple(strides))
+        self.padding = padding
+        self.groups = groups
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups,
+                                               *self.kernel))
+        self.bias = nn.Parameter(torch.empty(out_ch)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        nd = len(self.kernel)
+        dt = _compute_dtype(x, self.weight, self.dtype)
+        x = x.to(dt)
+        w = self.weight.to(dt)
+        b = None if self.bias is None else self.bias.to(dt)
+        if self.padding == "VALID":
+            pads = [(0, 0)] * nd
+        elif self.padding == "SAME":
+            pads = [_same_pads(x.shape[1 + i], self.kernel[i], self.strides[i])
+                    for i in range(nd)]
+        else:
+            pads = [tuple(p) for p in self.padding]
+        conv_pad = 0
+        if all(lo == hi for lo, hi in pads):
+            conv_pad = tuple(lo for lo, _ in pads)
+        else:
+            # asymmetric pads: pad the channel-last tensor explicitly (the
+            # F.pad spec runs from the last dim: channels, then spatial
+            # dims innermost first)
+            spec = [0, 0]
+            for lo, hi in reversed(pads):
+                spec += [lo, hi]
+            x = F.pad(x, spec)
+        xc = x.movedim(-1, 1)
+        conv = F.conv3d if nd == 3 else F.conv2d
+        y = conv(xc, w, None, stride=self.strides, padding=conv_pad,
+                 groups=self.groups).movedim(1, -1)
+        # flax rounds the conv output to ``dt`` and then adds the bias in
+        # ``dt``; a bias fused into the conv rounds once, which in bf16 moves
+        # outputs by an ulp
+        return y if b is None else y + b
+
+
+class Dense(nn.Module):
+    """``flax.linen.Dense`` on the last axis."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _compute_dtype(x, self.weight, self.dtype)
+        # product rounded to ``dt`` before the bias add, as in flax (``Conv``)
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+
+
+def num_groups(channels: int, max_groups: int = 8) -> int:
+    """Largest group count <= max_groups that divides ``channels``."""
+    g = min(max_groups, channels)
+    while channels % g:
+        g -= 1
+    return g
+
+
+class GroupNorm(nn.Module):
+    """``flax.linen.GroupNorm`` on channel-last input (batch axis 0).
+
+    TRAP: flax's default epsilon is 1e-6, not torch's 1e-5, and it uses the
+    fast variance E[x^2] - E[x]^2 clipped at 0.  Statistics run in at least
+    float32; the output type is the promotion of the input and the float32
+    params (so a bf16 conv output leaves the norm as float32).
+    """
+
+    def __init__(self, groups: int, channels: int, eps: float = 1e-6):
+        super().__init__()
+        self.groups = groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(channels))
+        self.bias = nn.Parameter(torch.empty(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        N, C, G = x.shape[0], x.shape[-1], self.groups
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        xg = xf.reshape(N, -1, G, C // G)
+        mean = xg.mean(dim=(1, 3), keepdim=True)
+        mean2 = (xg * xg).mean(dim=(1, 3), keepdim=True)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.reshape(G, C // G)
+        y = (xg - mean) * mul + self.bias.reshape(G, C // G)
+        return y.reshape(x.shape).to(torch.promote_types(x.dtype,
+                                                         self.weight.dtype))
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator):
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    with torch.no_grad():
+        nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                              generator=gen)
+
+
+def init_flax_defaults(module: nn.Module, gen: torch.Generator) -> None:
+    """Initialise every layer below ``module`` as flax would by default.
+
+    The draws differ from flax's (another generator); the distributions are
+    the same: lecun-normal kernels, zero biases, norm scale 1 and bias 0.
+    Layers are visited in registration order, so a seed fixes the weights.
+    """
+    for m in module.modules():
+        if isinstance(m, (Conv, Dense)):
+            w = m.weight
+            _lecun_normal_(w, w.shape[1] * math.prod(w.shape[2:]), gen)
+            if m.bias is not None:
+                with torch.no_grad():
+                    m.bias.zero_()
+        elif isinstance(m, GroupNorm):
+            with torch.no_grad():
+                m.weight.fill_(1.0)
+                m.bias.zero_()

@@ -1,0 +1,117 @@
+"""Carry flax params across: a JAX ``init`` param tree -> the port's modules.
+
+The reverse of ``deep3dmap_tpu/utils/torch_import.py:50-57`` (which maps torch
+state dicts into flax trees), kept as the port's own copy:
+
+  flax Conv kernel  (*k, I, O)  -> torch weight (O, I, *k)
+  (depthwise HWIO with I=1 is the same rule: (kh, kw, 1, mid) -> (mid, 1, kh, kw))
+  flax Dense kernel (I, O)      -> torch Linear weight (O, I)
+  GroupNorm / BlockGN scale     -> weight; every bias -> bias
+
+The port names its submodules after flax's auto-names (``Conv_0``,
+``GroupNorm_0``, ``BlockConvBlock3D_1``, ``unet2``, ``gru1.convzr``, ...), so
+a torch parameter ``a.b.Conv_0.weight`` IS the flax leaf ``a/b/Conv_0/kernel``
+and the conversion is a per-leaf transpose, not a rename table.  A leaf that
+is unmatched or has the wrong shape, in either direction, raises.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..models.layers import Conv, Dense, GroupNorm
+
+
+def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + (str(k),)))
+        else:
+            out[prefix + (str(k),)] = np.asarray(v)
+    return out
+
+
+def _leaf_map(module: nn.Module):
+    """torch param name -> (flax path, kind), kind in {"kernel", "plain"}."""
+    out = {}
+    for mname, m in module.named_modules():
+        if isinstance(m, (Conv, Dense)):
+            names = {"weight": ("kernel", "kernel"), "bias": ("bias", "plain")}
+        elif isinstance(m, GroupNorm):
+            names = {"weight": ("scale", "plain"), "bias": ("bias", "plain")}
+        else:
+            continue
+        base = tuple(mname.split(".")) if mname else ()
+        for pname, p in m.named_parameters(recurse=False):
+            flax_leaf, kind = names[pname]
+            out[f"{mname}.{pname}" if mname else pname] = (base + (flax_leaf,), kind)
+    own = {n for n, _ in module.named_parameters()}
+    stray = own - set(out)
+    if stray:
+        raise ValueError(f"from_flax: torch params outside a flax-mirroring "
+                         f"layer: {sorted(stray)}")
+    return out
+
+
+def _kernel_to_torch(k: np.ndarray) -> np.ndarray:
+    n = k.ndim
+    return np.transpose(k, (n - 1, n - 2) + tuple(range(n - 2)))
+
+
+def _kernel_to_flax(w: np.ndarray) -> np.ndarray:
+    n = w.ndim
+    return np.transpose(w, tuple(range(2, n)) + (1, 0))
+
+
+def _unwrap(flax_params: Mapping, module: nn.Module) -> Mapping:
+    names = {n for n, _ in module.named_children()}
+    if set(flax_params.keys()) == {"params"} and "params" not in names:
+        return flax_params["params"]
+    return flax_params
+
+
+def load_flax_params(module: nn.Module, flax_params: Mapping) -> nn.Module:
+    """Fill ``module``'s parameters from a flax param tree (nested dicts of
+    arrays, optionally under a top-level ``"params"`` key).  Raises on any
+    leaf missing on either side or with the wrong shape."""
+    flat = _flatten(_unwrap(flax_params, module))
+    leaf_map = _leaf_map(module)
+    params = dict(module.named_parameters())
+    wanted = {path for path, _ in leaf_map.values()}
+    extra = sorted("/".join(p) for p in set(flat) - wanted)
+    missing = sorted("/".join(p) for p in wanted - set(flat))
+    if extra or missing:
+        raise ValueError(f"from_flax: flax leaves with no torch param: {extra}; "
+                         f"torch params with no flax leaf: {missing}")
+    with torch.no_grad():
+        for tname, (path, kind) in leaf_map.items():
+            src = flat[path]
+            if kind == "kernel":
+                src = _kernel_to_torch(src)
+            dst = params[tname]
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(
+                    f"from_flax: {'/'.join(path)} has shape {tuple(src.shape)} "
+                    f"after conversion, torch {tname} wants {tuple(dst.shape)}")
+            dst.copy_(torch.from_numpy(np.array(src)).to(dst.dtype))
+    return module
+
+
+def to_flax_params(module: nn.Module) -> Dict:
+    """The module's parameters as a nested flax-layout dict of numpy arrays
+    (the inverse of ``load_flax_params``)."""
+    params = dict(module.named_parameters())
+    tree: Dict = {}
+    for tname, (path, kind) in _leaf_map(module).items():
+        a = params[tname].detach().float().cpu().numpy()
+        if kind == "kernel":
+            a = _kernel_to_flax(a)
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = a
+    return tree

@@ -1,0 +1,66 @@
+"""The fused-loss Triton kernel against its plain version, on the card.
+
+Imports neither JAX nor the JAX package, so it runs on a machine that has
+only the port's requirements:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_fused_loss_cuda.py
+
+(``--noconftest``: ``tests/conftest.py`` sets JAX up.)  Without a CUDA
+device every test here skips.
+"""
+import numpy as np
+import pytest
+import torch
+
+from deep3dmap_tpu_torch.ops import fused_loss
+
+RTOL = 1e-4   # float32 sums of up to 884,736 terms, in another order
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Triton kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(n, device, pred_dtype=torch.float32):
+    rng = np.random.RandomState(n)
+    tsdf = rng.uniform(-1, 1, n).astype(np.float32)
+    occ = rng.randn(n).astype(np.float32)
+    tsdf_t = rng.uniform(-1, 1, n).astype(np.float32)
+    occ_t = rng.rand(n) > 0.7
+    mask = rng.rand(n) > 0.3
+    t = [torch.from_numpy(a).to(device) for a in (tsdf, occ, tsdf_t, occ_t, mask)]
+    t[0], t[1] = t[0].to(pred_dtype), t[1].to(pred_dtype)
+    t[3] = t[3].float()
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [24 ** 3, 48 ** 3, 96 ** 3, 1000])
+@pytest.mark.parametrize("pred_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_kernel_matches_plain_on_card(cuda_device, n, pred_dtype):
+    data = _inputs(n, cuda_device, pred_dtype)
+    before = fused_loss.launches
+    got = fused_loss.fused_tsdf_occ_loss(*data, pos_weight=1.5)
+    want = fused_loss.fused_tsdf_occ_loss_plain(*data, pos_weight=1.5)
+    assert fused_loss.launches == before + 1
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(float(g), float(w), rtol=RTOL)
+    again = fused_loss.fused_tsdf_occ_loss(*data, pos_weight=1.5)
+    for a, b in zip(got, again):  # fixed reduction order: bitwise repeatable
+        assert float(a) == float(b)
+
+
+@pytest.mark.cuda
+def test_kernel_empty_target_and_zero_mask(cuda_device):
+    data = _inputs(48 ** 3, cuda_device)
+    empty = list(data)
+    empty[3] = torch.zeros_like(data[3])
+    assert float(fused_loss.fused_tsdf_occ_loss(*empty, pos_weight=1.5)[0]) == 0.0
+    zero = list(data)
+    zero[4] = torch.zeros_like(data[4])
+    out = fused_loss.fused_tsdf_occ_loss(*zero, pos_weight=1.5)
+    assert all(float(v) == 0.0 for v in out)

@@ -1,0 +1,83 @@
+"""Rules of the PyTorch port that hold for every slice.
+
+- ``deep3dmap_tpu_torch/`` and ``chip_smoke.py`` import no ``jax``, ``flax``
+  or ``deep3dmap_tpu`` (an AST scan of every import statement);
+- entry points default to CUDA and raise on a machine without a GPU unless
+  the caller asks for ``device="cpu"``.
+"""
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "deep3dmap_tpu")
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "deep3dmap_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_no_jax():
+    files = _port_files()
+    assert len(files) > 10 and os.path.exists(files[0])
+    bad = [(os.path.relpath(f, ROOT), m) for f in files
+           for m in _imported_roots(f) if m in FORBIDDEN]
+    assert not bad, f"port files import the JAX side: {bad}"
+
+
+def _no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the CUDA default does not raise here")
+
+
+def test_entry_points_raise_without_gpu():
+    _no_gpu()
+    from deep3dmap_tpu_torch.datasets.synthetic import make_fragment_sample
+    from deep3dmap_tpu_torch.models.frameworks.neuralrecon import NeuralRecon
+    from deep3dmap_tpu_torch.utils.device import resolve_device
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        NeuralRecon(dict(N_VOX=[24] * 3, BACKBONE2D=dict(ARC="fpn-mnas-0.5")))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_fragment_sample(n_views=2, img_size=(16, 16), n_vox=8)
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda:0")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_uint8_images_normalised_on_device():
+    """uint8 images with IMG_NORM give the same forward as the float images
+    they quantise (the normalisation runs inside the framework)."""
+    from deep3dmap_tpu_torch.datasets.builder import _stack_samples
+    from deep3dmap_tpu_torch.datasets.synthetic import make_fragment_sample
+    from deep3dmap_tpu_torch.models.frameworks.neuralrecon import NeuralRecon
+
+    torch.set_num_threads(2)
+    cfg = dict(N_LAYER=3, N_VOX=[16] * 3, VOXEL_SIZE=0.08,
+               BACKBONE2D=dict(ARC="fpn-mnas-0.5"), IMG_NORM=(0.5, 0.25))
+    fw = NeuralRecon(cfg, device="cpu")
+    batch = _stack_samples([make_fragment_sample(
+        seed=0, n_views=2, img_size=(32, 32), n_vox=16, device="cpu")])
+    q = np.rint(np.clip(batch["imgs"], 0, 1) * 255).astype(np.uint8)
+    net, state = fw.init(0, batch)
+    out_q, _ = fw.forward_test(net, state, dict(batch, imgs=q))
+    ref = (q.astype(np.float32) / 255.0 - 0.5) / 0.25
+    out_f, _ = fw.forward_test(net, state, dict(batch, imgs=ref))
+    np.testing.assert_allclose(out_q["tsdf"].numpy(), out_f["tsdf"].numpy(),
+                               atol=1e-6)
