@@ -22,6 +22,22 @@ Phases; any error ends the run with a nonzero exit and no result line:
    block-sparse levels, bf16) with seeded weights; 2 warm-up plus 10 timed
    fragments through ``forward_test`` with carried state, then ``val_fn``,
    whose loss must launch the kernel exactly 3 times.
+5. kernel vs plain (raster): the hard z-buffer raster (CUDA C++, built by
+   ``nvcc`` from ``deep3dmap_tpu_torch/ops/csrc/raster_hard.cu`` into
+   ``deep3dmap_tpu_torch/ops/_build/``) against its plain PyTorch version on
+   the card: celeba's 128² renderer under seeded views at B = 1 and 4, a
+   ragged 37x53 grid, vertices behind the camera with degenerate triangles,
+   two sheets, and a view with every pixel background.  Identical coverage
+   and max abs diff <= 1e-6; device times beside the bound.
+6. CPU vs card (Gan2Shape): the small config at float32 with TF32 off, the
+   same seeded weights, ``forward_test`` (hard raster) and the step-1 loss
+   on the CPU and on the card.
+7. full width (Gan2Shape): celeba's model config (128², nf 32, z_dim 512) in
+   hard raster mode with seeded weights, one synthetic face: 3 warm-up and
+   20 timed ``forward_test`` calls (one raster launch each, no host sync)
+   in turns with the same model in splat mode, peak memory,
+   ``forward_step1``, and the raster kernel against its plain version on
+   this path's own inputs.
 
 Before the last line it prints one ``{"kernels": [...]}`` line; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -48,6 +64,15 @@ LOSS_OPS_PER_ELEM = 45
 TOL_LOSS = dict(rtol=1e-4, atol=1e-6)   # kernel vs plain: f32 sums, other order
 TOL_SLICE = 2e-3                        # CPU vs card, float32 (see phase 3)
 TOL_VAL_RTOL = 1e-4
+# raster kernel vs plain: the same float32 ops in the same order (phase 5)
+TOL_RASTER = 1e-6
+# Gan2Shape CPU vs card (phase 6), the slice tests' tolerances
+# (tests/test_torch_gan2shape.py): heads 1e-5, normals 4e-5 (they divide
+# depth differences by the pixel spacing), rendered outputs 1e-4, losses
+# 1e-4 relative
+TOL_G2S = dict(depth=1e-5, albedo=1e-5, normal=4e-5, recon_depth=1e-4,
+               recon_im=1e-4)
+TOL_G2S_LOSS_RTOL = 1e-4
 
 BLOCK_CFGS = dict(N_LAYER=3, N_VOX=[32, 32, 32], VOXEL_SIZE=0.08,
                   TRAIN_NUM_SAMPLE=[64, 256],
@@ -79,8 +104,11 @@ def check(cond: bool, msg: str):
         fail(msg)
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def set_tf32(cudnn: bool, matmul: bool):
@@ -389,7 +417,17 @@ def phase_full_width(nr_module, fused_loss, stack, make_sample, card,
     print("host syncs: none in forward_test and val_fn "
           "(torch.cuda.set_sync_debug_mode('error'))", flush=True)
     if profile_dir:
-        profile(nr_module, fw, net, state, cont, profile_dir)
+        import deep3dmap_tpu_torch.models.modulars.block_dense3d as bd
+        st = [state]
+
+        def fragment():
+            st[0] = fw.forward_test(net, st[0], cont)[1]
+        # the framework's op calls, gather_halo and the network's top-level
+        # modules (trunk, UNets, GRUs, heads; backbone2d's forward is its fpn's)
+        profile("profile", "fragment", fragment, PROFILED_FRAGMENTS,
+                [(nr_module, n) for n in SPAN_OPS] + [(bd, "gather_halo")],
+                [(n, getattr(m, "fpn", m)) for n, m in net.named_children()],
+                os.path.join(profile_dir, "kernels.txt"))
     return launches
 
 
@@ -403,26 +441,23 @@ SPAN_OPS = ("back_project_batch", "back_project_masked_batch",
 PROFILED_FRAGMENTS = 3
 
 
-def _span_hooks(nr_module, net):
-    """Profiler spans around the framework's op calls, ``gather_halo`` and
-    the network's top-level modules (trunk, UNets, GRUs, heads).  Returns a
-    function that removes them."""
+def _span_hooks(wraps, modules):
+    """Profiler spans around the functions that ``wraps`` names, as
+    (namespace, name) pairs, and around the forward of each (name, module)
+    of ``modules``.  Returns a function that removes them."""
     from torch.profiler import record_function
-
-    import deep3dmap_tpu_torch.models.modulars.block_dense3d as bd
     undo = []
+    for ns, name in wraps:
+        f, own = getattr(ns, name), name in vars(ns)
 
-    def wrap(ns, name):
-        f = getattr(ns, name)
-
-        def spanned(*a, **kw):
-            with record_function("span:" + name):
-                return f(*a, **kw)
+        def spanned(*a, _f=f, _n=name, **kw):
+            with record_function("span:" + _n):
+                return _f(*a, **kw)
         setattr(ns, name, spanned)
-        undo.append(lambda: setattr(ns, name, f))
-    for name in SPAN_OPS:
-        wrap(nr_module, name)
-    wrap(bd, "gather_halo")
+        # a method found on the class goes back to it; an attribute of the
+        # namespace itself is put back
+        undo.append(lambda ns=ns, n=name, f=f, own=own:
+                    setattr(ns, n, f) if own else delattr(ns, n))
     open_spans = {}
 
     def pre(mod, inp, name):
@@ -431,8 +466,7 @@ def _span_hooks(nr_module, net):
 
     def post(mod, inp, out, name):
         open_spans.pop(name).__exit__(None, None, None)
-    for name, m in net.named_children():
-        m = getattr(m, "fpn", m)   # backbone2d's forward is its fpn's
+    for name, m in modules:
         h1 = m.register_forward_pre_hook(lambda mod, inp, n=name: pre(mod, inp, n))
         h2 = m.register_forward_hook(lambda mod, inp, out, n=name: post(mod, inp, out, n))
         undo += [h1.remove, h2.remove]
@@ -443,21 +477,22 @@ def _span_hooks(nr_module, net):
     return remove
 
 
-def profile(nr_module, fw, net, state, batch, out_dir):
-    """torch.profiler over a few streamed fragments: the device's busy share,
-    kernel launches per fragment, host and device time per layer span, and
-    device time by kernel.  Writes ``kernels.txt`` into ``out_dir``."""
+def profile(label, unit, call, n, wraps, modules, out_path):
+    """torch.profiler over ``n`` calls of ``call`` (each one ``unit``): the
+    device's busy share, kernel launches per unit, host and device time per
+    span (``_span_hooks(wraps, modules)``), and device time by kernel.
+    Writes the tables to ``out_path``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
-    os.makedirs(out_dir, exist_ok=True)
-    remove = _span_hooks(nr_module, net)
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    remove = _span_hooks(wraps, modules)
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILED_FRAGMENTS):
-            _, state = fw.forward_test(net, state, batch)
+        for _ in range(n):
+            call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     remove()
@@ -466,32 +501,382 @@ def profile(nr_module, fw, net, state, batch, out_dir):
                      reverse=True)
     busy_ms = kernel_us(prof) / 1e3
     n_launch = sum(e.count for e in kernels)
-    per = PROFILED_FRAGMENTS
-    lines = [f"profile: {per} fragments, host wall {wall_ms / per:.3f} ms per "
-             f"fragment (profiler on), device kernel time {busy_ms / per:.3f} "
-             f"ms per fragment = {100 * busy_ms / wall_ms:.2f}% busy, "
-             f"{n_launch / per:.1f} kernel launches per fragment",
-             "spans (per fragment): host ms incl. children | device ms | calls"]
+    lines = [f"{label}: {n} {unit}s, host wall {wall_ms / n:.3f} ms per "
+             f"{unit} (profiler on), device kernel time {busy_ms / n:.3f} "
+             f"ms per {unit} = {100 * busy_ms / wall_ms:.2f}% busy, "
+             f"{n_launch / n:.1f} kernel launches per {unit}",
+             f"spans (per {unit}): host ms incl. children | device ms | calls"]
     spans = sorted((e for e in avg if e.key.startswith("span:")
                     and e.device_type == DeviceType.CPU),
                    key=lambda e: e.cpu_time_total, reverse=True)
     for e in spans:
-        lines.append(f"  {e.key[5:]:28s} {e.cpu_time_total / 1e3 / per:10.3f} "
-                     f"{e.device_time_total / 1e3 / per:10.3f} {e.count / per:8.1f}")
-    lines.append("kernels (per fragment): device ms | share | launches")
+        lines.append(f"  {e.key[5:]:28s} {e.cpu_time_total / 1e3 / n:10.3f} "
+                     f"{e.device_time_total / 1e3 / n:10.3f} {e.count / n:8.1f}")
+    lines.append(f"kernels (per {unit}): device ms | share | launches")
     for e in kernels[:30]:
-        lines.append(f"  {e.self_device_time_total / 1e3 / per:10.3f} "
+        lines.append(f"  {e.self_device_time_total / 1e3 / n:10.3f} "
                      f"{100 * e.self_device_time_total / 1e3 / busy_ms:6.2f}% "
-                     f"{e.count / per:8.1f} {e.key[:100]}")
-    with open(os.path.join(out_dir, "kernels.txt"), "w") as f:
+                     f"{e.count / n:8.1f} {e.key[:100]}")
+    with open(out_path, "w") as f:
         f.write("\n".join(lines) + "\n")
     print("\n".join(lines), flush=True)
+
+
+# ---------------------------------------------------------------- phase 5 --
+RASTER_KERNELS = ("raster_kernel", "row_bounds_kernel")   # ops/csrc/raster_hard.cu
+# per pixel-triangle test: dx2, dy2, two products,
+# a sum and a product for each of l0 and l1, two subtractions for l2, three
+# compares and an and
+RASTER_OPS_PER_TEST = 15
+# configs/gan2shape/celeba.py:26-37, with the checkpoint paths (gan_ckpt,
+# parsing_ckpt; not in the repository) dropped and raster_mode="hard" added
+CELEBA_MODEL_CFGS = dict(
+    image_size=128, gan_size=128, z_dim=512, n_mlp=8, nf=32,
+    channel_multiplier=1, batchsize=4,
+    min_depth=0.9, max_depth=1.1,
+    xyz_rotation_range=60, xy_translation_range=0.1, z_translation_range=0.1,
+    lam_perc=1.0, lam_smooth=0.01, lam_regular=0.01,
+    use_mask=True, category="face",
+    raster_mode="hard")
+G2S_SMALL_CFG = dict(image_size=32, gan_size=32, z_dim=32, n_mlp=4, nf=8,
+                     batchsize=2, channel_multiplier=1, raster_mode="hard")
+
+
+def raster_tests(points3d, K) -> float:
+    """Pixel-triangle tests the function needs on these inputs, whatever
+    the kernel's design: the pixel centres inside each valid triangle's
+    bounding box (clipped to the image), summed over triangles.  Valid is
+    the inside test's own ``ok``: a nonzero area and every z > EPS."""
+    from deep3dmap_tpu_torch.ops.raster import (EPS, grid_mesh_triangles,
+                                                project)
+    px, py, z = project(points3d.float(), K.float())
+    B, H, W = z.shape
+    xs, ys, zs = grid_mesh_triangles(torch.stack([px, py], -1), z)
+    x0, x1, x2 = xs.unbind(1)
+    y0, y1, y2 = ys.unbind(1)
+    denom = (y1 - y2) * (x0 - x2) + (x2 - x1) * (y0 - y2)
+    ok = (denom.abs() > 1e-9) & (zs > EPS).all(1)
+
+    def centres(a, n):   # integer pixel centres in [min, max] within [0, n-1]
+        lo = torch.ceil(a.amin(1)).clamp(0, n)
+        hi = torch.floor(a.amax(1)).clamp(-1, n - 1)
+        return torch.nan_to_num(hi - lo + 1).clamp(min=0).double()
+    return float((centres(xs, W) * centres(ys, H) * ok).sum())
+
+
+def raster_bound(points3d, tests: float):
+    """(bound ms, what bounds it): three float32 input grids read and one
+    output written (16 B per pixel) over the memory rate, against the
+    needed tests' operations over the float32 rate."""
+    B, H, W, _ = points3d.shape
+    bytes_ms = 16 * B * H * W / HBM_BYTES_PER_S * 1e3
+    ops_ms = tests * RASTER_OPS_PER_TEST / F32_OPS_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def _np_grid_points(rng, B, H, W, jitter, f=8.0):
+    K = np.array([[f, 0, (W - 1) / 2], [0, f, (H - 1) / 2], [0, 0, 1]], np.float32)
+    z = 1.0 + jitter * rng.rand(B, H, W).astype(np.float32)
+    ys, xs = np.meshgrid(np.arange(H, dtype=np.float32),
+                         np.arange(W, dtype=np.float32), indexing="ij")
+    g = np.stack([xs, ys, np.ones_like(xs)], -1) @ np.linalg.inv(K).T
+    return (g[None] * z[..., None]).astype(np.float32), K
+
+
+def _celeba_views(renderer_mod, B, seed):
+    """Warped points of celeba's 128² renderer: a face-like canonical depth
+    in [0.9, 1.1] under seeded views scaled as Gan2Shape scales them."""
+    r = renderer_mod.NrRenderer(CELEBA_MODEL_CFGS, 128, device="cuda")
+    rs = np.random.RandomState(seed)
+    yy, xx = np.meshgrid(np.linspace(-1, 1, 128), np.linspace(-1, 1, 128),
+                         indexing="ij")
+    amp = rs.uniform(0.08, 0.15, (B, 1, 1))
+    depth = 1.05 - amp * np.exp(-2 * (xx ** 2 + yy ** 2))
+    depth = depth + rs.uniform(0, 0.003, (B, 128, 128))
+    view = rs.uniform(-1, 1, (B, 6)) * np.array(
+        [np.pi / 3] * 3 + [0.1] * 3)
+    R, t = renderer_mod.get_transform_matrices(
+        torch.from_numpy(view.astype(np.float32)).cuda())
+    pts = r.get_warped_3d_grid(torch.from_numpy(depth.astype(np.float32)).cuda(),
+                               R, t)
+    return pts, r.K, r.max_depth
+
+
+def raster_cases(renderer_mod):
+    dev = "cuda"
+    cases = []
+    for B, seed in ((1, 0), (4, 1)):
+        pts, K, bg = _celeba_views(renderer_mod, B, seed)
+        cases.append((f"celeba_128^2_B{B}", pts, K, bg))
+
+    def host(name, pts, K, bg=2.0):
+        cases.append((name, torch.from_numpy(np.ascontiguousarray(pts)).to(dev),
+                      torch.from_numpy(K).to(dev), bg))
+    rng = np.random.RandomState(0)
+    host("ragged_37x53", *_np_grid_points(rng, 1, 37, 53, jitter=0.3))
+    pts, K = _np_grid_points(rng, 1, 40, 48, jitter=0.2)
+    pts[0, 3:9, 4:12, 2] = -0.5          # behind the camera
+    pts[0, 20, 10, 2] = 0.0              # on the camera plane
+    pts[0, 25] = pts[0, 24]              # a collapsed row: zero-area quads
+    pts[0, 30:33, 5:9] = pts[0, 30, 5]   # a collapsed patch
+    pts[0, 35, 6:30] = pts[0, 35, 6] + np.linspace(0, 1, 24)[:, None] * \
+        (pts[0, 35, 29] - pts[0, 35, 6])  # a row of collinear vertices
+    host("behind_camera_degenerate_40x48", pts, K)
+    sheet, K = _np_grid_points(rng, 1, 32, 32, jitter=0.0, f=16.0)
+    host("two_sheet_64x32", np.concatenate([sheet, sheet * 1.5], axis=1), K)
+    off, K = _np_grid_points(rng, 1, 64, 64, jitter=0.1)
+    off[..., 0] += 100.0                 # the whole mesh off screen
+    host("all_background_64^2", off, K)
+    return cases
+
+
+def compare_raster(raster, name, pts, K, bg):
+    """Kernel vs plain on one input; returns the max abs diff."""
+    before = raster.launches
+    got = raster.raster_grid_depth_hard(pts, K, bg)
+    again = raster.raster_grid_depth_hard(pts, K, bg)
+    want = raster.raster_grid_depth_hard_plain(pts, K, bg)
+    torch.cuda.synchronize()
+    check(raster.launches == before + 2, f"{name}: the wrapper did not launch the kernel")
+    check(torch.equal(got, again), f"{name}: two runs differ")
+    cov_g, cov_w = got != bg, want != bg
+    n_diff = int((got != want).sum().item())
+    err = (got - want).abs().max().item()
+    check(torch.equal(cov_g, cov_w),
+          f"{name}: coverage differs at {int((cov_g != cov_w).sum().item())} pixels")
+    check(err <= TOL_RASTER, f"{name}: max abs diff {err} > {TOL_RASTER}")
+    print(f"raster {name}: shape={tuple(pts.shape)} covered={int(cov_g.sum().item())}"
+          f"/{got.numel()} unequal_pixels={n_diff} max_abs_diff={err:.3g} "
+          f"coverage identical", flush=True)
+    return err
+
+
+def time_raster(raster, pts, K, bg):
+    """Kernel and plain device times, the bound and what bounds it."""
+    sets = [(pts.clone(), K, bg) for _ in range(4)]
+    tests = raster_tests(pts, K)
+    bound_ms, bound_by = raster_bound(pts, tests)
+    return dict(ms=device_ms(raster.raster_grid_depth_hard, sets,
+                             names=RASTER_KERNELS),
+                wrapper_ms=device_ms(raster.raster_grid_depth_hard, sets),
+                call_ms=call_ms(raster.raster_grid_depth_hard, sets),
+                plain_ms=device_ms(raster.raster_grid_depth_hard_plain, sets,
+                                   reps=4),
+                bound_ms=bound_ms, bound_by=bound_by, tests=tests)
+
+
+def phase_raster(raster, renderer_mod, cuda_build):
+    phase("kernel vs plain: raster_grid_depth_hard (CUDA C++) vs plain PyTorch")
+    set_tf32(cudnn=False, matmul=False)
+    t0 = time.perf_counter()
+    so = cuda_build.build("raster_hard")
+    print(f"built {os.path.relpath(so)} in {time.perf_counter() - t0:.3f} s (set-up)")
+    with open(so[:-3] + ".log") as f:
+        print("ptxas: " + " | ".join(ln.strip() for ln in f
+                                       if "registers" in ln or "spill" in ln))
+    max_err = 0.0
+    for name, pts, K, bg in raster_cases(renderer_mod):
+        max_err = max(max_err, compare_raster(raster, name, pts, K, bg))
+        if name.startswith("celeba"):
+            t = time_raster(raster, pts, K, bg)
+            T = 2 * (pts.shape[1] - 1) * (pts.shape[2] - 1)
+            print(f"raster {name} timing: " + " ".join(
+                f"{k}={v:.6f}" if isinstance(v, float) else f"{k}={v}"
+                for k, v in t.items()) + f" unculled_tests="
+                f"{pts.shape[0] * pts.shape[1] * pts.shape[2] * T} (ms: device "
+                "time of the two kernels; wrapper_ms: with the projection; "
+                "call_ms: one call with its host launch)", flush=True)
+    return max_err
+
+
+# ---------------------------------------------------------------- phase 6 --
+def _g2s_outputs(fw, net, batch):
+    out, _ = fw.forward_test(net, {}, batch)
+    total, log, _ = fw.forward_step1(net, {}, batch)
+    res = {k: v.detach().float().cpu() for k, v in out.items()}
+    res["loss"] = float(total.detach())
+    res.update({k: float(v.detach()) for k, v in log.items()})
+    return res
+
+
+def phase_g2s_cpu_vs_card(g2s_module, dataset_cls):
+    phase("CPU vs card: Gan2Shape small config (32², nf 8), hard raster, float32")
+    set_tf32(cudnn=False, matmul=False)
+    batch = dataset_cls(n_samples=1, image_size=32, z_dim=32).setup_input(0)
+    cpu_fw = g2s_module.Gan2Shape(G2S_SMALL_CFG, device="cpu")
+    gpu_fw = g2s_module.Gan2Shape(G2S_SMALL_CFG)
+    cnet, _ = cpu_fw.init(0, batch)
+    gnet, _ = gpu_fw.init(0, batch)
+    for (k, a), (_, g) in zip(cnet.state_dict().items(), gnet.state_dict().items()):
+        check(torch.equal(a, g.cpu()), f"seeded weights differ at {k}")
+    c = _g2s_outputs(cpu_fw, cnet, batch)
+    g = _g2s_outputs(gpu_fw, gnet, batch)
+    bg = cpu_fw.max_depth
+    check(torch.equal(c["recon_depth"] != bg, g["recon_depth"] != bg),
+          "recon_depth coverage differs between the CPU and the card")
+    diffs = {}
+    for k, tol in TOL_G2S.items():
+        d = (c[k] - g[k]).abs().max().item()
+        diffs[k] = d
+        check(d <= tol, f"{k}: CPU vs card differ by {d} > {tol}")
+    for k in ("loss", "loss_l1", "loss_perc", "loss_smooth"):
+        rel = abs(c[k] - g[k]) / max(abs(c[k]), 1e-12)
+        diffs[k + "_rel"] = rel
+        check(rel <= TOL_G2S_LOSS_RTOL, f"{k}: CPU {c[k]!r} vs card {g[k]!r}")
+    print("g2s_cpu_vs_card: coverage identical, " + " ".join(
+        f"{k}={v:.3g}" for k, v in diffs.items()) + f" (tolerances {TOL_G2S}, "
+          f"losses rel {TOL_G2S_LOSS_RTOL})", flush=True)
+
+
+# ---------------------------------------------------------------- phase 7 --
+G2S_WARMUP, G2S_TIMED, G2S_STEP1_TIMED = 3, 20, 10
+# the renderer's steps, each a span of the --profile pass
+G2S_SPAN_METHODS = ("warp_canon_depth", "raster_depth", "get_normal_from_depth",
+                    "get_inv_warped_2d_grid", "_grid_sample_images")
+G2S_PROFILED = 3
+
+
+def phase_g2s_full_width(g2s_module, raster, dataset_cls, card, profile_dir=None):
+    phase("full width: Gan2Shape, configs/gan2shape/celeba.py model, 128², hard raster")
+    # PyTorch's defaults, as a user of the port runs: TF32 for float32
+    # convs, full float32 for matmuls
+    set_tf32(cudnn=True, matmul=False)
+    t0 = time.perf_counter()
+    data = dataset_cls(n_samples=1, image_size=128, z_dim=512).setup_input(0)
+    fw = g2s_module.Gan2Shape(CELEBA_MODEL_CFGS)
+    net, state = fw.init(0, data)
+    batch = fw.batch_to_device(data)
+    torch.cuda.synchronize()
+    print(f"set-up (synthetic face, init) {time.perf_counter() - t0:.3f} s")
+
+    splat_fw = g2s_module.Gan2Shape(dict(CELEBA_MODEL_CFGS, raster_mode="splat"))
+    splat_net, _ = splat_fw.init(0, data)
+    splat_net.load_state_dict(net.state_dict())
+
+    def splat():
+        return splat_fw.forward_test(splat_net, state, batch)[0]
+    per_call = []
+
+    def hard():
+        before = raster.launches
+        out, _ = fw.forward_test(net, state, batch)
+        per_call.append(raster.launches - before)
+        return out
+
+    def synced_ms(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    # the main path, hard mode, with splat mode's calls between its calls
+    # (splat launches no raster kernel): the two modes are timed in turns,
+    # hard first on even turns and splat first on odd ones, since the
+    # host-bound call time drifts within a run
+    raster.launches = 0                           # the main path starts here
+    for _ in range(G2S_WARMUP):
+        out = hard()
+        splat()
+    torch.cuda.synchronize()
+    lat, splat_lat = [], []
+    for i in range(G2S_TIMED):
+        for mode in (("hard", "splat") if i % 2 == 0 else ("splat", "hard")):
+            if mode == "hard":
+                ms, out = synced_ms(hard)
+                lat.append(ms)
+            else:
+                splat_lat.append(synced_ms(splat)[0])
+    launches = raster.launches                    # ... and ends here
+    check(all(n == 1 for n in per_call),
+          f"raster launches per forward_test: {per_call} (expected 1 each)")
+    check(launches == G2S_WARMUP + G2S_TIMED, f"raster launched {launches} times")
+    S = CELEBA_MODEL_CFGS["image_size"]
+    for k, shape in (("depth", (1, S, S)), ("albedo", (1, S, S, 3)),
+                     ("normal", (1, S, S, 3)), ("recon_im", (1, S, S, 3)),
+                     ("recon_depth", (1, S, S))):
+        check(tuple(out[k].shape) == shape, f"{k} shape {tuple(out[k].shape)}")
+        check(torch.isfinite(out[k]).all().item(), f"non-finite {k}")
+    covered = int((out["recon_depth"] != fw.max_depth).sum().item())
+    check(covered > 0, "the hard raster covered no pixel")
+
+    # peak over one call, total and above what was allocated before it
+    # (both models' weights stay allocated throughout)
+    peaks = {}
+    for name, fn in (("hard", hard), ("splat", splat)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        peaks[name] = f"max_memory_allocated_bytes={peak} call_peak_bytes={peak - held}"
+    weight_bytes = sum(p.numel() * p.element_size() for m in (net, fw.perceptual.net)
+                       for p in m.parameters())
+    t0 = time.perf_counter()
+    for _ in range(G2S_TIMED):
+        fw.forward_test(net, state, batch)
+    torch.cuda.synchronize()
+    b2b_ms = (time.perf_counter() - t0) * 1e3 / G2S_TIMED
+
+    step1 = lambda: fw.forward_step1(net, state, batch)   # noqa: E731
+    for _ in range(G2S_WARMUP):
+        step1()
+    step1_lat = [synced_ms(step1)[0] for _ in range(G2S_STEP1_TIMED)]
+    loss = float(step1()[0].detach())
+    check(np.isfinite(loss), f"non-finite step-1 loss {loss}")
+
+    med = statistics.median(lat)
+    print(f"g2s_full_width: card={card!r} raster_mode=hard B=1 S={S} "
+          f"forward_test_ms_median={med:.6f} forward_test_ms_max={max(lat):.6f} "
+          f"instances_per_s={1e3 / med:.6f} back_to_back_ms={b2b_ms:.6f} "
+          f"forward_step1_ms_median={statistics.median(step1_lat):.6f} "
+          f"forward_step1_ms_max={max(step1_lat):.6f} step1_loss={loss!r} "
+          f"{peaks['hard']} weight_bytes_per_model={weight_bytes} "
+          f"raster_launches={launches} covered_pixels={covered}", flush=True)
+    print(f"g2s_full_width: raster_mode=splat forward_test_ms_median="
+          f"{statistics.median(splat_lat):.6f} forward_test_ms_max={max(splat_lat):.6f} "
+          f"instances_per_s={1e3 / statistics.median(splat_lat):.6f} "
+          f"{peaks['splat']} (timed in turns with hard "
+          f"mode, {G2S_TIMED} calls each)", flush=True)
+
+    # no step of forward_test waits for the device
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    fw.forward_test(net, state, batch)
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("host syncs: none in Gan2Shape forward_test "
+          "(torch.cuda.set_sync_debug_mode('error'))", flush=True)
+
+    # the raster kernel against its plain version on this path's own input
+    seen = []
+    orig = fw.renderer.raster_depth
+    fw.renderer.raster_depth = lambda p: (seen.append(p.detach().clone()), orig(p))[1]
+    fw.forward_test(net, state, batch)
+    del fw.renderer.raster_depth                 # back to the class's method
+    pts = seen[0]
+    err = compare_raster(raster, "main_path_celeba_128^2_B1", pts, fw.renderer.K,
+                         fw.max_depth)
+    t = time_raster(raster, pts, fw.renderer.K, fw.max_depth)
+    print("raster main_path timing: " + " ".join(
+        f"{k}={v:.6f}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in t.items()), flush=True)
+    if profile_dir:
+        # the heads and the renderer's steps
+        profile("gan2shape profile", "call",
+                lambda: fw.forward_test(net, state, batch), G2S_PROFILED,
+                [(fw.renderer, n) for n in G2S_SPAN_METHODS],
+                list(net.named_children()),
+                os.path.join(profile_dir, "gan2shape_kernels.txt"))
+    return dict(t, launches=launches, max_abs_err=err)
+
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="also profile the full-width stream into DIR")
+                    help="also profile the full-width NeuralRecon stream and "
+                         "Gan2Shape forward_test into DIR")
     args = ap.parse_args()
 
     phase("device")
@@ -509,11 +894,20 @@ def main():
     from deep3dmap_tpu_torch.datasets.synthetic import make_fragment_sample
     from deep3dmap_tpu_torch.ops import fused_loss
 
+    import deep3dmap_tpu_torch.core.renderer.renderer_nr as renderer_mod
+    import deep3dmap_tpu_torch.models.frameworks.gan2shape as g2s_module
+    from deep3dmap_tpu_torch.datasets.gan_faces import SyntheticGanFaceDataset
+    from deep3dmap_tpu_torch.ops import _cuda, raster
+
     t0 = time.perf_counter()
     loss = phase_kernel_vs_plain(fused_loss)
     phase_cpu_vs_card(nr_module, _stack_samples, make_fragment_sample)
     launches = phase_full_width(nr_module, fused_loss, _stack_samples,
                                 make_fragment_sample, card, args.profile)
+    raster_err = phase_raster(raster, renderer_mod, _cuda)
+    phase_g2s_cpu_vs_card(g2s_module, SyntheticGanFaceDataset)
+    g2s = phase_g2s_full_width(g2s_module, raster, SyntheticGanFaceDataset,
+                               card, args.profile)
     print(f"phases took {time.perf_counter() - t0:.3f} s", flush=True)
 
     print(json.dumps({"kernels": [{
@@ -527,6 +921,18 @@ def main():
         "plain_ms": loss["plain_ms"],
         "bound_ms": loss["bound_ms"],
         "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "raster_grid_depth_hard",
+        "route": "cuda",
+        "source": "deep3dmap_tpu_torch/ops/csrc/raster_hard.cu",
+        "replaces": "deep3dmap_tpu/ops/raster_pallas.py:76",
+        "launches": g2s["launches"],
+        "max_abs_err": max(raster_err, g2s["max_abs_err"]),
+        "ms": g2s["ms"],
+        "plain_ms": g2s["plain_ms"],
+        "bound_ms": g2s["bound_ms"],
+        "bound_by": g2s["bound_by"],
         "library_ms": None,
     }]}))
     print(card)

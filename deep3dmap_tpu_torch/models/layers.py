@@ -1,4 +1,5 @@
-"""flax.linen layer semantics in PyTorch: ``Conv``, ``Dense``, ``GroupNorm``.
+"""flax.linen layer semantics in PyTorch: ``Conv``, ``ConvTranspose``,
+``Dense``, ``GroupNorm``.
 
 The JAX package builds every network from ``flax.linen`` layers.  These
 modules reproduce their numerics, so weights carried over by
@@ -101,6 +102,28 @@ class Conv(nn.Module):
         return y if b is None else y + b
 
 
+class ConvTranspose(nn.Module):
+    """``flax.linen.ConvTranspose`` on channel-last 2-D input, as EDDeconv
+    uses it: stride 1, ``padding="VALID"``, ``transpose_kernel=False``.
+
+    TRAP: flax does not flip the kernel: on a 1x1 input a 4x4 kernel gives
+    ``out[i, j] = K[3-i, 3-j] . x``.  ``torch.conv_transpose2d`` gives
+    ``w[i, j] . x``, so ``weight`` (torch layout ``(I, O, kh, kw)``) is the
+    flax kernel flipped in both spatial axes; ``from_flax`` owns the flip.
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: Sequence[int]):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(in_ch, out_ch, *kernel))
+        self.bias = nn.Parameter(torch.empty(out_ch))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _compute_dtype(x, self.weight, None)
+        y = F.conv_transpose2d(x.to(dt).movedim(-1, 1),
+                               self.weight.to(dt)).movedim(1, -1)
+        return y + self.bias.to(dt)
+
+
 class Dense(nn.Module):
     """``flax.linen.Dense`` on the last axis."""
 
@@ -169,9 +192,11 @@ def init_flax_defaults(module: nn.Module, gen: torch.Generator) -> None:
     Layers are visited in registration order, so a seed fixes the weights.
     """
     for m in module.modules():
-        if isinstance(m, (Conv, Dense)):
+        if isinstance(m, (Conv, ConvTranspose, Dense)):
             w = m.weight
-            _lecun_normal_(w, w.shape[1] * math.prod(w.shape[2:]), gen)
+            # fan-in: I of (O, I, *k) and (O, I), I of ConvTranspose's (I, O, *k)
+            fan_in = w.shape[0 if isinstance(m, ConvTranspose) else 1]
+            _lecun_normal_(w, fan_in * math.prod(w.shape[2:]), gen)
             if m.bias is not None:
                 with torch.no_grad():
                     m.bias.zero_()

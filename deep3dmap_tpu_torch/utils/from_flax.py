@@ -6,6 +6,9 @@ state dicts into flax trees), kept as the port's own copy:
   flax Conv kernel  (*k, I, O)  -> torch weight (O, I, *k)
   (depthwise HWIO with I=1 is the same rule: (kh, kw, 1, mid) -> (mid, 1, kh, kw))
   flax Dense kernel (I, O)      -> torch Linear weight (O, I)
+  flax ConvTranspose kernel (kh, kw, I, O) -> torch weight (I, O, kh, kw),
+    flipped in both spatial axes (flax's ``transpose_kernel=False`` does not
+    flip it; ``torch.conv_transpose2d`` does)
   GroupNorm / BlockGN scale     -> weight; every bias -> bias
 
 The port names its submodules after flax's auto-names (``Conv_0``,
@@ -22,7 +25,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..models.layers import Conv, Dense, GroupNorm
+from ..models.layers import Conv, ConvTranspose, Dense, GroupNorm
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -36,11 +39,14 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...
 
 
 def _leaf_map(module: nn.Module):
-    """torch param name -> (flax path, kind), kind in {"kernel", "plain"}."""
+    """torch param name -> (flax path, kind), kind in {"kernel",
+    "kernel_t", "plain"}."""
     out = {}
     for mname, m in module.named_modules():
         if isinstance(m, (Conv, Dense)):
             names = {"weight": ("kernel", "kernel"), "bias": ("bias", "plain")}
+        elif isinstance(m, ConvTranspose):
+            names = {"weight": ("kernel", "kernel_t"), "bias": ("bias", "plain")}
         elif isinstance(m, GroupNorm):
             names = {"weight": ("scale", "plain"), "bias": ("bias", "plain")}
         else:
@@ -67,6 +73,18 @@ def _kernel_to_flax(w: np.ndarray) -> np.ndarray:
     return np.transpose(w, tuple(range(2, n)) + (1, 0))
 
 
+def _kernel_t_to_torch(k: np.ndarray) -> np.ndarray:
+    return np.transpose(k, (2, 3, 0, 1))[:, :, ::-1, ::-1]
+
+
+def _kernel_t_to_flax(w: np.ndarray) -> np.ndarray:
+    return np.transpose(w[:, :, ::-1, ::-1], (2, 3, 0, 1))
+
+
+_TO_TORCH = {"kernel": _kernel_to_torch, "kernel_t": _kernel_t_to_torch}
+_TO_FLAX = {"kernel": _kernel_to_flax, "kernel_t": _kernel_t_to_flax}
+
+
 def _unwrap(flax_params: Mapping, module: nn.Module) -> Mapping:
     names = {n for n, _ in module.named_children()}
     if set(flax_params.keys()) == {"params"} and "params" not in names:
@@ -90,8 +108,8 @@ def load_flax_params(module: nn.Module, flax_params: Mapping) -> nn.Module:
     with torch.no_grad():
         for tname, (path, kind) in leaf_map.items():
             src = flat[path]
-            if kind == "kernel":
-                src = _kernel_to_torch(src)
+            if kind in _TO_TORCH:
+                src = _TO_TORCH[kind](src)
             dst = params[tname]
             if tuple(src.shape) != tuple(dst.shape):
                 raise ValueError(
@@ -108,8 +126,8 @@ def to_flax_params(module: nn.Module) -> Dict:
     tree: Dict = {}
     for tname, (path, kind) in _leaf_map(module).items():
         a = params[tname].detach().float().cpu().numpy()
-        if kind == "kernel":
-            a = _kernel_to_flax(a)
+        if kind in _TO_FLAX:
+            a = np.ascontiguousarray(_TO_FLAX[kind](a))
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})

@@ -49,6 +49,7 @@ def _no_gpu():
 def test_entry_points_raise_without_gpu():
     _no_gpu()
     from deep3dmap_tpu_torch.datasets.synthetic import make_fragment_sample
+    from deep3dmap_tpu_torch.models.frameworks.gan2shape import Gan2Shape
     from deep3dmap_tpu_torch.models.frameworks.neuralrecon import NeuralRecon
     from deep3dmap_tpu_torch.utils.device import resolve_device
 
@@ -56,6 +57,10 @@ def test_entry_points_raise_without_gpu():
         NeuralRecon(dict(N_VOX=[24] * 3, BACKBONE2D=dict(ARC="fpn-mnas-0.5")))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_fragment_sample(n_views=2, img_size=(16, 16), n_vox=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Gan2Shape(dict(image_size=32, nf=8, raster_mode="hard"))
+    assert Gan2Shape(dict(image_size=32, nf=8), device="cpu").device == \
+        torch.device("cpu")
     with pytest.raises(RuntimeError):
         resolve_device("cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")
