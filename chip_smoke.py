@@ -8,12 +8,13 @@
 Phases; any error ends the run with a nonzero exit and no result line:
 
 1. device: the card's name and power limit (``nvidia-smi``).
-2. kernel vs plain: the fused TSDF/occupancy loss (Triton) against its plain
-   PyTorch version on the card, at the three level sizes of the bench
-   pyramid (1x24³, 1x48³, 1x96³, the dtypes ``val_fn`` gives it), a ragged
-   size, an empty target, an all-zero mask and bf16 predictions.  Device
-   time of the kernels (torch.profiler, inputs cold in the L2) and the time
-   of one call with its host launch cost (CUDA events), beside the
+2. kernel vs plain: the fused TSDF/occupancy loss (one Triton kernel)
+   against its plain PyTorch version on the card, at the three level sizes
+   of the bench pyramid (1x24³, 1x48³, 1x96³, the dtypes ``val_fn`` gives
+   it), a ragged size, an empty target, an all-zero mask, bf16 predictions,
+   and two sizes called back to back (a ticket left unreset would show).
+   Device time of the call (torch.profiler, inputs cold in the L2) and the
+   time of one call with its host launch cost (CUDA events), beside the
    memory-rate bound.
 3. CPU vs card: the small block config at float32 with TF32 off, same
    seeded weights, ``forward_test`` over 2 fragments with carried state and
@@ -27,8 +28,12 @@ Phases; any error ends the run with a nonzero exit and no result line:
    ``deep3dmap_tpu_torch/ops/_build/``) against its plain PyTorch version on
    the card: celeba's 128² renderer under seeded views at B = 1 and 4, a
    ragged 37x53 grid, vertices behind the camera with degenerate triangles,
-   two sheets, and a view with every pixel background.  Identical coverage
-   and max abs diff <= 1e-6; device times beside the bound.
+   two sheets, a view with every pixel background, a zoomed grid whose
+   triangles take the overflow path, a celeba view with vertices pulled
+   near the camera (both paths), and a 128² mesh folded into a few pixels
+   (atomic contention).  Equal bit for bit; the overflow count against the
+   plain box rule; device times of every op the wrapper issues beside the
+   bound.
 6. CPU vs card (Gan2Shape): the small config at float32 with TF32 off, the
    same seeded weights, ``forward_test`` (hard raster) and the step-1 loss
    on the CPU and on the card.
@@ -130,7 +135,8 @@ def device_line() -> str:
 
 # ---------------------------------------------------------------- phase 2 --
 L2_BYTES = 50e6
-TRITON_STAGES = ("sums_kernel", "final_kernel")   # ops/fused_loss.py
+WINDOWS = 3          # profiler windows per device time
+TRITON_STAGES = ("loss_kernel",)   # ops/fused_loss.py
 
 
 def device_kernels(prof, names=None):
@@ -157,10 +163,7 @@ def cold_copies(args):
     return [tuple(a.clone() for a in args) for _ in range(n)]
 
 
-def device_ms(fn, arg_sets, names=None, reps: int = 64) -> float:
-    """Device time of one call: the CUDA kernels (those named by ``names``,
-    or all) that ``reps`` calls launch, summed by torch.profiler, over
-    ``reps``."""
+def _profile_window(fn, arg_sets, reps: int) -> dict:
     from torch.profiler import ProfilerActivity, profile as tprofile
     for a in arg_sets:
         fn(*a)
@@ -169,7 +172,27 @@ def device_ms(fn, arg_sets, names=None, reps: int = 64) -> float:
         for r in range(reps):
             fn(*arg_sets[r % len(arg_sets)])
         torch.cuda.synchronize()
-    return kernel_us(prof, names) / reps / 1e3
+    return {e.key: e.self_device_time_total / reps / 1e3
+            for e in device_kernels(prof)}
+
+
+def device_ops_ms(fn, arg_sets, reps: int = 64) -> dict:
+    """Device time of one call by device op (kernels and memsets, by name):
+    what ``reps`` calls issue, summed by torch.profiler, over ``reps``; of
+    ``WINDOWS`` such windows the one with the median total (one window read
+    0.011 and another 0.0066 ms for the same loss call)."""
+    ws = [_profile_window(fn, arg_sets, reps) for _ in range(WINDOWS)]
+    return sorted(ws, key=lambda d: sum(d.values()))[WINDOWS // 2]
+
+
+def device_ms(fn, arg_sets, names=None, reps: int = 64) -> float:
+    """Device time of one call: the device ops (those whose name holds one
+    of ``names``, or all) that ``reps`` calls issue, over ``reps``; the
+    median of ``WINDOWS`` windows."""
+    sums = [sum(v for k, v in _profile_window(fn, arg_sets, reps).items()
+                if names is None or any(n in k for n in names))
+            for _ in range(WINDOWS)]
+    return statistics.median(sums)
 
 
 def call_ms(fn, arg_sets, reps: int = 64) -> float:
@@ -255,13 +278,13 @@ def phase_kernel_vs_plain(fused_loss):
 
             def plain(*a):
                 return fused_loss.fused_tsdf_occ_loss_plain(*a, pos_weight=1.5)
-            # ms / plain_ms: the five sums alone (the two Triton stages; the
-            # plain version's partial_sums_plain); wrapper_*: with _combine
+            # ms: the Triton kernel; wrapper_ms: every device op of the
+            # call (the same: the wrapper issues nothing else); plain_ms:
+            # the whole plain loss, sums and combine
             t = dict(ms=device_ms(kern, sets, names=TRITON_STAGES),
-                     plain_ms=device_ms(fused_loss.partial_sums_plain, sets),
+                     plain_ms=device_ms(plain, sets),
                      bound_ms=loss_bound_ms(args),
                      wrapper_ms=device_ms(kern, sets),
-                     plain_wrapper_ms=device_ms(plain, sets),
                      call_ms=call_ms(kern, sets),
                      plain_call_ms=call_ms(plain, sets))
             for k, v in t.items():
@@ -270,11 +293,40 @@ def phase_kernel_vs_plain(fused_loss):
             line += f" input_copies={len(sets)}"
         print(line, flush=True)
     print("fused_loss per val_fn (3 levels): " + " ".join(
-        f"{k}={v:.6f}" for k, v in timed.items()) + " (ms, plain_ms: device "
-          "time of the five sums; wrapper_ms, plain_wrapper_ms: device time "
-          "of the whole loss; call_ms: one call with its host launch cost; "
-          f"bound: bytes over {HBM_BYTES_PER_S / 1e12} TB/s)", flush=True)
+        f"{k}={v:.6f}" for k, v in timed.items()) + " (ms: device time of "
+          "the kernel; wrapper_ms: of every device op of the call; plain_ms: "
+          "of the whole plain loss; call_ms: one call with its host launch "
+          f"cost; bound: bytes over {HBM_BYTES_PER_S / 1e12} TB/s)", flush=True)
+    max_err = max(max_err, loss_back_to_back(fused_loss, gen))
     return dict(timed, max_abs_err=max_err)
+
+
+def loss_back_to_back(fused_loss, gen) -> float:
+    """Two sizes (528 and 7 programs) called in turns without a sync: each
+    result equals its size's first bit for bit and the plain version within
+    TOL_LOSS, so the last program reset the ticket every time."""
+    sizes = {"96^3": loss_inputs(gen, (1, 96, 96, 96)),
+             "24^3": loss_inputs(gen, (1, 24, 24, 24))}
+    order = ["96^3", "24^3", "24^3", "96^3", "24^3", "96^3"]
+    before = fused_loss.launches
+    outs = [torch.stack(fused_loss.fused_tsdf_occ_loss(*sizes[k], pos_weight=1.5))
+            for k in order]
+    torch.cuda.synchronize()
+    check(fused_loss.launches == before + len(order),
+          f"back to back: {fused_loss.launches - before} launches for {len(order)} calls")
+    err = 0.0
+    for k, args in sizes.items():
+        want = torch.stack(fused_loss.fused_tsdf_occ_loss_plain(*args, pos_weight=1.5))
+        got = [o for o, name in zip(outs, order) if name == k]
+        for g in got:
+            check(torch.equal(g, got[0]), f"back to back {k}: {g.tolist()} vs "
+                  f"{got[0].tolist()}")
+        check(torch.allclose(got[0], want, **TOL_LOSS),
+              f"back to back {k}: kernel {got[0].tolist()} vs plain {want.tolist()}")
+        err = max(err, (got[0] - want).abs().max().item())
+    print(f"fused_loss back to back {order}: every call equals its size's first "
+          f"bit for bit, abs_err={err:.3g} against the plain version", flush=True)
+    return err
 
 
 # ---------------------------------------------------------------- phase 3 --
@@ -523,7 +575,9 @@ def profile(label, unit, call, n, wraps, modules, out_path):
 
 
 # ---------------------------------------------------------------- phase 5 --
-RASTER_KERNELS = ("raster_kernel", "row_bounds_kernel")   # ops/csrc/raster_hard.cu
+# ops/csrc/raster_hard.cu: the device ops of one call (two memsets, three
+# kernels); its time counts them all
+RASTER_KERNELS = ("tri_kernel", "big_kernel", "finalize_kernel")
 # per pixel-triangle test: dx2, dy2, two products,
 # a sum and a product for each of l0 and l1, two subtractions for l2, three
 # compares and an and
@@ -627,13 +681,38 @@ def raster_cases(renderer_mod):
     off, K = _np_grid_points(rng, 1, 64, 64, jitter=0.1)
     off[..., 0] += 100.0                 # the whole mesh off screen
     host("all_background_64^2", off, K)
+    # a 128² grid seen 20x magnified: its on-screen triangles are ~20 pixels
+    # wide, so their boxes exceed the fast path's and take the overflow path
+    zoom, K = _np_grid_points(rng, 1, 128, 128, jitter=0.05)
+    K = K.copy()
+    K[0, 0] = K[1, 1] = 8.0 * 20
+    host("zoomed_grid_128^2", zoom, K)
+    # a celeba view with three patches of vertices pulled near the camera
+    # (z > EPS): their triangles reach far and overflow, the rest stay fast
+    pts, K, bg = _celeba_views(renderer_mod, 1, 2)
+    pts = pts.clone()
+    for r, c in ((30, 40), (64, 64), (90, 20)):
+        pts[0, r:r + 3, c:c + 3, 2] = 0.02
+    cases.append(("celeba_near_camera_128^2", pts, K, bg))
+    # a 128² mesh folded into a 5x5-pixel patch: every pixel centre there is
+    # covered by many triangles, whose hits contend for its word
+    H = W = 128
+    f, cx = 8.0, (W - 1) / 2
+    rr, cc = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    u = 62.0 + 2.0 * np.sin(0.37 * cc) + 0.01 * rr
+    v = 62.0 + 2.0 * np.sin(0.29 * rr) + 0.01 * cc
+    z = 1.0 + 0.2 * rng.rand(H, W)
+    fold = np.stack([(u - cx) / f * z, (v - cx) / f * z, z], -1)[None]
+    K = np.array([[f, 0, cx], [0, f, cx], [0, 0, 1]], np.float32)
+    host("folded_128^2", fold.astype(np.float32), K)
     return cases
 
 
 def compare_raster(raster, name, pts, K, bg):
-    """Kernel vs plain on one input; returns the max abs diff."""
+    """Kernel vs plain on one input, bit for bit; returns the max abs diff
+    and the number of triangles that took the overflow path."""
     before = raster.launches
-    got = raster.raster_grid_depth_hard(pts, K, bg)
+    got, n_big = raster.raster_grid_depth_hard_cuda(pts, K, bg, overflow=True)
     again = raster.raster_grid_depth_hard(pts, K, bg)
     want = raster.raster_grid_depth_hard_plain(pts, K, bg)
     torch.cuda.synchronize()
@@ -645,10 +724,15 @@ def compare_raster(raster, name, pts, K, bg):
     check(torch.equal(cov_g, cov_w),
           f"{name}: coverage differs at {int((cov_g != cov_w).sum().item())} pixels")
     check(err <= TOL_RASTER, f"{name}: max abs diff {err} > {TOL_RASTER}")
+    check(n_diff == 0, f"{name}: {n_diff} pixels differ from the plain version")
+    n_big, n_plain = int(n_big.item()), int(raster.overflow_triangles_plain(pts, K))
+    check(n_big == n_plain, f"{name}: {n_big} triangles took the overflow path, "
+          f"the box rule gives {n_plain}")
+    T = 2 * pts.shape[0] * (pts.shape[1] - 1) * (pts.shape[2] - 1)
     print(f"raster {name}: shape={tuple(pts.shape)} covered={int(cov_g.sum().item())}"
           f"/{got.numel()} unequal_pixels={n_diff} max_abs_diff={err:.3g} "
-          f"coverage identical", flush=True)
-    return err
+          f"coverage identical overflow_triangles={n_big}/{T}", flush=True)
+    return err, n_big
 
 
 def time_raster(raster, pts, K, bg):
@@ -656,9 +740,14 @@ def time_raster(raster, pts, K, bg):
     sets = [(pts.clone(), K, bg) for _ in range(4)]
     tests = raster_tests(pts, K)
     bound_ms, bound_by = raster_bound(pts, tests)
-    return dict(ms=device_ms(raster.raster_grid_depth_hard, sets,
-                             names=RASTER_KERNELS),
-                wrapper_ms=device_ms(raster.raster_grid_depth_hard, sets),
+    ops = device_ops_ms(raster.raster_grid_depth_hard, sets)
+    for k in RASTER_KERNELS:
+        check(any(k in name for name in ops), f"raster: no {k} among {sorted(ops)}")
+    other = [k for k in ops if not any(n in k for n in RASTER_KERNELS + ("Memset",))]
+    check(not other, f"raster: the call issued device ops beside its own: {other}")
+    print("raster device ops per call (ms): " + " ".join(
+        f"{k[:40]!r}={v:.6f}" for k, v in sorted(ops.items())), flush=True)
+    return dict(ms=sum(ops.values()),
                 call_ms=call_ms(raster.raster_grid_depth_hard, sets),
                 plain_ms=device_ms(raster.raster_grid_depth_hard_plain, sets,
                                    reps=4),
@@ -676,7 +765,7 @@ def phase_raster(raster, renderer_mod, cuda_build):
                                        if "registers" in ln or "spill" in ln))
     max_err = 0.0
     for name, pts, K, bg in raster_cases(renderer_mod):
-        max_err = max(max_err, compare_raster(raster, name, pts, K, bg))
+        max_err = max(max_err, compare_raster(raster, name, pts, K, bg)[0])
         if name.startswith("celeba"):
             t = time_raster(raster, pts, K, bg)
             T = 2 * (pts.shape[1] - 1) * (pts.shape[2] - 1)
@@ -684,8 +773,8 @@ def phase_raster(raster, renderer_mod, cuda_build):
                 f"{k}={v:.6f}" if isinstance(v, float) else f"{k}={v}"
                 for k, v in t.items()) + f" unculled_tests="
                 f"{pts.shape[0] * pts.shape[1] * pts.shape[2] * T} (ms: device "
-                "time of the two kernels; wrapper_ms: with the projection; "
-                "call_ms: one call with its host launch)", flush=True)
+                "time of every op of the call, memsets included; call_ms: one "
+                "call with its host launch)", flush=True)
     return max_err
 
 
@@ -855,8 +944,8 @@ def phase_g2s_full_width(g2s_module, raster, dataset_cls, card, profile_dir=None
     fw.forward_test(net, state, batch)
     del fw.renderer.raster_depth                 # back to the class's method
     pts = seen[0]
-    err = compare_raster(raster, "main_path_celeba_128^2_B1", pts, fw.renderer.K,
-                         fw.max_depth)
+    err, n_big = compare_raster(raster, "main_path_celeba_128^2_B1", pts,
+                                fw.renderer.K, fw.max_depth)
     t = time_raster(raster, pts, fw.renderer.K, fw.max_depth)
     print("raster main_path timing: " + " ".join(
         f"{k}={v:.6f}" if isinstance(v, float) else f"{k}={v}"
@@ -868,7 +957,7 @@ def phase_g2s_full_width(g2s_module, raster, dataset_cls, card, profile_dir=None
                 [(fw.renderer, n) for n in G2S_SPAN_METHODS],
                 list(net.named_children()),
                 os.path.join(profile_dir, "gan2shape_kernels.txt"))
-    return dict(t, launches=launches, max_abs_err=err)
+    return dict(t, launches=launches, max_abs_err=err, overflow=n_big)
 
 
 

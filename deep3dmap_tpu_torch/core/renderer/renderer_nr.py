@@ -21,6 +21,7 @@ import torch
 
 from ...ops.grid_sample import grid_sample_2d_batch
 from ...ops.raster import raster_depth_st, splat_depth_soft
+from ...utils.device import DeviceLike, resolve_device
 
 EPS = 1e-7
 
@@ -71,11 +72,12 @@ def get_transform_matrices(view: torch.Tensor
 
 
 class NrRenderer:
-    """Renderer configuration plus pure tensor methods; ``device`` holds K."""
+    """Renderer configuration plus pure tensor methods; ``device`` holds K
+    (``None``: the GPU, raising without one; ``"cpu"`` by name)."""
 
-    def __init__(self, cfgs: dict, image_size: int, device="cpu"):
+    def __init__(self, cfgs: dict, image_size: int, device: DeviceLike = None):
         self.image_size = image_size
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.min_depth = cfgs.get("min_depth", 0.9)
         self.max_depth = cfgs.get("max_depth", 1.1)
         self.rot_center_depth = cfgs.get(

@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...utils.device import DeviceLike, resolve_device
 from ...utils.from_flax import load_flax_params
 from ..layers import Conv, init_flax_defaults
 
@@ -49,12 +50,14 @@ class _VGGFeatures(nn.Module):
 
 class PerceptualLoss:
     """Callable: ``loss(pred, target)`` -> (B,) distances.  ``net`` holds
-    the VGG weights on ``device``."""
+    the VGG weights on ``device`` (``None``: the GPU, raising without one;
+    ``"cpu"`` by name)."""
 
-    def __init__(self, seed: int = 0, device="cpu"):
+    def __init__(self, seed: int = 0, device: DeviceLike = None):
+        dev = resolve_device(device)
         self.net = _VGGFeatures().eval()
         init_flax_defaults(self.net, torch.Generator().manual_seed(int(seed)))
-        self.net.to(device)
+        self.net.to(dev)
 
     def load_flax(self, flax_params: Mapping) -> None:
         """Load a JAX ``PerceptualLoss.params`` tree (nested numpy arrays)."""

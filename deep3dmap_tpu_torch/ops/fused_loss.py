@@ -1,36 +1,41 @@
-"""Fused masked TSDF/occupancy loss: a Triton kernel for Hopper.
+"""Fused masked TSDF/occupancy loss: one Triton kernel for Hopper.
 
 Replaces the Pallas TPU kernel ``deep3dmap_tpu/ops/pallas_loss.py``
 (``_fwd_kernel``, reached through ``_partial_sums`` and
-``fused_tsdf_occ_loss``).  It streams five same-shape volumes once -- tsdf
-prediction ``t``, occupancy logit ``x``, tsdf target ``tt``, occupancy target
-``y`` and mask ``m`` -- and returns five float32 sums:
+``fused_tsdf_occ_loss``) and the combine after it.  It streams five
+same-shape volumes once -- tsdf prediction ``t``, occupancy logit ``x``, tsdf
+target ``tt``, occupancy target ``y`` and mask ``m`` -- into five float32
+sums:
 
     [Σm, Σm·y, Σm·y·(−logσx), Σm·(1−y)·(−logσ(−x)), Σm·y·|slog t − slog tt|]
 
-with slog(t) = sign(t)·log(|t| + 1).  ``_combine`` turns them into
-(total, occ_loss, tsdf_loss) with the dynamic positive weight, as plain tensor
-ops on the device (no host sync).
+with slog(t) = sign(t)·log(|t| + 1), and turns them into (total, occ_loss,
+tsdf_loss) with the dynamic positive weight, as ``_combine`` does.
 
 Bound on an H100: the work is a few dozen flops per element, so reading the
 five volumes bounds it.  At 96³ with f32 predictions and targets and a bool
 mask that is 884,736 × 17 B ≈ 15 MB, about 4.5 µs at 3.35 TB/s; at the
-24³/48³ levels the kernel is launch-bound.
+24³/48³ levels one launch's fixed cost bounds it.
 
 Design, not carried over from the TPU.  The TPU wrapper pads and casts every
 input into a fresh f32 array and walks one sequential grid that accumulates in
-SMEM.  Here:
+SMEM.  Here one launch does it all:
   * each program reads the inputs in their own dtypes (bf16 or f32
     predictions, bool/uint8 or f32 targets and mask), converts them in
     registers and masks the ragged tail itself -- no padded copies;
-  * stage 1 runs at most ``_MAX_PROGRAMS`` programs, each looping over tiles
-    of ``_BLOCK`` elements and writing its 5 partial sums to a
-    ``(n_programs, 8)`` f32 buffer -- no float atomics;
-  * stage 2 is one program that reduces that buffer in a fixed order, so a
-    run is bitwise repeatable.
-A CUDA tensor always launches the kernel and a failure raises; CPU tensors
-take ``fused_tsdf_occ_loss_plain``.  ``launches`` counts kernel launches (one
-per call that launches the two stages).
+  * at most ``_MAX_PROGRAMS`` programs each loop over tiles of ``_BLOCK``
+    elements and write their 5 partial sums to a ``(n_programs, 8)`` f32
+    buffer -- no float atomics;
+  * each program then takes a ticket (an int32 ``atomic_add`` with acq_rel
+    semantics, after a block barrier, so its partials are visible first);
+    the last one reads every partial past L1, reduces them in a fixed order,
+    so a run is bitwise repeatable, computes the three losses in-kernel and
+    resets the ticket to 0 for the next call.
+The ticket is allocated and zeroed once per (device, stream), so calls on
+one stream are ordered and never share it with another stream.  A CUDA
+tensor always launches the kernel and a failure raises; CPU tensors take
+``fused_tsdf_occ_loss_plain``.  ``launches`` counts kernel launches (one per
+call).
 
 The backward (``pallas_loss.py:112-139``) is training's and is not here yet.
 """
@@ -84,13 +89,14 @@ def fused_tsdf_occ_loss_plain(tsdf, occ, tsdf_t, occ_t, mask,
 
 
 @functools.lru_cache(maxsize=None)
-def _kernels():
+def _kernel():
     import triton
     import triton.language as tl
 
     @triton.jit
-    def sums_kernel(t_ptr, x_ptr, tt_ptr, y_ptr, m_ptr, part_ptr, n,
-                    tiles_per_prog, BLOCK: tl.constexpr):
+    def loss_kernel(t_ptr, x_ptr, tt_ptr, y_ptr, m_ptr, part_ptr, ticket_ptr,
+                    out_ptr, n, tiles_per_prog, pos_weight,
+                    BLOCK: tl.constexpr, NP: tl.constexpr):
         pid = tl.program_id(0)
         nprog = tl.num_programs(0)
         s_m = tl.zeros([BLOCK], tl.float32)
@@ -125,17 +131,46 @@ def _kernels():
         tl.store(row + 2, tl.sum(s_pos, axis=0))
         tl.store(row + 3, tl.sum(s_neg, axis=0))
         tl.store(row + 4, tl.sum(s_t, axis=0))
+        # every thread's stores happen before the ticket's release
+        tl.debug_barrier()
+        done = tl.atomic_add(ticket_ptr, 1, sem="acq_rel", scope="gpu")
+        if done == nprog - 1:
+            # the last program: every partial is visible; read them past L1
+            # and reduce each column in one fixed order
+            rows = tl.arange(0, NP)
+            live = rows < nprog
+            n_all = tl.sum(tl.load(part_ptr + rows * 8 + 0, mask=live, other=0.0,
+                                   cache_modifier=".cg"), axis=0)
+            n_p = tl.sum(tl.load(part_ptr + rows * 8 + 1, mask=live, other=0.0,
+                                 cache_modifier=".cg"), axis=0)
+            s2 = tl.sum(tl.load(part_ptr + rows * 8 + 2, mask=live, other=0.0,
+                                cache_modifier=".cg"), axis=0)
+            s3 = tl.sum(tl.load(part_ptr + rows * 8 + 3, mask=live, other=0.0,
+                                cache_modifier=".cg"), axis=0)
+            s4 = tl.sum(tl.load(part_ptr + rows * 8 + 4, mask=live, other=0.0,
+                                cache_modifier=".cg"), axis=0)
+            # _combine, op for op (IEEE divisions, as PyTorch divides)
+            w1 = tl.where(n_p > 0, tl.div_rn(n_all - n_p, tl.maximum(n_p, 1.0)),
+                          0.0) * pos_weight
+            occ_loss = tl.div_rn(w1 * s2 + s3, tl.maximum(n_all, 1.0))
+            tsdf_loss = tl.div_rn(s4, tl.maximum(n_p, 1.0))
+            total = tl.where(n_p > 0, occ_loss + tsdf_loss, 0.0)
+            tl.store(out_ptr + 0, total)
+            tl.store(out_ptr + 1, occ_loss)
+            tl.store(out_ptr + 2, tsdf_loss)
+            tl.atomic_xchg(ticket_ptr, 0, sem="relaxed", scope="gpu")
 
-    @triton.jit
-    def final_kernel(part_ptr, out_ptr, nprog, NP: tl.constexpr):
-        rows = tl.arange(0, NP)
-        cols = tl.arange(0, 8)
-        ok = (rows[:, None] < nprog) & (cols[None, :] < 5)
-        p = tl.load(part_ptr + rows[:, None] * 8 + cols[None, :], mask=ok,
-                    other=0.0)
-        tl.store(out_ptr + cols, tl.sum(p, axis=0), mask=cols < 5)
+    return triton, loss_kernel
 
-    return triton, sums_kernel, final_kernel
+
+_tickets = {}   # (device index, stream) -> int32 ticket, zero between calls
+
+
+def _ticket(dev: torch.device) -> torch.Tensor:
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if key not in _tickets:
+        _tickets[key] = torch.zeros((1,), device=dev, dtype=torch.int32)
+    return _tickets[key]
 
 
 def _flat_for_kernel(a: torch.Tensor) -> torch.Tensor:
@@ -150,26 +185,28 @@ def _flat_for_kernel(a: torch.Tensor) -> torch.Tensor:
     return a
 
 
-def partial_sums_cuda(tsdf, occ, tsdf_t, occ_t, mask) -> torch.Tensor:
-    """The five sums from the Triton kernel, float32, shape (5,)."""
+def fused_tsdf_occ_loss_cuda(tsdf, occ, tsdf_t, occ_t, mask,
+                             pos_weight: float = 1.0):
+    """The Triton kernel: (total, occ_loss, tsdf_loss), three 0-d views of
+    one 3-float device tensor."""
     global launches
     ins = [_flat_for_kernel(a) for a in (tsdf, occ, tsdf_t, occ_t, mask)]
     n = ins[0].numel()
     if n >= 2 ** 31 - _BLOCK * _MAX_PROGRAMS:
         raise ValueError("fused_tsdf_occ_loss: too many elements for int32 offsets")
-    triton, sums_kernel, final_kernel = _kernels()
+    triton, loss_kernel = _kernel()
     n_tiles = triton.cdiv(n, _BLOCK)
     nprog = max(1, min(n_tiles, _MAX_PROGRAMS))
     tiles_per_prog = triton.cdiv(n_tiles, nprog)
     dev = ins[0].device
     part = torch.empty((nprog, 8), device=dev, dtype=torch.float32)
-    out = torch.empty((8,), device=dev, dtype=torch.float32)
-    sums_kernel[(nprog,)](*ins, part, n, tiles_per_prog, BLOCK=_BLOCK,
+    out = torch.empty((3,), device=dev, dtype=torch.float32)
+    loss_kernel[(nprog,)](*ins, part, _ticket(dev), out, n, tiles_per_prog,
+                          float(pos_weight), BLOCK=_BLOCK,
+                          NP=max(16, triton.next_power_of_2(nprog)),
                           num_warps=4)
-    final_kernel[(1,)](part, out, nprog,
-                       NP=max(16, triton.next_power_of_2(nprog)), num_warps=4)
     launches += 1
-    return out[:5]
+    return out[0], out[1], out[2]
 
 
 def fused_tsdf_occ_loss(tsdf, occ, tsdf_t, occ_t, mask, pos_weight: float = 1.0):
@@ -189,4 +226,4 @@ def fused_tsdf_occ_loss(tsdf, occ, tsdf_t, occ_t, mask, pos_weight: float = 1.0)
     if devs != {"cuda"}:
         raise ValueError(f"fused_tsdf_occ_loss: inputs on {sorted(devs)}; "
                          "all must be on one CUDA device or all on the CPU")
-    return _combine(partial_sums_cuda(*args), pos_weight)
+    return fused_tsdf_occ_loss_cuda(*args, pos_weight=pos_weight)

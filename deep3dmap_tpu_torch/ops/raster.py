@@ -7,22 +7,29 @@ perspective-correct depth of the triangles that cover it, or ``background``.
 - ``raster_grid_depth_hard`` is the wrapper: a CUDA tensor launches the
   CUDA C++ kernel ``ops/csrc/raster_hard.cu`` (built by ``ops/_cuda.py`` at
   first use; a failed build or launch raises), a CPU tensor takes
-  ``raster_grid_depth_hard_plain``.  ``launches`` counts kernel launches.
+  ``raster_grid_depth_hard_plain``.  The kernel projects the points itself,
+  four threads per triangle, so a call is one ctypes call and no PyTorch op;
+  ``launches`` counts those calls.
 - ``raster_grid_depth_hard_plain`` is the same function in PyTorch ops:
-  ``grid_mesh_triangles`` (the TPU kernel's triangle list, same order), then
-  every pixel against every triangle, a chunk of triangles at a time with a
-  running ``torch.minimum`` (the full (H*W, T) test would not fit: 5.3e8
-  elements at 128²).  It is the CPU path and the kernel's reference.
+  ``project``, ``grid_mesh_triangles`` (the TPU kernel's triangle list, same
+  order), then every pixel against every triangle, a chunk of triangles at
+  a time with a running ``torch.minimum`` (the full (H*W, T) test would not
+  fit: 5.3e8 elements at 128²).  It is the CPU path and the kernel's
+  reference.
+- ``cull_box`` states the kernel's bounding-box rule (margin, clipping, the
+  overflow threshold ``FAST_PIXELS``); the CPU tests hold it against the
+  plain inside test.
 - ``splat_depth_soft``: softmax-z-buffer bilinear splatting, the scatter as
   ``index_add_``.
 - ``raster_depth_st``: the hard raster forward, the VJP of
   ``splat_depth_soft`` as its backward (plain ops: the TPU kernel has no
   backward kernel either).
 
-Both versions project the points with ``project`` (elementwise float32,
+The kernel projects in ``project``'s op order (elementwise float32,
 ``x * fx / z + cx`` in the order of the JAX package's ``proj @ K.T``) and
-evaluate the inside test in the op order of ``raster_pallas.py:107-120``, so
-on one device the kernel and the plain version give the same pixels.
+both versions evaluate the inside test in the op order of
+``raster_pallas.py:107-120``, so on one device the kernel and the plain
+version give the same pixels.
 """
 from __future__ import annotations
 
@@ -36,6 +43,8 @@ from . import _cuda
 
 EPS = 1e-7
 PLAIN_CHUNK = 1024
+# ops/csrc/raster_hard.cu: boxes of more pixels take the overflow kernel
+FAST_PIXELS = 64
 
 launches = 0     # kernel launches since the last reset
 
@@ -78,9 +87,9 @@ def grid_mesh_triangles(pix: torch.Tensor, z: torch.Tensor):
     return tris(px), tris(py), tris(z)
 
 
-def _zbuf_chunk(pxp, pyp, xs, ys, zs):
-    """Least covering depth of each pixel (P, 1) over triangles (3, CH),
-    +inf where none covers; raster_pallas.py:107-121, op for op."""
+def _hits(pxp, pyp, xs, ys, zs):
+    """Inside test and depth of each pixel (P, 1) against triangles (3, CH):
+    (inside (P, CH), depth (P, CH)); raster_pallas.py:107-120, op for op."""
     x0, x1, x2 = xs[0:1], xs[1:2], xs[2:3]
     y0, y1, y2 = ys[0:1], ys[1:2], ys[2:3]
     z0, z1, z2 = zs[0:1], zs[1:2], zs[2:3]
@@ -95,9 +104,57 @@ def _zbuf_chunk(pxp, pyp, xs, ys, zs):
     l2 = 1.0 - l0 - l1
     inside = (l0 >= 0) & (l1 >= 0) & (l2 >= 0) & ok
     inv_z = l0 / z0 + l1 / z1 + l2 / z2
-    zhit = torch.ones_like(inv_z) / torch.clamp(inv_z, min=EPS)
+    return inside, torch.ones_like(inv_z) / torch.clamp(inv_z, min=EPS)
+
+
+def _zbuf_chunk(pxp, pyp, xs, ys, zs):
+    """Least covering depth of each pixel (P, 1) over triangles (3, CH),
+    +inf where none covers."""
+    inside, zhit = _hits(pxp, pyp, xs, ys, zs)
     zhit = torch.where(inside, zhit, torch.full_like(zhit, float("inf")))
     return zhit.amin(dim=1)
+
+
+def cull_box(xs: torch.Tensor, ys: torch.Tensor, zs: torch.Tensor, H: int,
+             W: int):
+    """The kernel's pixel box of each triangle, float32 op for op as
+    ``raster_hard.cu::load_tri`` takes it.  xs, ys, zs (..., 3, T) ->
+    (x_lo, nx, y_lo, ny), int64 (..., T): columns x_lo .. x_lo + nx - 1 and
+    rows y_lo .. y_lo + ny - 1 (nx * ny = 0 for a dropped triangle).
+
+    A valid triangle's box is [floor(min - u) - 1, ceil(max + u) + 1] on
+    each axis, with u = 2^-16 m E² / |denom| for coordinates up to m (at
+    least W, H) and extent E: how far the rounding of the inside test can
+    reach past the triangle.  It is clipped to the image in float before any
+    cast, and is the whole image where the denominator is not finite.  A box
+    of more than ``FAST_PIXELS`` pixels takes the kernel's overflow path."""
+    x0, x1, x2 = xs.unbind(-2)
+    y0, y1, y2 = ys.unbind(-2)
+    z0, z1, z2 = zs.unbind(-2)
+    denom = (y1 - y2) * (x0 - x2) + (x2 - x1) * (y0 - y2)
+    ok = (denom.abs() > 1e-9) & (z0 > EPS) & (z1 > EPS) & (z2 > EPS)
+    whole = ok & ~torch.isfinite(denom)
+    xmin = torch.minimum(torch.minimum(x0, x1), x2)
+    xmax = torch.maximum(torch.maximum(x0, x1), x2)
+    ymin = torch.minimum(torch.minimum(y0, y1), y2)
+    ymax = torch.maximum(torch.maximum(y0, y1), y2)
+    ext = torch.maximum(xmax - xmin, ymax - ymin)
+    m = torch.maximum(torch.maximum(xmin.abs(), xmax.abs()),
+                      torch.maximum(ymin.abs(), ymax.abs()))
+    m = torch.clamp(m, min=float(max(W, H)))
+    u = (m * 2.0 ** -16) * (ext * (ext / denom.abs()))
+
+    def axis(cmin, cmax, n):
+        lo = torch.clamp(torch.floor(cmin - u) - 1.0, min=0.0)
+        hi = torch.clamp(torch.ceil(cmax + u) + 1.0, max=float(n - 1))
+        on = (hi >= lo) & ok
+        lo = torch.where(on & ~whole, lo, torch.zeros_like(lo))
+        cnt = torch.where(on, hi - lo + 1.0, torch.zeros_like(lo))
+        cnt = torch.where(whole, torch.full_like(cnt, float(n)), cnt)
+        return lo.long(), cnt.long()
+    x_lo, nx = axis(xmin, xmax, W)
+    y_lo, ny = axis(ymin, ymax, H)
+    return x_lo, nx, y_lo, ny
 
 
 def raster_grid_depth_hard_plain(points3d: torch.Tensor, K: torch.Tensor,
@@ -127,42 +184,61 @@ def raster_grid_depth_hard_plain(points3d: torch.Tensor, K: torch.Tensor,
     return torch.stack(out).reshape(B, H, W)
 
 
+def overflow_triangles_plain(points3d: torch.Tensor, K: torch.Tensor
+                             ) -> torch.Tensor:
+    """How many triangles take the kernel's overflow path (``cull_box``'s
+    box holds more than ``FAST_PIXELS`` pixels): a 0-d int64 tensor."""
+    B, H, W, _ = points3d.shape
+    px, py, z = project(points3d.float(), K.float())
+    xs, ys, zs = grid_mesh_triangles(torch.stack([px, py], -1), z)
+    _, nx, _, ny = cull_box(xs, ys, zs, H, W)
+    return (nx * ny > FAST_PIXELS).sum()
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
     fn = _cuda.load("raster_hard").d3m_raster_grid_depth_hard
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def raster_grid_depth_hard_cuda(points3d: torch.Tensor, K: torch.Tensor,
-                                background: float) -> torch.Tensor:
-    """The CUDA kernel on CUDA tensors; raises on anything it does not take."""
+                                background: float, overflow: bool = False):
+    """The CUDA kernel on CUDA tensors; raises on anything it does not take.
+    With ``overflow`` it returns (depth, n) where ``n`` is a one-element
+    int32 device tensor: the triangles that took the overflow path."""
     global launches
     if points3d.device.type != "cuda" or K.device != points3d.device:
         raise ValueError("raster_grid_depth_hard_cuda: points3d and K must be "
                          f"on one CUDA device, got {points3d.device} and "
                          f"{K.device}")
+    if points3d.dim() != 4 or points3d.shape[-1] != 3 or K.shape != (3, 3):
+        raise ValueError("raster_grid_depth_hard_cuda: points3d must be "
+                         f"(B, H, W, 3) and K (3, 3), got {tuple(points3d.shape)}"
+                         f" and {tuple(K.shape)}")
     B, H, W, _ = points3d.shape
-    if B * H * W >= 2 ** 31:
-        raise ValueError("raster_grid_depth_hard: too many pixels for int32")
+    if 8 * B * H * W >= 2 ** 31:   # 4 threads per triangle, int32 ids
+        raise ValueError("raster_grid_depth_hard: too many triangles for int32")
     dev = points3d.device
     out = torch.empty((B, H, W), device=dev, dtype=torch.float32)
+    n_tri = 2 * B * max(H - 1, 0) * max(W - 1, 0)
+    # the overflow count, then the overflow list
+    scratch = torch.empty((n_tri + 1,), device=dev, dtype=torch.int32)
     if out.numel() == 0:
-        return out
-    px, py, z = (a.contiguous() for a in project(points3d.float(), K.float()))
-    rowlo = torch.empty((B, H), device=dev, dtype=torch.float32)
-    rowhi = torch.empty_like(rowlo)
+        return (out, scratch[:1].zero_()) if overflow else out
+    pts = points3d.float().contiguous()
+    k = K.float().contiguous()
     fn = _kernel_fn()
     with torch.cuda.device(dev):
-        err = fn(px.data_ptr(), py.data_ptr(), z.data_ptr(), rowlo.data_ptr(),
-                 rowhi.data_ptr(), out.data_ptr(), B, H, W, float(background),
-                 torch.cuda.current_stream(dev).cuda_stream)
+        err = fn(pts.data_ptr(), k.data_ptr(), out.data_ptr(),
+                 scratch.data_ptr() + 4, scratch.data_ptr(), B, H, W,
+                 float(background), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"raster_grid_depth_hard: CUDA error {err} at launch")
     launches += 1
-    return out
+    return (out, scratch[:1]) if overflow else out
 
 
 def raster_grid_depth_hard(points3d: torch.Tensor, K: torch.Tensor,

@@ -64,3 +64,20 @@ def test_kernel_empty_target_and_zero_mask(cuda_device):
     zero[4] = torch.zeros_like(data[4])
     out = fused_loss.fused_tsdf_occ_loss(*zero, pos_weight=1.5)
     assert all(float(v) == 0.0 for v in out)
+
+
+@pytest.mark.cuda
+def test_kernel_back_to_back_two_sizes(cuda_device):
+    """Calls of two sizes (many programs, then few) in turns without a sync:
+    each equals its size's first result bit for bit, so the last program
+    resets the ticket every time."""
+    data = {n: _inputs(n, cuda_device) for n in (96 ** 3, 24 ** 3)}
+    order = [96 ** 3, 24 ** 3, 24 ** 3, 96 ** 3, 24 ** 3, 96 ** 3]
+    outs = [torch.stack(fused_loss.fused_tsdf_occ_loss(*data[n], pos_weight=1.5))
+            for n in order]
+    for n in data:
+        got = [o for o, k in zip(outs, order) if k == n]
+        assert all(torch.equal(g, got[0]) for g in got)
+        want = fused_loss.fused_tsdf_occ_loss_plain(*data[n], pos_weight=1.5)
+        for g, w in zip(got[0], want):
+            np.testing.assert_allclose(float(g), float(w), rtol=RTOL)

@@ -103,7 +103,7 @@ def test_eddeconv_matches_flax(rng, size, cout):
 
 def test_perceptual_loss_matches_jax(rng):
     jl = JPerceptual()
-    tl = PerceptualLoss(seed=3)
+    tl = PerceptualLoss(seed=3, device="cpu")
     tl.load_flax(_np_tree(jl.params))
     a = rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
     b = np.clip(a + rng.normal(0, 0.3, a.shape), -1, 1).astype(np.float32)

@@ -48,8 +48,10 @@ def _no_gpu():
 
 def test_entry_points_raise_without_gpu():
     _no_gpu()
+    from deep3dmap_tpu_torch.core.renderer.renderer_nr import NrRenderer
     from deep3dmap_tpu_torch.datasets.synthetic import make_fragment_sample
     from deep3dmap_tpu_torch.models.frameworks.gan2shape import Gan2Shape
+    from deep3dmap_tpu_torch.models.losses.perceptual_loss import PerceptualLoss
     from deep3dmap_tpu_torch.models.frameworks.neuralrecon import NeuralRecon
     from deep3dmap_tpu_torch.utils.device import resolve_device
 
@@ -61,6 +63,14 @@ def test_entry_points_raise_without_gpu():
         Gan2Shape(dict(image_size=32, nf=8, raster_mode="hard"))
     assert Gan2Shape(dict(image_size=32, nf=8), device="cpu").device == \
         torch.device("cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        NrRenderer(dict(min_depth=0.9, max_depth=1.1), 16)
+    assert NrRenderer(dict(min_depth=0.9, max_depth=1.1), 16,
+                      device="cpu").K.device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PerceptualLoss(seed=0)
+    assert next(PerceptualLoss(seed=0, device="cpu").net.parameters()).device \
+        == torch.device("cpu")
     with pytest.raises(RuntimeError):
         resolve_device("cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")

@@ -8,8 +8,9 @@ only the port's requirements:
 (``--noconftest``: ``tests/conftest.py`` sets JAX up.)  The first test builds
 ``ops/csrc/raster_hard.cu`` with ``nvcc``.  Without a CUDA device every test
 here skips.  The kernel and the plain version evaluate the inside test in
-the same float32 op order, so coverage must be identical and depths within
-1e-6.
+the same float32 op order, so coverage must be identical and the depths
+equal bit for bit; the overflow path's triangle count must match the plain
+box rule (``raster.overflow_triangles_plain``).
 """
 import numpy as np
 import pytest
@@ -43,14 +44,16 @@ def _compare(pts, K, dev, bg=BG):
     p = torch.from_numpy(np.ascontiguousarray(pts)).to(dev)
     k = torch.from_numpy(K).to(dev)
     before = raster.launches
-    got = raster.raster_grid_depth_hard(p, k, bg)
+    got, n_big = raster.raster_grid_depth_hard_cuda(p, k, bg, overflow=True)
     want = raster.raster_grid_depth_hard_plain(p, k, bg)
     torch.cuda.synchronize()
     assert raster.launches == before + 1
     assert torch.equal(got != bg, want != bg), \
         f"{int((got != want).sum())} pixels differ"
     assert (got - want).abs().max().item() <= 1e-6
-    return got
+    assert torch.equal(got, want)
+    assert int(n_big) == int(raster.overflow_triangles_plain(p, k))
+    return got, int(n_big)
 
 
 @pytest.mark.cuda
@@ -58,7 +61,7 @@ def _compare(pts, K, dev, bg=BG):
 def test_kernel_matches_plain_on_grids(cuda_device, B, H, W):
     rng = np.random.RandomState(H * W)
     pts, K = _grid_points(rng, B, H, W, jitter=0.3)
-    out = _compare(pts, K, cuda_device)
+    out, _ = _compare(pts, K, cuda_device)
     assert (out != BG).any()
 
 
@@ -90,8 +93,53 @@ def test_all_background_and_bad_inputs(cuda_device):
     rng = np.random.RandomState(2)
     pts, K = _grid_points(rng, 1, 16, 16, jitter=0.1)
     pts[..., 0] += 100.0                # the whole mesh off screen
-    out = _compare(pts, K, cuda_device)
+    out, _ = _compare(pts, K, cuda_device)
     assert (out == BG).all()
     with pytest.raises(ValueError):
         raster.raster_grid_depth_hard_cuda(torch.from_numpy(pts),
                                            torch.from_numpy(K), BG)
+
+
+def _zoomed():
+    """A 64² grid seen 20x magnified: the on-screen triangles are ~20 pixels
+    wide, so they take the overflow path."""
+    pts, K = _grid_points(np.random.RandomState(3), 1, 64, 64, jitter=0.05)
+    K = K.copy()
+    K[0, 0] = K[1, 1] = 8.0 * 20
+    return pts, K
+
+
+def _near_camera():
+    """A jittered grid with two patches of vertices pulled near the camera
+    (z > EPS): their triangles reach across the image, the rest stay small."""
+    pts, K = _grid_points(np.random.RandomState(4), 1, 48, 48, jitter=0.2)
+    pts[0, 10:13, 10:13, 2] = 0.02
+    pts[0, 30:32, 25:28, 2] = 0.05
+    return pts, K
+
+
+def _folded():
+    """A 64² mesh folded into a few pixels: many triangles cover each pixel
+    centre there, and their atomics contend."""
+    H = W = 64
+    f, cx = 8.0, (W - 1) / 2
+    rr, cc = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    u = 30.0 + 2.0 * np.sin(0.37 * cc) + 0.01 * rr
+    v = 30.0 + 2.0 * np.sin(0.29 * rr) + 0.01 * cc
+    z = 1.0 + 0.2 * np.random.RandomState(5).rand(H, W)
+    pts = np.stack([(u - cx) / f * z, (v - cx) / f * z, z], -1)[None]
+    K = np.array([[f, 0, cx], [0, f, cx], [0, 0, 1]], np.float32)
+    return pts.astype(np.float32), K
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["zoomed", "near_camera", "folded"])
+def test_kernel_matches_plain_on_overflow_and_contention(cuda_device, case):
+    pts, K = dict(zoomed=_zoomed, near_camera=_near_camera, folded=_folded)[case]()
+    out, n_big = _compare(pts, K, cuda_device)
+    n_tri = 2 * (pts.shape[1] - 1) * (pts.shape[2] - 1)
+    assert (out != BG).any()
+    if case == "zoomed":
+        assert n_big > 0
+    if case == "near_camera":
+        assert 0 < n_big < n_tri

@@ -36,7 +36,7 @@ def _close(j, t, atol=1e-5):
 
 def _pair(mode="splat"):
     cfg = dict(CFG, raster_mode=mode)
-    return JR.NrRenderer(cfg, S), TR.NrRenderer(cfg, S)
+    return JR.NrRenderer(cfg, S), TR.NrRenderer(cfg, S, device="cpu")
 
 
 def _depth(rng, b=2):
@@ -152,7 +152,7 @@ def test_render_yaw(rng, mode):
 
 
 def test_hard_mode_gradient_flows_through_straight_through():
-    tr = TR.NrRenderer(dict(CFG, raster_mode="hard"), S)
+    tr = TR.NrRenderer(dict(CFG, raster_mode="hard"), S, device="cpu")
     depth = torch.full((1, S, S), 1.0, requires_grad=True)
     R, t = TR.get_transform_matrices(torch.tensor([[0.05, 0.1, 0.0, 0.01, 0.0, 0.0]]))
     tr.warp_canon_depth(depth, R, t).sum().backward()
