@@ -44,6 +44,24 @@ Phases; any error ends the run with a nonzero exit and no result line:
    ``forward_step1``, and the raster kernel against its plain version on
    this path's own inputs.
 
+8. kernel vs plain (loss backward), run after phase 2: the Triton
+   ``loss_bwd_kernel`` against ``fused_tsdf_occ_loss_bwd_plain`` on the
+   card, given the same sums (from the forward kernel) and cotangents: the
+   three level sizes in the dtypes ``loss_fn`` hands it, a ragged size with
+   bf16 predictions, an empty target, an all-zero mask, bf16 predictions at
+   96³, each of g_total, g_occ and g_tsdf alone, and once through autograd.
+   Device time against the bytes bound.
+9. CPU vs card (training), run after phase 3: the small block config at
+   float32 with TF32 off, the same seeded weights, two ``train_step`` calls
+   (clip + Adam) on the CPU and on the card; identical block ids, losses,
+   every parameter's gradient, the parameters after the two steps.
+10. full width (training), run after phase 4: the bench config with seeded
+   weights, ``Adam(1e-3)`` after ``clip(1.0)`` as ``bench.py:218`` has it,
+   the fragment and the state carried from step to step: 2 warm-up, 5 timed
+   back to back and 5 synced steps; 3 loss forward and 3 backward launches
+   per step, finite gradients, parameters that moved, no host sync, and the
+   backward kernel against its plain version on this path's own inputs.
+
 Before the last line it prints one ``{"kernels": [...]}`` line; the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -97,6 +115,8 @@ BENCH_CFGS = dict(
                     REMAT=False, INFER_MODE="batch"))
 N_VIEWS, IMG_HW, N_VOX = 9, (480, 640), 96
 WARMUP, TIMED = 2, 10
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+ADAM, CLIP = dict(type="Adam", lr=1e-3), dict(max_norm=1.0)   # bench.py:218
 
 
 def fail(msg: str):
@@ -141,11 +161,13 @@ TRITON_STAGES = ("loss_kernel",)   # ops/fused_loss.py
 
 def device_kernels(prof, names=None):
     """The CUDA kernels of a torch.profiler profile (averaged by name),
-    without the device-side copies of ``span:`` ranges; only those whose
-    name holds one of ``names`` when given."""
+    without the device-side copies of ranges (``span:`` ones and torch's
+    ``Optimizer.step``); only those whose name holds one of ``names`` when
+    given."""
     from torch.autograd import DeviceType
     return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and not e.key.startswith("span:")
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith(("span:", "Optimizer."))
             and (names is None or any(n in e.key for n in names))]
 
 
@@ -329,6 +351,140 @@ def loss_back_to_back(fused_loss, gen) -> float:
     return err
 
 
+# ---------------------------------------------------------------- phase 8 --
+# backward kernel vs plain: the same elementwise ops in the same order, but
+# exp, log and the FMAs Triton forms may differ by an ulp; a bf16 gradient
+# may round that ulp to the next bf16 value
+TOL_LOSS_BWD = {torch.float32: dict(rtol=1e-5, atol=1e-12),
+                torch.bfloat16: dict(rtol=2 ** -7, atol=1e-12)}
+BWD_STAGES = ("loss_bwd_kernel",)   # ops/fused_loss.py
+
+
+def loss_bwd_bound_ms(args) -> float:
+    """The five inputs read and d_tsdf, d_occ written (plus the 5 sums and 3
+    cotangents) over the memory rate; a few dozen flops per element are far
+    below the float32 rate."""
+    t, x = args[0], args[1]
+    nbytes = (sum(a.numel() * a.element_size() for a in args[:5])
+              + t.numel() * t.element_size() + x.numel() * x.element_size() + 8 * 4)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def compare_loss_bwd(fused_loss, name, args, g) -> float:
+    """The backward kernel against the plain version on one input, given the
+    forward kernel's sums and the cotangents ``g``; returns the max abs
+    difference and the kernel's (d_tsdf, d_occ)."""
+    out = fused_loss.fused_tsdf_occ_loss_cuda(*args, pos_weight=1.5)
+    before = fused_loss.bwd_launches
+    got = fused_loss.fused_tsdf_occ_loss_bwd_cuda(*args, out, g, 1.5)
+    again = fused_loss.fused_tsdf_occ_loss_bwd_cuda(*args, out, g, 1.5)
+    want = fused_loss.fused_tsdf_occ_loss_bwd_plain(*args, out[3:], g, 1.5)
+    torch.cuda.synchronize()
+    check(fused_loss.bwd_launches == before + 2,
+          f"{name}: the wrapper did not launch the backward kernel")
+    err = 0.0
+    for what, a, b, c in zip(("d_tsdf", "d_occ"), got, again, want):
+        check(a.dtype == c.dtype and a.shape == c.shape,
+              f"{name} {what}: {a.dtype} {tuple(a.shape)} vs {c.dtype} {tuple(c.shape)}")
+        check(torch.equal(a, b), f"{name} {what}: two runs differ")
+        check(torch.isfinite(a).all().item(), f"{name} {what}: non-finite")
+        tol = TOL_LOSS_BWD[a.dtype]
+        check(torch.allclose(a.float(), c.float(), **tol),
+              f"{name} {what}: kernel vs plain max abs diff "
+              f"{(a.float() - c.float()).abs().max().item()} (tol {tol})")
+        err = max(err, (a.float() - c.float()).abs().max().item())
+    return err, got
+
+
+def phase_loss_bwd(fused_loss):
+    phase("kernel vs plain: fused_tsdf_occ_loss backward (Triton) vs plain PyTorch")
+    set_tf32(cudnn=False, matmul=False)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bf16, b, f32 = torch.bfloat16, torch.bool, torch.float32
+    first = torch.tensor([1.0, 0.0, 0.0], device="cuda")
+
+    def f32_mask(args):     # loss_fn hands the mask over as float32
+        return args[:4] + (args[4].to(f32),)
+    cases = [(f"level{i}_{d}^3", f32_mask(loss_inputs(gen, (1, d, d, d))), first)
+             for i, d in enumerate((24, 48, 96))]
+    cases += [("ragged_1000003_bf16", loss_inputs(gen, (1000003,), pred_dtype=bf16,
+                                                  target_dtype=b), first),
+              ("empty_target_48^3", loss_inputs(gen, (1, 48, 48, 48),
+                                                empty_target=True),
+               torch.tensor([1.0, 0.5, 0.25], device="cuda")),
+              ("zero_mask_48^3", loss_inputs(gen, (1, 48, 48, 48), zero_mask=True),
+               torch.tensor([1.0, 0.5, 0.25], device="cuda")),
+              ("bf16_pred_96^3", loss_inputs(gen, (1, 96, 96, 96), pred_dtype=bf16,
+                                             target_dtype=b), first)]
+    alone = f32_mask(loss_inputs(gen, (1, 48, 48, 48)))
+    for k, gname in enumerate(("g_total", "g_occ", "g_tsdf")):
+        cases.append((f"{gname}_alone_48^3", alone,
+                      torch.eye(3, device="cuda")[k].contiguous()))
+    max_err, timed = 0.0, {}
+    for name, args, g in cases:
+        err, got = compare_loss_bwd(fused_loss, name, args, g)
+        max_err = max(max_err, err)
+        if name.startswith("zero_mask"):
+            check(not any(d.any().item() for d in got), f"{name}: nonzero gradient")
+        if name.startswith("empty_target"):
+            check(not got[0].any().item(), f"{name}: nonzero tsdf gradient")
+        line = (f"fused_loss_bwd {name}: n={args[0].numel()} dtypes="
+                f"{[str(a.dtype).replace('torch.', '') for a in args]} "
+                f"g={g.tolist()} abs_err={err:.3g}")
+        if name.startswith("level"):
+            t = time_loss_bwd(fused_loss, args, g)
+            for k, v in t.items():
+                timed[k] = timed.get(k, 0.0) + v
+            line += " " + " ".join(f"{k}={v:.6f}" for k, v in t.items())
+        print(line, flush=True)
+    print("fused_loss_bwd per train step (3 levels): " + " ".join(
+        f"{k}={v:.6f}" for k, v in timed.items()) + " (ms: device time of "
+          "loss_bwd_kernel; plain_ms: of the plain backward; call_ms: one call "
+          f"with its host launch; bound: bytes over {HBM_BYTES_PER_S / 1e12} TB/s; "
+          f"tolerances {TOL_LOSS_BWD})", flush=True)
+    max_err = max(max_err, loss_bwd_through_autograd(fused_loss, gen))
+    return dict(timed, max_abs_err=max_err)
+
+
+def time_loss_bwd(fused_loss, args, g) -> dict:
+    """Device times of the backward kernel and of the plain backward on cold
+    copies of one input, and the bytes bound."""
+    out = fused_loss.fused_tsdf_occ_loss_cuda(*args, pos_weight=1.5)
+    sets = cold_copies(tuple(args) + (out, g))
+
+    def kern(*a):
+        return fused_loss.fused_tsdf_occ_loss_bwd_cuda(*a[:5], a[5], a[6], 1.5)
+
+    def plain(*a):
+        return fused_loss.fused_tsdf_occ_loss_bwd_plain(*a[:5], a[5][3:], a[6], 1.5)
+    return dict(ms=device_ms(kern, sets, names=BWD_STAGES),
+                plain_ms=device_ms(plain, sets),
+                bound_ms=loss_bwd_bound_ms(args),
+                call_ms=call_ms(kern, sets))
+
+
+def loss_bwd_through_autograd(fused_loss, gen) -> float:
+    """``fused_tsdf_occ_loss`` differentiated by autograd launches each kernel
+    once and gives the direct backward call's bits."""
+    args = loss_inputs(gen, (1, 48, 48, 48))
+    t = args[0].clone().requires_grad_()
+    x = args[1].clone().requires_grad_()
+    before = (fused_loss.launches, fused_loss.bwd_launches)
+    losses = fused_loss.fused_tsdf_occ_loss(t, x, *args[2:], pos_weight=1.5)
+    got = torch.autograd.grad(losses[0] * 0.8, (t, x))
+    torch.cuda.synchronize()
+    check((fused_loss.launches, fused_loss.bwd_launches) == (before[0] + 1, before[1] + 1),
+          "autograd: expected one forward and one backward launch")
+    g = torch.tensor([0.8, 0.0, 0.0], device="cuda")
+    err, direct = compare_loss_bwd(fused_loss, "autograd_48^3", args, g)
+    for a, b in zip(got, direct):
+        check(torch.equal(a, b), "autograd: the Function's gradient differs from "
+              "the direct backward call")
+    print(f"fused_loss_bwd through autograd: 1 forward + 1 backward launch, equal "
+          f"to the direct call bit for bit, abs_err={err:.3g}", flush=True)
+    return err
+
+
 # ---------------------------------------------------------------- phase 3 --
 def _record_block_ids(nr_module):
     """Wrap the framework's ``select_blocks`` so every chosen block set is
@@ -398,6 +554,94 @@ def phase_cpu_vs_card(nr_module, stack, make_sample):
           f"back-projection table turns float32 sum-order differences into "
           f"occasional one-ulp bf16 steps), val cpu={c['val']!r} "
           f"card={g['val']!r} rel={rel:.3g}", flush=True)
+
+
+# ---------------------------------------------------------------- phase 9 --
+# CPU vs card, training.  The backward is sensitive to its forward: a ReLU
+# input within the forward's float32 difference of 0 passes or blocks its
+# gradient and GroupNorm spreads that over its group, so gradients agree
+# to the tolerances measured between the port and JAX on the CPU
+# (tests/test_torch_neuralrecon_train.py), not to float32 rounding.  Two Adam
+# steps move a weight by at most ~1.0014 lr each, so two runs whose
+# gradients differ in sign end at most 4.006 lr apart; the two runs' updates
+# differed by 0.103 of their norm on an H100 (0.6% of the weights more than
+# lr apart).
+TOL_TRAIN = dict(loss_rtol=1e-4, leaf=5e-2, backbone_leaf=1e-1, whole=2e-2,
+                 param_abs=4.006 * ADAM["lr"], update=0.25)
+
+
+def _leaf_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30)).item()
+
+
+def _train_two_steps(nr_module, train_mod, fw, frags):
+    state = train_mod.init_train_state(fw, 0, frags[0], ADAM, CLIP)
+    net = state.net
+    ids, restore = _record_block_ids(nr_module)
+    logs, grads = [], None
+    for b in frags:
+        state, log = train_mod.train_step(fw, state, b)
+        logs.append({k: float(v) for k, v in log.items()})
+        if grads is None:      # the first step's (clipped) gradients
+            grads = {n: p.grad.detach().cpu().clone() for n, p in net.named_parameters()}
+    restore()
+    return dict(ids=ids, logs=logs, grads=grads,
+                params={n: p.detach().cpu().clone() for n, p in net.named_parameters()})
+
+
+def phase_train_cpu_vs_card(nr_module, train_mod, stack, make_sample):
+    phase("CPU vs card: small block config, float32, 2 train steps (clip + Adam)")
+    set_tf32(cudnn=False, matmul=False)
+    frags = []
+    for k, pair in enumerate(((0, 1), (2, 3))):
+        b = stack([make_sample(seed=s, n_views=3, img_size=(64, 64), n_vox=32,
+                               voxel_size=0.08, device="cpu") for s in pair])
+        b["scene_reset"] = np.full(2, 1.0 if k == 0 else 0.0, np.float32)
+        frags.append(b)
+    cpu_fw = nr_module.NeuralRecon(BLOCK_CFGS, device="cpu")
+    gpu_fw = nr_module.NeuralRecon(BLOCK_CFGS)
+    c = _train_two_steps(nr_module, train_mod, cpu_fw, frags)
+    g = _train_two_steps(nr_module, train_mod, gpu_fw, frags)
+    # the seeded init, recomputed: both sides start from these weights
+    cpu_fw.init(0, frags[0])
+    p0 = {n: p.detach().clone() for n, p in cpu_fw.net.named_parameters()}
+    check(len(c["ids"]) == len(g["ids"]) == 4, "expected 4 block selections")
+    for k, (a, b) in enumerate(zip(c["ids"], g["ids"])):
+        check(torch.equal(a, b), f"block ids differ at selection {k}")
+
+    def rel(step, k):
+        a, b = c["logs"][step][k], g["logs"][step][k]
+        return abs(a - b) / max(abs(a), 1e-12)
+    losses = [k for k in c["logs"][0] if k != "grad_norm"]
+    loss1 = max(rel(0, k) for k in losses)
+    loss2 = max(rel(1, k) for k in losses)
+    names = list(c["grads"])
+    leaf = {n: _leaf_rel(g["grads"][n], c["grads"][n]) for n in names}
+    flat = lambda d: torch.cat([d[n].reshape(-1) for n in names])   # noqa: E731
+    whole = _leaf_rel(flat(g["grads"]), flat(c["grads"]))
+    gn_rel = rel(0, "grad_norm")
+    p_abs = max((g["params"][n] - c["params"][n]).abs().max().item() for n in names)
+    moved = sum(int((c["params"][n] != p0[n]).sum()) for n in names)
+    apart = sum(int(((g["params"][n] - c["params"][n]).abs() > ADAM["lr"]).sum())
+                for n in names)
+    upd = _leaf_rel(flat(g["params"]) - flat(p0), flat(c["params"]) - flat(p0))
+    print(f"train_cpu_vs_card: block ids identical ({len(g['ids'])} selections), "
+          f"step-1 losses rel {loss1:.3g}, step-2 losses rel {loss2:.3g}, "
+          f"grad norm cpu={c['logs'][0]['grad_norm']!r} "
+          f"card={g['logs'][0]['grad_norm']!r}, gradients: max leaf rel "
+          f"{max(leaf.values()):.3g} (off backbone2d "
+          f"{max(v for n, v in leaf.items() if not n.startswith('backbone2d')):.3g}), "
+          f"whole {whole:.3g}; parameters after 2 steps: max abs diff {p_abs:.3g}, "
+          f"{apart} of {moved} moved weights more than lr apart, update rel {upd:.3g} "
+          f"(tolerances {TOL_TRAIN})", flush=True)
+    check(loss1 <= TOL_TRAIN["loss_rtol"], f"step-1 losses CPU vs card off by {loss1}")
+    bad = {n: v for n, v in leaf.items() if v > TOL_TRAIN[
+        "backbone_leaf" if n.startswith("backbone2d") else "leaf"]}
+    check(not bad, f"gradients off per leaf: {bad}")
+    check(whole <= TOL_TRAIN["whole"] and gn_rel <= TOL_TRAIN["whole"],
+          f"whole gradient off by {whole}, its norm by {gn_rel}")
+    check(p_abs <= TOL_TRAIN["param_abs"] and upd <= TOL_TRAIN["update"],
+          f"parameters after 2 steps differ by {p_abs}, their updates by {upd}")
 
 
 # ---------------------------------------------------------------- phase 4 --
@@ -481,6 +725,117 @@ def phase_full_width(nr_module, fused_loss, stack, make_sample, card,
                 [(n, getattr(m, "fpn", m)) for n, m in net.named_children()],
                 os.path.join(profile_dir, "kernels.txt"))
     return launches
+
+
+# ---------------------------------------------------------------- phase 10 --
+def phase_train_full_width(nr_module, fused_loss, train_mod, stack,
+                           make_sample, card, profile_dir=None):
+    phase("full width: training, bench.py config, 9x480x640, 96^3, clip + Adam")
+    set_tf32(cudnn=True, matmul=False)   # PyTorch's defaults, as in phase 4
+    t0 = time.perf_counter()
+    batch = stack([make_sample(seed=0, n_views=N_VIEWS, img_size=IMG_HW,
+                               n_vox=N_VOX, voxel_size=0.04, device="cuda")])
+    fw = nr_module.NeuralRecon(BENCH_CFGS)
+    state = train_mod.init_train_state(fw, 0, batch, ADAM, CLIP)
+    net = state.net
+    dev = fw.batch_to_device(batch)      # pinned on the card, as bench.py
+    p0 = [p.detach().clone() for p in net.parameters()]
+    torch.cuda.synchronize()
+    print(f"set-up (synthetic fragment, init) {time.perf_counter() - t0:.3f} s")
+    per_step, st = [], [state]
+
+    def step():
+        f0, b0 = fused_loss.launches, fused_loss.bwd_launches
+        st[0], log = train_mod.train_step(fw, st[0], dev)
+        per_step.append((fused_loss.launches - f0, fused_loss.bwd_launches - b0))
+        return log
+
+    fused_loss.launches = fused_loss.bwd_launches = 0   # the main path starts here
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_WARMUP):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED):
+        log = step()
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TRAIN_TIMED
+    lat = []
+    for _ in range(TRAIN_TIMED):                  # one step at a time
+        t0 = time.perf_counter()
+        log = step()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    launches = (fused_loss.launches, fused_loss.bwd_launches)   # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+
+    n_steps = TRAIN_WARMUP + 2 * TRAIN_TIMED
+    check(per_step == [(3, 3)] * n_steps,
+          f"loss (forward, backward) launches per step: {per_step}, expected (3, 3)")
+    check(launches == (3 * n_steps, 3 * n_steps), f"loss launches {launches}")
+    log = {k: float(v) for k, v in log.items()}
+    check(all(np.isfinite(v) for v in log.values()), f"non-finite log {log}")
+    for n, p in net.named_parameters():
+        check(p.grad is not None and torch.isfinite(p.grad).all().item(),
+              f"missing or non-finite gradient at {n}")
+    moved = sum(int((p.detach() != q).sum().item()) for p, q in zip(net.parameters(), p0))
+    n_params = sum(p.numel() for p in p0)
+    check(moved > 0.5 * n_params, f"only {moved} of {n_params} weights moved")
+    for v in st[0].model_state["global_hidden"].volumes:
+        check(torch.isfinite(v).all().item(), "non-finite hidden state")
+    print(f"train_full_width: card={card!r} train_step_ms_median="
+          f"{statistics.median(lat):.6f} train_step_ms_max={max(lat):.6f} "
+          f"back_to_back_ms_per_step={dt * 1e3:.6f} "
+          f"train_keyframes_per_s={N_VIEWS / dt:.6f} steps={n_steps} "
+          f"max_memory_allocated_bytes={peak} "
+          + " ".join(f"{k}={v!r}" for k, v in log.items())
+          + f" loss_fwd_launches_per_step={launches[0] / n_steps} "
+          f"loss_bwd_launches_per_step={launches[1] / n_steps} "
+          f"weights_moved={moved}/{n_params}", flush=True)
+
+    # no op of a step waits for the device, the backward's and Adam's
+    # included: any synchronising call raises here
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    step()
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("host syncs: none in train_step "
+          "(torch.cuda.set_sync_debug_mode('error'))", flush=True)
+
+    # the backward kernel against its plain version on this path's inputs
+    seen = []
+    orig = fused_loss.fused_tsdf_occ_loss_bwd_cuda
+
+    def spy(*a, **kw):
+        seen.append(tuple(x.detach().clone() if torch.is_tensor(x) else x for x in a))
+        return orig(*a, **kw)
+    fused_loss.fused_tsdf_occ_loss_bwd_cuda = spy
+    step()
+    fused_loss.fused_tsdf_occ_loss_bwd_cuda = orig
+    check(len(seen) == 3, f"{len(seen)} backward calls in one step")
+    err, timed = 0.0, {}
+    for a in seen:       # the backward meets the levels finest first
+        args, out, g = a[:5], a[5], a[6]
+        side = f"{args[0].shape[-1]}^3"
+        e, _ = compare_loss_bwd(fused_loss, f"main_path_{side}", args, g)
+        err = max(err, e)
+        t = time_loss_bwd(fused_loss, args, g)
+        for k, v in t.items():
+            timed[k] = timed.get(k, 0.0) + v
+        print(f"fused_loss_bwd main_path {side}: n={args[0].numel()} dtypes="
+              f"{[str(x.dtype).replace('torch.', '') for x in args]} g={g.tolist()} "
+              f"abs_err={e:.3g} " + " ".join(f"{k}={v:.6f}" for k, v in t.items()),
+              flush=True)
+    print("fused_loss_bwd main path per step (3 levels): " + " ".join(
+        f"{k}={v:.6f}" for k, v in timed.items()), flush=True)
+    if profile_dir:
+        import deep3dmap_tpu_torch.models.modulars.block_dense3d as bd
+        profile("train profile", "step", step, PROFILED_FRAGMENTS,
+                [(nr_module, n) for n in SPAN_OPS] + [(bd, "gather_halo")],
+                [(n, getattr(m, "fpn", m)) for n, m in net.named_children()],
+                os.path.join(profile_dir, "train_kernels.txt"))
+    return dict(timed, launches=launches[1], max_abs_err=err)
 
 
 # the framework's op calls, each wrapped in a profiler span by ``profile``
@@ -964,7 +1319,8 @@ def phase_g2s_full_width(g2s_module, raster, dataset_cls, card, profile_dir=None
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="also profile the full-width NeuralRecon stream and "
+                    help="also profile the full-width NeuralRecon stream, its "
+                         "training step and "
                          "Gan2Shape forward_test into DIR")
     args = ap.parse_args()
 
@@ -982,6 +1338,7 @@ def main():
     from deep3dmap_tpu_torch.datasets.builder import _stack_samples
     from deep3dmap_tpu_torch.datasets.synthetic import make_fragment_sample
     from deep3dmap_tpu_torch.ops import fused_loss
+    from deep3dmap_tpu_torch.runners import train_state as train_mod
 
     import deep3dmap_tpu_torch.core.renderer.renderer_nr as renderer_mod
     import deep3dmap_tpu_torch.models.frameworks.gan2shape as g2s_module
@@ -990,9 +1347,15 @@ def main():
 
     t0 = time.perf_counter()
     loss = phase_kernel_vs_plain(fused_loss)
+    loss_bwd = phase_loss_bwd(fused_loss)
     phase_cpu_vs_card(nr_module, _stack_samples, make_fragment_sample)
+    phase_train_cpu_vs_card(nr_module, train_mod, _stack_samples,
+                            make_fragment_sample)
     launches = phase_full_width(nr_module, fused_loss, _stack_samples,
                                 make_fragment_sample, card, args.profile)
+    bwd = phase_train_full_width(nr_module, fused_loss, train_mod,
+                                 _stack_samples, make_fragment_sample, card,
+                                 args.profile)
     raster_err = phase_raster(raster, renderer_mod, _cuda)
     phase_g2s_cpu_vs_card(g2s_module, SyntheticGanFaceDataset)
     g2s = phase_g2s_full_width(g2s_module, raster, SyntheticGanFaceDataset,
@@ -1009,6 +1372,18 @@ def main():
         "ms": loss["ms"],
         "plain_ms": loss["plain_ms"],
         "bound_ms": loss["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "fused_tsdf_occ_loss_bwd",
+        "route": "triton",
+        "source": "deep3dmap_tpu_torch/ops/fused_loss.py",
+        "replaces": "deep3dmap_tpu/ops/pallas_loss.py:112",
+        "launches": bwd["launches"],
+        "max_abs_err": max(loss_bwd["max_abs_err"], bwd["max_abs_err"]),
+        "ms": bwd["ms"],
+        "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
     }, {

@@ -1,4 +1,4 @@
-"""NeuralRecon: real-time monocular-video TSDF reconstruction, serving side.
+"""NeuralRecon: real-time monocular-video TSDF reconstruction.
 
 Port of ``deep3dmap_tpu/models/frameworks/neuralrecon.py``: MnasFPN features
 -> coarse-to-fine voxel pyramid (24³ -> 48³ -> 96³ at N_VOX=96) with
@@ -8,12 +8,12 @@ volumes -> tsdf/occupancy heads and per-level losses.  Two pyramid modes:
 compute only on a fixed-capacity set of active 8³ blocks,
 ``ops/block_sparse.py``).
 
-This slice ports streaming inference (``forward_test``) and validation
-(``val_fn``, whose per-level loss runs the fused-loss kernel on CUDA).  Not
-ported yet: ``loss_fn`` and the backward, ``set_mesh``/spatial GRU sharding,
-``_graft_backbone`` (BACKBONE2D.CKPT), ``BP_GRAD_FRAC`` (a backward-only
-option) and the scanned trunk (the batched-views trunk gives the same
-numbers).
+Ported: streaming inference (``forward_test``), validation (``val_fn``)
+and the training loss (``loss_fn``, differentiable by autograd; its
+per-level loss runs the fused-loss kernels, forward and backward, on CUDA).
+Not ported yet: ``set_mesh``/spatial GRU sharding, ``_graft_backbone``
+(BACKBONE2D.CKPT), ``BP_GRAD_FRAC`` (a backward-only option) and the scanned
+and rematerialised trunk (the batched-views trunk gives the same numbers).
 
 Batch layout as in the JAX package: imgs (B, V, H, W, 3) NHWC, volumes
 NDHWC, dict keys unchanged.
@@ -326,6 +326,7 @@ class NeuralRecon(BaseFramework):
         self.voxel_size = cfg.get("VOXEL_SIZE", 0.04)
         fusion = dict(cfg.get("FUSION", {}))
         self.fusion_on = fusion.get("FUSION_ON", True)
+        self.fusion_full = fusion.get("FULL", True)
         self.lw = cfg.get("LW", [1.0, 0.8, 0.64])
         self.thresholds = tuple(cfg.get("THRESHOLDS", [0, 0, 0]))
         self.pos_weight = cfg.get("POS_WEIGHT", 1.0)
@@ -476,9 +477,33 @@ class NeuralRecon(BaseFramework):
         return fused_tsdf_occ_loss(tsdf[..., 0], occ[..., 0], tsdf_target,
                                    occ_target, mask, self.pos_weight)
 
+    def loss_fn(self, params, model_state, batch, rng=None):
+        """Training loss (parity: neuralrecon.py:754-771) with autograd on and
+        the net in train mode.  Returns (total, {"log_vars": per-level
+        losses, "model_state": the new state}); ``rng`` is unused, as in the
+        JAX package.  The hidden write is detached (``_write_hidden``)."""
+        batch = self.batch_to_device(batch)
+        params.train()
+        out, new_state = self._apply(params, model_state, batch)
+        total = 0.0
+        log_vars = {}
+        for i in range(self.n_layers):
+            scale = self.n_layers - 1 - i
+            mask = out["sparse_mask"][i].float()
+            if not (self.fusion_on and self.fusion_full):
+                # FULL fusion supervises the whole sparse set
+                mask = mask * out["count_mask"][i].float()
+            level_loss, _, _ = self.compute_level_loss(
+                out["tsdf"][i], out["occ"][i], batch["tsdf_list"][scale],
+                batch["occ_list"][scale], mask)
+            total = total + self.lw[i] * level_loss
+            log_vars[f"tsdf_occ_loss_{i}"] = level_loss
+        return total, {"log_vars": log_vars, "model_state": new_state}
+
     @torch.no_grad()
     def val_fn(self, params, model_state, batch):
         batch = self.batch_to_device(batch)
+        params.eval()
         out, _ = self._apply(params, model_state, batch)
         total = 0.0
         for i in range(self.n_layers):
@@ -496,6 +521,7 @@ class NeuralRecon(BaseFramework):
         """Inference: final-level dense tsdf + occupancy and the updated
         recurrent state (parity: neuralrecon.py:125-201 forward_test)."""
         batch = self.batch_to_device(batch)
+        params.eval()
         out, new_state = self._apply(params, model_state, batch)
         tsdf = out["tsdf"][-1][..., 0]
         occ_logit = out["occ"][-1][..., 0]

@@ -1,6 +1,6 @@
 """Dense/sparse multi-view back-projection, the NeuralRecon hot op.
 
-Port of ``deep3dmap_tpu/ops/back_project.py`` (forward only).  All V views'
+Port of ``deep3dmap_tpu/ops/back_project.py``.  All V views'
 feature maps are flattened into one table whose rows pack each pixel's 2x2
 bilinear neighbourhood (4C channels, edge-replicated shifts reproduce the
 clamped x+1/y+1 taps exactly), and every (voxel, view) pair reads one row.
@@ -38,10 +38,44 @@ def _voxel_world_from_flat(flat_idx: torch.Tensor, dim: int, voxel_size: float,
     return coords * voxel_size + origin
 
 
-def _packed_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Forward of the JAX ``_packed_gather``: one flat row gather.  (Its
-    per-view scatter backward belongs to training.)"""
-    return table.index_select(0, idx.reshape(-1))
+class _PackedGather(torch.autograd.Function):
+    """Rows of a segment-major table, with the per-view scatter backward of
+    the JAX ``_packed_gather`` (``back_project.py:34-116``).
+
+    The table is S segments of ``hw`` rows (one per (batch, view)); row
+    ``local[s, k]`` of segment s is read.  Local indices are clamped into
+    [0, hw - 1] for the gather and the scatter alike, as JAX's
+    ``mode="clip"`` keeps a NaN pose's index in bounds (a bare
+    ``index_select`` raises on the CPU and asserts on the card).  The
+    backward adds the cotangent rows into zeros in the cotangent's dtype
+    (bf16 with the default gather table), as JAX's per-segment scatter does;
+    segments are disjoint, so one flat ``index_add_`` over all of them gives
+    each segment's sums with one launch instead of S.  ``BP_GRAD_FRAC``'s
+    compacted scatter is not ported.
+    """
+
+    @staticmethod
+    def forward(ctx, table, local, hw):
+        S = local.shape[0]
+        base = (torch.arange(S, device=local.device) * hw)[:, None]
+        rows = (local.clamp(0, hw - 1) + base).reshape(-1)
+        ctx.save_for_backward(rows)
+        ctx.n_rows = table.shape[0]
+        return table.index_select(0, rows)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        (rows,) = ctx.saved_tensors
+        d_table = d_out.new_zeros((ctx.n_rows, d_out.shape[-1]))
+        d_table.index_add_(0, rows, d_out)
+        return d_table, None, None
+
+
+def _packed_gather(table: torch.Tensor, local: torch.Tensor,
+                   hw: int) -> torch.Tensor:
+    """table (S*hw, C), local (S, K) row indices within each segment ->
+    (S*K, C), differentiable in ``table``."""
+    return _PackedGather.apply(table, local, hw)
 
 
 def back_project_sparse_batch(feats: torch.Tensor, proj: torch.Tensor,
@@ -88,9 +122,12 @@ def back_project_sparse_batch(feats: torch.Tensor, proj: torch.Tensor,
     f_y1x1 = torch.cat([f_y1[:, :, :, 1:], f_y1[:, :, :, -1:]], dim=3)
     table = torch.cat([feats, f_x1, f_y1, f_y1x1],
                       dim=-1).reshape(B * V * H * W, 4 * C)
-    base = (torch.arange(B * V, device=feats.device) * (H * W)).reshape(B, V, 1)
-    idx = y0.to(torch.int64) * W + x0.to(torch.int64) + base          # (B,V,K)
-    g = _packed_gather(table, idx).reshape(B, V, K, 4 * C)
+    # a NaN pose gives NaN taps: the pixel index becomes 0 (XLA converts
+    # NaN to 0; a bare cast gives INT64_MIN) and its features stay NaN
+    local = (torch.nan_to_num(y0).to(torch.int64) * W
+             + torch.nan_to_num(x0).to(torch.int64))                  # (B,V,K)
+    g = _packed_gather(table, local.reshape(B * V, K),
+                       H * W).reshape(B, V, K, 4 * C)
     f = (g[..., 0 * C:1 * C].float() * ((1 - wx) * (1 - wy))[..., None]
          + g[..., 1 * C:2 * C].float() * (wx * (1 - wy))[..., None]
          + g[..., 2 * C:3 * C].float() * ((1 - wx) * wy)[..., None]

@@ -19,7 +19,7 @@ is unmatched or has the wrong shape, in either direction, raises.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -119,13 +119,16 @@ def load_flax_params(module: nn.Module, flax_params: Mapping) -> nn.Module:
     return module
 
 
-def to_flax_params(module: nn.Module) -> Dict:
-    """The module's parameters as a nested flax-layout dict of numpy arrays
-    (the inverse of ``load_flax_params``)."""
+def _to_flax_tree(module: nn.Module,
+                  values: Mapping[str, Optional[torch.Tensor]]) -> Dict:
+    """Per-parameter tensors in torch layout (by parameter name; ``None``
+    reads as zeros) -> a nested flax-layout dict of float32 numpy arrays."""
     params = dict(module.named_parameters())
     tree: Dict = {}
     for tname, (path, kind) in _leaf_map(module).items():
-        a = params[tname].detach().float().cpu().numpy()
+        v = values.get(tname)
+        a = (np.zeros(tuple(params[tname].shape), np.float32) if v is None
+             else v.detach().float().cpu().numpy())
         if kind in _TO_FLAX:
             a = np.ascontiguousarray(_TO_FLAX[kind](a))
         node = tree
@@ -133,3 +136,30 @@ def to_flax_params(module: nn.Module) -> Dict:
             node = node.setdefault(k, {})
         node[path[-1]] = a
     return tree
+
+
+def to_flax_params(module: nn.Module) -> Dict:
+    """The module's parameters as a nested flax-layout dict of numpy arrays
+    (the inverse of ``load_flax_params``)."""
+    return _to_flax_tree(module, dict(module.named_parameters()))
+
+
+def to_flax_grads(module: nn.Module) -> Dict:
+    """The parameters' ``.grad`` in flax layout; a parameter without one
+    reads as zeros, as ``jax.grad`` gives for an unused leaf."""
+    return _to_flax_tree(module, {n: p.grad for n, p in module.named_parameters()})
+
+
+def to_flax_adam_state(module: nn.Module, adam: torch.optim.Adam) -> Dict:
+    """``torch.optim.Adam``'s moments over ``module``'s parameters as optax's
+    ``ScaleByAdamState`` fields: ``count`` (steps taken) and ``mu``/``nu``
+    (first and second moments) in flax layout; zeros for a parameter the
+    optimizer never stepped."""
+    names = dict(module.named_parameters())
+    state = {n: adam.state.get(p, {}) for n, p in names.items()}
+    steps = {int(s["step"]) for s in state.values() if "step" in s}
+    if len(steps) > 1:
+        raise ValueError(f"to_flax_adam_state: parameters at different steps {steps}")
+    return {"count": steps.pop() if steps else 0,
+            "mu": _to_flax_tree(module, {n: s.get("exp_avg") for n, s in state.items()}),
+            "nu": _to_flax_tree(module, {n: s.get("exp_avg_sq") for n, s in state.items()})}

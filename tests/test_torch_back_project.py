@@ -79,3 +79,66 @@ def test_sparse_with_padding_slots(scene):
                                        DIM, VS, torch.from_numpy(scene[2])[:, None],
                                        INTERVAL)
     np.testing.assert_allclose(np.asarray(world_j), world_t.numpy(), atol=1e-6)
+
+
+def test_nan_pose_does_not_raise_and_matches_jax(scene):
+    """One view's projection is NaN: JAX's clip-mode gather carries on with
+    NaN features; the port clamps the index and gives the same NaN pattern
+    and the same count (a bare index_select raises here and asserts on the
+    card)."""
+    feats, proj, origin = scene
+    proj = proj.copy()
+    proj[0, 1] = np.nan
+    for gdt in (None, "bfloat16"):
+        jv, jc = J.back_project_batch(*_j(feats, proj, origin), DIM, VS, INTERVAL,
+                                      gather_dtype=gdt and jnp.dtype(gdt))
+        tv, tc = T.back_project_batch(*_t(feats, proj, origin), DIM, VS, INTERVAL,
+                                      gather_dtype=gdt and torch.bfloat16)
+        np.testing.assert_array_equal(np.asarray(jc), tc.numpy())
+        assert np.isnan(tv.numpy()).any()
+        np.testing.assert_allclose(np.asarray(jv), tv.numpy(), atol=1e-5, rtol=0,
+                                   equal_nan=True)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-6), ("bfloat16", 2 ** -5)])
+def test_packed_gather_vjp_matches_jax(dtype, tol):
+    """The per-view scatter backward against ``jax.vjp`` of the JAX
+    ``_packed_gather``, in the table's dtype.  bf16: both add the same bf16
+    rows, each addition rounded to bf16, in another order where a row is hit
+    more than twice (measured: one ulp, 2^-6, at |sum| in [2, 4); tolerance
+    two, 2^-5)."""
+    import jax
+
+    rs = np.random.RandomState(0)
+    S, HW, K, C = 3, 40, 50, 8
+    table = rs.randn(S * HW, C).astype(np.float32)
+    local = rs.randint(0, HW, (S, K))
+    local[0, :5] = 7                     # one row hit five times
+    idx = (local + np.arange(S)[:, None] * HW).astype(np.int32)
+    cot = rs.randn(S * K, C).astype(np.float32)
+    jdt = jnp.dtype(dtype)
+    out, vjp = jax.vjp(lambda t: J._packed_gather(t, jnp.asarray(idx),
+                                                  jnp.ones((S, K), bool), HW),
+                       jnp.asarray(table).astype(jdt))
+    (want,) = vjp(jnp.asarray(cot).astype(jdt))
+    tdt = getattr(torch, dtype)
+    tt = torch.from_numpy(table).to(tdt).requires_grad_()
+    got = T._packed_gather(tt, torch.from_numpy(local), HW)
+    np.testing.assert_array_equal(np.asarray(out.astype(jnp.float32)),
+                                  got.detach().float().numpy())
+    got.backward(torch.from_numpy(cot).to(tdt))
+    assert tt.grad.dtype == tdt
+    np.testing.assert_allclose(tt.grad.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)), atol=tol, rtol=0)
+
+
+def test_packed_gather_clamps_out_of_range_rows():
+    """Local indices outside [0, hw) read and write the segment's edge rows,
+    never a neighbouring segment's."""
+    table = torch.arange(12, dtype=torch.float32).reshape(6, 2).requires_grad_()
+    local = torch.tensor([[-5, 1], [2, 99]])
+    out = T._packed_gather(table, local, 3)
+    np.testing.assert_array_equal(out.detach().numpy(),
+                                  table.detach().numpy()[[0, 1, 5, 5]])
+    out.sum().backward()
+    np.testing.assert_array_equal(table.grad.numpy()[:, 0], [1, 1, 0, 0, 0, 2])

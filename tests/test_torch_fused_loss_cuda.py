@@ -1,4 +1,5 @@
-"""The fused-loss Triton kernel against its plain version, on the card.
+"""The fused-loss Triton kernels (forward and backward) against their plain
+versions, on the card.
 
 Imports neither JAX nor the JAX package, so it runs on a machine that has
 only the port's requirements:
@@ -15,6 +16,10 @@ import torch
 from deep3dmap_tpu_torch.ops import fused_loss
 
 RTOL = 1e-4   # float32 sums of up to 884,736 terms, in another order
+# backward: elementwise, the same ops (sigmoid, log and FMAs may differ by an
+# ulp); a bf16 gradient may round one f32 ulp to the next bf16 value
+BWD_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-12),
+           torch.bfloat16: dict(rtol=2 ** -7, atol=1e-12)}
 
 
 @pytest.fixture
@@ -81,3 +86,49 @@ def test_kernel_back_to_back_two_sizes(cuda_device):
         want = fused_loss.fused_tsdf_occ_loss_plain(*data[n], pos_weight=1.5)
         for g, w in zip(got[0], want):
             np.testing.assert_allclose(float(g), float(w), rtol=RTOL)
+
+
+def _bwd_pair(data, g):
+    """The autograd Function's backward on the card (the Triton kernel)
+    against ``fused_tsdf_occ_loss_bwd_plain`` on the same inputs and sums."""
+    t = data[0].clone().requires_grad_()
+    x = data[1].clone().requires_grad_()
+    before = (fused_loss.launches, fused_loss.bwd_launches)
+    out = fused_loss.fused_tsdf_occ_loss(t, x, *data[2:], pos_weight=1.5)
+    gv = torch.tensor(g, device=t.device)
+    got = torch.autograd.grad(out, (t, x), list(gv.unbind()))
+    assert (fused_loss.launches, fused_loss.bwd_launches) == (before[0] + 1,
+                                                             before[1] + 1)
+    sums = fused_loss.partial_sums_plain(*data)[:2]
+    want = fused_loss.fused_tsdf_occ_loss_bwd_plain(*data, sums, gv, pos_weight=1.5)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        torch.testing.assert_close(a.float(), b.float(), **BWD_TOL[a.dtype])
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [24 ** 3, 48 ** 3, 96 ** 3, 1000])
+@pytest.mark.parametrize("pred_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_bwd_kernel_matches_plain_on_card(cuda_device, n, pred_dtype):
+    _bwd_pair(_inputs(n, cuda_device, pred_dtype), (1.0, 0.0, 0.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [(1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0),
+                               (0.7, -0.3, 2.0)])
+def test_bwd_kernel_each_cotangent(cuda_device, g):
+    _bwd_pair(_inputs(48 ** 3, cuda_device), g)
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_empty_target_and_zero_mask(cuda_device):
+    data = _inputs(48 ** 3, cuda_device)
+    empty = list(data)
+    empty[3] = torch.zeros_like(data[3])
+    d_t, _ = _bwd_pair(empty, (1.0, 0.5, 0.25))
+    assert not d_t.any()
+    zero = list(data)
+    zero[4] = torch.zeros_like(data[4])
+    assert not any(d.any() for d in _bwd_pair(zero, (1.0, 0.5, 0.25)))

@@ -96,3 +96,32 @@ def test_uint8_images_normalised_on_device():
     out_f, _ = fw.forward_test(net, state, dict(batch, imgs=ref))
     np.testing.assert_allclose(out_q["tsdf"].numpy(), out_f["tsdf"].numpy(),
                                atol=1e-6)
+
+
+def test_training_entry_points_run_on_the_framework_device():
+    """``runners/`` takes its device from the framework: a framework built
+    with the default (CUDA) raises here before a train state exists, and one
+    built with ``device="cpu"`` trains on the CPU, its Adam moments there
+    too."""
+    from deep3dmap_tpu_torch.datasets.builder import _stack_samples
+    from deep3dmap_tpu_torch.datasets.synthetic import make_fragment_sample
+    from deep3dmap_tpu_torch.models.frameworks.neuralrecon import NeuralRecon
+    from deep3dmap_tpu_torch.runners.train_state import init_train_state, train_step
+
+    torch.set_num_threads(2)
+    cfg = dict(N_LAYER=3, N_VOX=[16] * 3, VOXEL_SIZE=0.08,
+               BACKBONE2D=dict(ARC="fpn-mnas-0.5"))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            NeuralRecon(cfg)
+    batch = _stack_samples([make_fragment_sample(
+        seed=0, n_views=2, img_size=(32, 32), n_vox=16, device="cpu")])
+    fw = NeuralRecon(cfg, device="cpu")
+    state = init_train_state(fw, 0, batch, dict(type="Adam", lr=1e-3),
+                             dict(max_norm=1.0))
+    state, log = train_step(fw, state, batch)
+    assert state.step == 1 and state.net.training
+    assert {v.device.type for v in log.values()} == {"cpu"}
+    moments = [s["exp_avg"] for s in state.optimizer.adam.state.values()]
+    assert moments and {m.device.type for m in moments} == {"cpu"}
+    assert np.isfinite(float(log["loss"])) and float(log["grad_norm"]) > 0
