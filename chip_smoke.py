@@ -61,8 +61,25 @@ Phases; any error ends the run with a nonzero exit and no result line:
    back to back and 5 synced steps; 3 loss forward and 3 backward launches
    per step, finite gradients, parameters that moved, no host sync, and the
    backward kernel against its plain version on this path's own inputs.
+11. CPU vs card (Gan2Shape training), run after phase 7: the small config
+   with batchsize 4, hard raster, float32, TF32 off, the same seeded
+   weights, host-drawn lights, views and generator noise (its strength set
+   to 0.1): two ``train_step`` calls of each mode (one Adam per head) and a
+   ``fit_instance`` of stage_iters (2, 2, 2); logs, every head's gradient,
+   the heads after the steps and after the instance; the raster on step 2's
+   B = 4 input against its plain version.
+12. full width (Gan2Shape training): celeba's model (128², z_dim 512,
+   n_mlp 8, nf 32, batchsize 4, Adam 1e-4) in hard raster mode with seeded
+   weights: 2 warm-up and 10 synced ``train_step`` calls per mode (raster
+   launches 1 / 1 / 2 per step), only the mode's heads move, finite
+   gradients, one ``fit_instance`` at cut stage_iters, the peak memory, the
+   frozen generator and discriminator bitwise unchanged, one step of each
+   mode under ``set_sync_debug_mode("error")``, and the raster against its
+   plain version on step 2's and step 3's inputs; ``--profile DIR`` adds
+   ``gan2shape_train_kernels.txt``.
 
-Before the last line it prints one ``{"kernels": [...]}`` line; the last line
+The raster's launches in the kernels line are phase 7's and phase 12's
+main paths together.  Before the last line it prints one ``{"kernels": [...]}`` line; the last line
 is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -850,14 +867,15 @@ PROFILED_FRAGMENTS = 3
 
 def _span_hooks(wraps, modules):
     """Profiler spans around the functions that ``wraps`` names, as
-    (namespace, name) pairs, and around the forward of each (name, module)
-    of ``modules``.  Returns a function that removes them."""
+    (namespace, name) or (namespace, name, span label) tuples, and around
+    the forward of each (name, module) of ``modules``.  Returns a function
+    that removes them."""
     from torch.profiler import record_function
     undo = []
-    for ns, name in wraps:
+    for ns, name, *label in wraps:
         f, own = getattr(ns, name), name in vars(ns)
 
-        def spanned(*a, _f=f, _n=name, **kw):
+        def spanned(*a, _f=f, _n=(label or [name])[0], **kw):
             with record_function("span:" + _n):
                 return _f(*a, **kw)
         setattr(ns, name, spanned)
@@ -884,11 +902,11 @@ def _span_hooks(wraps, modules):
     return remove
 
 
-def profile(label, unit, call, n, wraps, modules, out_path):
+def profile(label, unit, call, n, wraps, modules, out_path, append=False):
     """torch.profiler over ``n`` calls of ``call`` (each one ``unit``): the
     device's busy share, kernel launches per unit, host and device time per
     span (``_span_hooks(wraps, modules)``), and device time by kernel.
-    Writes the tables to ``out_path``."""
+    Writes the tables to ``out_path`` (after what it holds, ``append``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
@@ -924,7 +942,7 @@ def profile(label, unit, call, n, wraps, modules, out_path):
         lines.append(f"  {e.self_device_time_total / 1e3 / n:10.3f} "
                      f"{100 * e.self_device_time_total / 1e3 / busy_ms:6.2f}% "
                      f"{e.count / n:8.1f} {e.key[:100]}")
-    with open(out_path, "w") as f:
+    with open(out_path, "a" if append else "w") as f:
         f.write("\n".join(lines) + "\n")
     print("\n".join(lines), flush=True)
 
@@ -1315,13 +1333,306 @@ def phase_g2s_full_width(g2s_module, raster, dataset_cls, card, profile_dir=None
     return dict(t, launches=launches, max_abs_err=err, overflow=n_big)
 
 
+# ---------------------------------------------------------------- phase 11 --
+# Gan2Shape training, CPU vs card: tests/test_gan2shape.py:22-23's config
+# with celeba's batchsize 4 (step 2's raster input is then B = 4, as at full
+# width), hard raster, float32, TF32 off.  The gradients are measured as
+# phase 9 measures them; the step-3 gradient is ill-conditioned (the port's
+# own moves by up to 4e-3 per leaf when its input is scaled by 1 + 1e-6,
+# tests/test_torch_gan2shape_train.py).  Adam moves a weight by about lr
+# per step whatever its gradient's size, so after n steps two runs end at
+# most ~2n lr apart where a gradient's sign differs, and a loss read after
+# such a step differs more.  On an H100 (two runs): each mode's first step
+# within 1.1e-6, step 2's second within 1.2e-3 (its latent norm, a mean of
+# small squares), the fit's stage means within 3.0e-3 and 4.9e-3 (the
+# card's scatter-adds use atomics: its runs differ); gradients per leaf
+# within 3.4e-4, whole 2.2e-4; the heads after 6 steps 1.9e-4 apart
+# (update rel 0.014), after the fit 2.8e-4 (0.042).
+G2S_ADAM = dict(type="Adam", lr=1e-4)          # configs/gan2shape/celeba.py:41
+G2S_MODES = ("step1", "step2", "step3")
+G2S_TRAIN_SMALL_CFG = dict(G2S_SMALL_CFG, batchsize=4)
+G2S_SMALL_FIT = (2, 2, 2)
+TOL_G2S_TRAIN = dict(loss_rtol=1e-5, curve_rtol=3e-2, leaf=1e-2, whole=5e-3,
+                     param_abs=2.01 * 12 * G2S_ADAM["lr"], update=0.25)
+
+
+def _host_drawn(fw, cpu_fw, seed: int):
+    """Make ``fw`` draw its pseudo images' lights and views and its
+    generator's noise from CPU generators seeded from ``seed`` (copied to
+    its device), so the CPU and the card get the same draws.  Returns a
+    function that undoes it."""
+    gd = torch.Generator().manual_seed(seed)
+    gn = torch.Generator().manual_seed(seed + 1)
+    make_noise, draws = type(fw.generator).make_noise, type(cpu_fw).pseudo_draws
+    fw.pseudo_draws = lambda rng, b: {
+        k: v.to(fw.device) for k, v in draws(cpu_fw, gd, b).items()}
+    fw.generator.make_noise = lambda batch, gen: [
+        n.to(fw.device) for n in make_noise(fw.generator, batch, gn)]
+
+    def undo():
+        del fw.pseudo_draws
+        del fw.generator.make_noise
+    return undo
+
+
+def _spy_raster(fw, step):
+    """The raster inputs of one ``step()``, and what it returned."""
+    seen, orig = [], fw.renderer.raster_depth
+    fw.renderer.raster_depth = lambda p: (seen.append(p.detach().clone()), orig(p))[1]
+    try:
+        out = step()
+    finally:
+        del fw.renderer.raster_depth
+    return seen, out
+
+
+def _g2s_snapshot(net):
+    return {n: p.detach().cpu().clone() for n, p in net.named_parameters()}
+
+
+def _g2s_train_run(runner_mod, raster, fw, cpu_fw, data):
+    """Two steps of each mode, then one ``fit_instance``; host-drawn
+    randomness and ``noise_strength`` 0.1, so the noise enters."""
+    undo = _host_drawn(fw, cpu_fw, 11)
+    r = runner_mod.Gan2ShapeRunner(fw, G2S_ADAM, stage_iters=G2S_SMALL_FIT, num_stage=1)
+    net, state = r.setup(data)
+    with torch.no_grad():
+        for m in fw.generator.modules():
+            if hasattr(m, "noise_strength"):
+                m.noise_strength.fill_(0.1)
+    p0 = _g2s_snapshot(net)
+    dev = fw.batch_to_device(data)
+    b2 = dict(dev, **r._collect_canon(dev))
+    proj, mask = r._collect_pool(b2)
+    batches = dict(step1=dev, step2=b2, step3=dict(dev, proj_im=proj[:4],
+                                                   proj_mask=mask[:4]))
+    logs, grads, seen = {}, {}, []
+    for mode in G2S_MODES:
+        for k in range(2):
+            if fw.device.type == "cuda" and (mode, k) == ("step2", 0):
+                seen, log = _spy_raster(fw, lambda: r.train_step(mode, batches[mode]))
+            else:
+                log = r.train_step(mode, batches[mode])
+            logs[mode, k] = {n: float(v) for n, v in log.items()}
+            if k == 0:
+                grads[mode] = {n: p.grad.detach().cpu().clone()
+                               for n, p in net.named_parameters() if p.grad is not None}
+    params = _g2s_snapshot(net)
+    r.fit_instance(data)
+    undo()
+    return dict(p0=p0, logs=logs, grads=grads, params=params, fit=_g2s_snapshot(net),
+                fit_logs=r.logs[-1], seen=seen)
+
+
+def phase_g2s_train_cpu_vs_card(g2s_module, runner_mod, raster, dataset_cls):
+    phase("CPU vs card: Gan2Shape training, small config (32², nf 8, B 4), "
+          "hard raster, float32, 2 steps per mode + fit_instance")
+    set_tf32(cudnn=False, matmul=False)
+    data = dataset_cls(n_samples=1, image_size=32, z_dim=32).setup_input(0)
+    cpu_fw = g2s_module.Gan2Shape(G2S_TRAIN_SMALL_CFG, device="cpu")
+    gpu_fw = g2s_module.Gan2Shape(G2S_TRAIN_SMALL_CFG)
+    c = _g2s_train_run(runner_mod, raster, cpu_fw, cpu_fw, data)
+    g = _g2s_train_run(runner_mod, raster, gpu_fw, cpu_fw, data)
+    for n in c["p0"]:
+        check(torch.equal(c["p0"][n], g["p0"][n]), f"seeded weights differ at {n}")
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(a), 1e-12)
+    loss_rel = {f"{m}.{k}": max(rel(c["logs"][m, k][n], g["logs"][m, k][n])
+                                for n in c["logs"][m, k])
+                for m in G2S_MODES for k in range(2)}
+    fit_rel = max(rel(v, g["fit_logs"][n]) for n, v in c["fit_logs"].items()
+                  if isinstance(v, float))
+    leaf, whole = {}, {}
+    for m in G2S_MODES:
+        names = sorted(c["grads"][m])
+        check(names == sorted(g["grads"][m]), f"{m}: gradients reach other leaves")
+        leaf[m] = max(_leaf_rel(g["grads"][m][n], c["grads"][m][n]) for n in names)
+        whole[m] = _leaf_rel(torch.cat([g["grads"][m][n].reshape(-1) for n in names]),
+                             torch.cat([c["grads"][m][n].reshape(-1) for n in names]))
+    names = list(c["p0"])
+    flat = lambda d: torch.cat([d[n].reshape(-1) for n in names])   # noqa: E731
+    p_abs = {k: max((g[k][n] - c[k][n]).abs().max().item() for n in names)
+             for k in ("params", "fit")}
+    upd = {k: _leaf_rel(flat(g[k]) - flat(c["p0"]), flat(c[k]) - flat(c["p0"]))
+           for k in ("params", "fit")}
+    print("g2s_train_cpu_vs_card: logs rel by step " + " ".join(
+        f"{k}={v:.3g}" for k, v in loss_rel.items()) + f" fit_instance stage means "
+          f"rel {fit_rel:.3g}; gradients max leaf rel " + " ".join(
+        f"{m}={v:.3g}" for m, v in leaf.items()) + " whole " + " ".join(
+        f"{m}={v:.3g}" for m, v in whole.items()) + "; parameters after the 6 steps: "
+          f"max abs diff {p_abs['params']:.3g} update rel {upd['params']:.3g}; after "
+          f"fit_instance {G2S_SMALL_FIT}: max abs diff {p_abs['fit']:.3g} update rel "
+          f"{upd['fit']:.3g} (tolerances {TOL_G2S_TRAIN})", flush=True)
+    first = max(v for k, v in loss_rel.items() if k.endswith(".0"))
+    check(first <= TOL_G2S_TRAIN["loss_rtol"]
+          and max(max(loss_rel.values()), fit_rel) <= TOL_G2S_TRAIN["curve_rtol"],
+          f"losses CPU vs card off: {loss_rel}, fit_instance {fit_rel}")
+    check(max(leaf.values()) <= TOL_G2S_TRAIN["leaf"]
+          and max(whole.values()) <= TOL_G2S_TRAIN["whole"],
+          f"gradients off: per leaf {leaf}, whole {whole}")
+    check(max(p_abs.values()) <= TOL_G2S_TRAIN["param_abs"]
+          and max(upd.values()) <= TOL_G2S_TRAIN["update"],
+          f"parameters off: {p_abs}, updates {upd}")
+    # the raster on step 2's B = 4 input, against its plain version
+    check(len(g["seen"]) == 1 and g["seen"][0].shape[0] == 4,
+          f"step 2 rasterised {[tuple(p.shape) for p in g['seen']]}")
+    compare_raster(raster, "step2_small_B4", g["seen"][0], gpu_fw.renderer.K,
+                   gpu_fw.max_depth)
+
+
+# ---------------------------------------------------------------- phase 12 --
+G2S_TRAIN_WARMUP, G2S_TRAIN_TIMED = 2, 10
+G2S_FIT_ITERS = (20, 20, 20)        # celeba: (600, 600, 400) x 4 stages
+RASTER_PER_STEP = dict(step1=1, step2=1, step3=2)
+# the configuration without use_mask, whose mask comes from the parsing model
+CELEBA_TRAIN_CFGS = dict(CELEBA_MODEL_CFGS, use_mask=False)
+
+
+def phase_g2s_train_full_width(g2s_module, runner_mod, raster, dataset_cls, card,
+                               profile_dir=None):
+    phase("full width: Gan2Shape training, configs/gan2shape/celeba.py model, 128², "
+          "hard raster, Adam 1e-4")
+    set_tf32(cudnn=True, matmul=False)   # PyTorch's defaults, as in phase 7
+    print(f"left out: gan_ckpt and parsing_ckpt (the files are not in the "
+          f"repository: seeded weights instead), use_mask (needs the parsing "
+          f"model); stage_iters cut from (600, 600, 400) x 4 stages to "
+          f"{G2S_FIT_ITERS} x 1 stage", flush=True)
+    t0 = time.perf_counter()
+    data = dataset_cls(n_samples=1, image_size=128, z_dim=512).setup_input(0)
+    fw = g2s_module.Gan2Shape(CELEBA_TRAIN_CFGS)
+    r = runner_mod.Gan2ShapeRunner(fw, G2S_ADAM, stage_iters=G2S_FIT_ITERS, num_stage=1)
+    net, state = r.setup(data)
+    frozen = {f"{k}.{n}": t.clone() for k, m in (("g", fw.generator), ("d", fw.discriminator))
+              for n, t in m.state_dict().items()}
+    dev = fw.batch_to_device(data)
+    torch.cuda.synchronize()
+    print(f"set-up (synthetic face, init) {time.perf_counter() - t0:.3f} s")
+
+    per_step = {m: [] for m in G2S_MODES}
+    batches = dict(step1=dev)
+
+    def step(mode):
+        before = raster.launches
+        log = r.train_step(mode, batches[mode])
+        per_step[mode].append(raster.launches - before)
+        return log
+
+    raster.launches = 0                           # the main path starts here
+    torch.cuda.reset_peak_memory_stats()
+    batches["step2"] = dict(dev, **r._collect_canon(dev))
+    with torch.no_grad():
+        _, _, o = fw.forward_step2(net, state, batches["step2"], r.rng)
+    batches["step3"] = dict(dev, proj_im=o["proj_im"], proj_mask=o["mask"])
+    lat, logs = {}, {}
+    for mode in G2S_MODES:
+        for _ in range(G2S_TRAIN_WARMUP):
+            step(mode)
+        torch.cuda.synchronize()
+        lat[mode] = []
+        for _ in range(G2S_TRAIN_TIMED):
+            t1 = time.perf_counter()
+            step(mode)
+            torch.cuda.synchronize()
+            lat[mode].append((time.perf_counter() - t1) * 1e3)
+        # one more step: only the mode's heads move, their gradients finite
+        before = _g2s_snapshot(net)
+        logs[mode] = {k: float(v) for k, v in step(mode).items()}
+        check(all(np.isfinite(v) for v in logs[mode].values()),
+              f"{mode}: non-finite log {logs[mode]}")
+        for name, head in net.named_children():
+            trains = name in runner_mod.MODE_NETS[mode]
+            ps = dict(head.named_parameters())
+            moved = [n for n, p in ps.items()
+                     if not torch.equal(p.detach().cpu(), before[f"{name}.{n}"])]
+            if trains:
+                check(bool(moved), f"{mode}: {name} did not move")
+                for n, p in ps.items():
+                    check(p.grad is not None and torch.isfinite(p.grad).all().item(),
+                          f"{mode}: missing or non-finite gradient at {name}.{n}")
+            else:
+                check(not moved, f"{mode}: {name} moved ({moved[:3]})")
+                check(all(p.grad is None for p in ps.values()),
+                      f"{mode}: a gradient reached {name}")
+    t1 = time.perf_counter()
+    before = raster.launches
+    r.fit_instance(data)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t1
+    fit_launches = raster.launches - before
+    launches = raster.launches                    # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+
+    for mode, n in RASTER_PER_STEP.items():
+        check(per_step[mode] == [n] * len(per_step[mode]),
+              f"{mode}: raster launches per step {per_step[mode]}, expected {n}")
+    s1, s2, s3 = G2S_FIT_ITERS
+    want = 1 + s1 + s2 + max(s2 // 4, 1) + 2 * s3     # + the canon snapshot, the pool
+    check(fit_launches == want, f"fit_instance launched the raster {fit_launches} "
+          f"times, expected {want}")
+    for k, m in (("g", fw.generator), ("d", fw.discriminator)):
+        for n, t in m.state_dict().items():
+            check(torch.equal(t, frozen[f"{k}.{n}"]), f"frozen {k}.{n} changed")
+    fit_logs = r.logs[-1]
+    check(all(np.isfinite(v) for v in fit_logs.values() if isinstance(v, float)),
+          f"non-finite fit_instance logs {fit_logs}")
+    print(f"g2s_train_full_width: card={card!r} B={fw.batchsize} S={fw.image_size} "
+          + " ".join(f"g2s_{m}_ms_median={statistics.median(lat[m]):.6f} "
+                     f"g2s_{m}_ms_max={max(lat[m]):.6f}" for m in G2S_MODES)
+          + f" synced_steps_per_mode={G2S_TRAIN_TIMED} fit_instance_s={fit_s:.6f} "
+          f"stage_iters={G2S_FIT_ITERS} num_stage=1 max_memory_allocated_bytes={peak} "
+          + " ".join(f"raster_launches_per_{m}={per_step[m][0]}" for m in G2S_MODES)
+          + f" fit_instance_raster_launches={fit_launches} raster_launches={launches}",
+          flush=True)
+    print("g2s_train_full_width logs: " + " ".join(
+        f"{m}.{k}={v!r}" for m in G2S_MODES for k, v in logs[m].items()), flush=True)
+    print("g2s_train_full_width fit_instance stage means: " + " ".join(
+        f"{k}={v!r}" for k, v in fit_logs.items()), flush=True)
+    print("frozen generator and discriminator: bitwise unchanged", flush=True)
+
+    # no op of a step waits for the device, in any mode
+    for mode in G2S_MODES:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        step(mode)
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("host syncs: none in train_step step1/step2/step3 "
+          "(torch.cuda.set_sync_debug_mode('error'))", flush=True)
+
+    # the raster on this path's own B = 4 inputs (step 2's pseudo images,
+    # step 3's projected samples) against its plain version, bit for bit
+    res = {}
+    for mode in ("step2", "step3"):
+        for pts in _spy_raster(fw, lambda: step(mode))[0]:
+            name = f"main_path_{mode}_B{pts.shape[0]}"
+            err, n_big = compare_raster(raster, name, pts, fw.renderer.K, fw.max_depth)
+            res[name] = dict(time_raster(raster, pts, fw.renderer.K, fw.max_depth),
+                             max_abs_err=err)
+            print(f"raster {name} timing: " + " ".join(
+                f"{k}={v:.6f}" if isinstance(v, float) else f"{k}={v}"
+                for k, v in res[name].items()), flush=True)
+    if profile_dir:
+        spans = ([(fw.renderer, n) for n in G2S_SPAN_METHODS]
+                 + [(fw.discriminator, "features", "discriminator"),
+                    (torch.Tensor, "backward", "backward")]
+                 + [(o, "step", "optimizer") for o in r.optimizers.values()])
+        modules = list(net.named_children()) + [
+            ("generator", fw.generator), ("vgg", fw.perceptual.net)]
+        for i, mode in enumerate(G2S_MODES):
+            profile(f"gan2shape train profile {mode}", "step", lambda: step(mode),
+                    G2S_PROFILED, spans, modules,
+                    os.path.join(profile_dir, "gan2shape_train_kernels.txt"),
+                    append=i > 0)
+    return dict(launches=launches, max_abs_err=max(v["max_abs_err"] for v in res.values()))
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also profile the full-width NeuralRecon stream, its "
-                         "training step and "
-                         "Gan2Shape forward_test into DIR")
+                         "training step, Gan2Shape forward_test and each "
+                         "Gan2Shape training mode into DIR")
     args = ap.parse_args()
 
     phase("device")
@@ -1344,6 +1655,7 @@ def main():
     import deep3dmap_tpu_torch.models.frameworks.gan2shape as g2s_module
     from deep3dmap_tpu_torch.datasets.gan_faces import SyntheticGanFaceDataset
     from deep3dmap_tpu_torch.ops import _cuda, raster
+    from deep3dmap_tpu_torch.runners import gan2shape_runner as g2s_runner
 
     t0 = time.perf_counter()
     loss = phase_kernel_vs_plain(fused_loss)
@@ -1360,6 +1672,9 @@ def main():
     phase_g2s_cpu_vs_card(g2s_module, SyntheticGanFaceDataset)
     g2s = phase_g2s_full_width(g2s_module, raster, SyntheticGanFaceDataset,
                                card, args.profile)
+    phase_g2s_train_cpu_vs_card(g2s_module, g2s_runner, raster, SyntheticGanFaceDataset)
+    g2s_train = phase_g2s_train_full_width(g2s_module, g2s_runner, raster,
+                                           SyntheticGanFaceDataset, card, args.profile)
     print(f"phases took {time.perf_counter() - t0:.3f} s", flush=True)
 
     print(json.dumps({"kernels": [{
@@ -1391,8 +1706,8 @@ def main():
         "route": "cuda",
         "source": "deep3dmap_tpu_torch/ops/csrc/raster_hard.cu",
         "replaces": "deep3dmap_tpu/ops/raster_pallas.py:76",
-        "launches": g2s["launches"],
-        "max_abs_err": max(raster_err, g2s["max_abs_err"]),
+        "launches": g2s["launches"] + g2s_train["launches"],
+        "max_abs_err": max(raster_err, g2s["max_abs_err"], g2s_train["max_abs_err"]),
         "ms": g2s["ms"],
         "plain_ms": g2s["plain_ms"],
         "bound_ms": g2s["bound_ms"],

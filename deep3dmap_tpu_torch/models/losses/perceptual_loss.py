@@ -7,12 +7,13 @@ features) and ``PerceptualLoss`` (unit-normalised features, squared
 distance summed over channels and averaged over space, summed over stages).
 Weights come from the JAX ``PerceptualLoss.params`` tree (``Conv_0`` ..
 ``Conv_12`` at the top) through ``load_flax``, or from a seeded flax-default
-init.  ``DiscriminatorLoss`` belongs to Gan2Shape's step 2 and is not
-ported yet.
+init.  ``DiscriminatorLoss`` (Gan2Shape's step 2): the mean L1 between the
+first ``ftr_num`` discriminator feature maps of the masked prediction and
+the masked, detached target.
 """
 from __future__ import annotations
 
-from typing import List, Mapping
+from typing import Callable, List, Mapping, Sequence
 
 import torch
 import torch.nn as nn
@@ -75,3 +76,26 @@ class PerceptualLoss:
             b = b / (torch.linalg.norm(b, dim=-1, keepdim=True) + 1e-10)
             total = total + ((a - b) ** 2).sum(-1).mean(dim=(1, 2))
         return total
+
+
+class DiscriminatorLoss:
+    """Feature matching on discriminator activations: ``loss(features_fn,
+    pred, target, mask=None)`` with ``features_fn`` image -> list of
+    feature maps; the mean over the first ``ftr_num`` maps of each map's
+    mean absolute difference.  No gradient reaches ``target``."""
+
+    def __init__(self, ftr_num: int = 4):
+        self.ftr_num = ftr_num
+
+    def __call__(self, features_fn: Callable[[torch.Tensor], Sequence[torch.Tensor]],
+                 pred: torch.Tensor, target: torch.Tensor, mask=None) -> torch.Tensor:
+        if mask is not None:
+            pred = pred * mask
+            target = target * mask
+        f_p = features_fn(pred)
+        f_t = features_fn(target.detach())
+        n = min(self.ftr_num, len(f_p))
+        loss = 0.0
+        for a, b in zip(f_p[:n], f_t[:n]):
+            loss = loss + torch.abs(a - b).mean()
+        return loss / max(n, 1)

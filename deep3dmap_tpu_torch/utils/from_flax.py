@@ -16,6 +16,13 @@ The port names its submodules after flax's auto-names (``Conv_0``,
 a torch parameter ``a.b.Conv_0.weight`` IS the flax leaf ``a/b/Conv_0/kernel``
 and the conversion is a per-leaf transpose, not a rename table.  A leaf that
 is unmatched or has the wrong shape, in either direction, raises.
+
+A module whose flax twin holds raw ``self.param`` leaves instead of flax
+layers (StyleGAN2's) declares them in a class attribute ``FLAX_LEAVES``:
+torch parameter name -> (flax leaf name, kind), kind ``"kernel"`` for a conv
+``(k, k, I, O)`` or dense ``(I, O)`` kernel stored in torch's layout and
+``"plain"`` for a leaf stored as it is.  A parameter it does not declare is
+stray and raises, as any parameter outside a flax-mirroring layer does.
 """
 from __future__ import annotations
 
@@ -49,10 +56,14 @@ def _leaf_map(module: nn.Module):
             names = {"weight": ("kernel", "kernel_t"), "bias": ("bias", "plain")}
         elif isinstance(m, GroupNorm):
             names = {"weight": ("scale", "plain"), "bias": ("bias", "plain")}
+        elif hasattr(type(m), "FLAX_LEAVES"):
+            names = type(m).FLAX_LEAVES
         else:
             continue
         base = tuple(mname.split(".")) if mname else ()
         for pname, p in m.named_parameters(recurse=False):
+            if pname not in names:
+                continue        # left stray: raises below
             flax_leaf, kind = names[pname]
             out[f"{mname}.{pname}" if mname else pname] = (base + (flax_leaf,), kind)
     own = {n for n, _ in module.named_parameters()}

@@ -2,8 +2,10 @@
 
 - ``deep3dmap_tpu_torch/`` and ``chip_smoke.py`` import no ``jax``, ``flax``
   or ``deep3dmap_tpu`` (an AST scan of every import statement);
-- entry points default to CUDA and raise on a machine without a GPU unless
-  the caller asks for ``device="cpu"``.
+- entry points (the frameworks, the renderer, the perceptual loss, the
+  StyleGAN2 generator and discriminator, the Gan2Shape runner) default to
+  CUDA and raise on a machine without a GPU unless the caller asks for
+  ``device="cpu"``.
 """
 import ast
 import os
@@ -74,6 +76,24 @@ def test_entry_points_raise_without_gpu():
     with pytest.raises(RuntimeError):
         resolve_device("cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")
+
+    from deep3dmap_tpu_torch.models.modulars.stylegan2 import (Generator,
+                                                               StyleDiscriminator)
+    from deep3dmap_tpu_torch.runners.gan2shape_runner import Gan2ShapeRunner
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Generator(size=16, style_dim=32, n_mlp=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StyleDiscriminator(size=16)
+    assert Generator(16, 32, 2, device="cpu").input_const.device == torch.device("cpu")
+    assert StyleDiscriminator(16, device="cpu").fc_b.device == torch.device("cpu")
+    small = dict(image_size=32, gan_size=16, z_dim=32, n_mlp=2, nf=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Gan2ShapeRunner(Gan2Shape(small))
+    runner = Gan2ShapeRunner(Gan2Shape(small, device="cpu"))
+    net, state = runner.setup({"input_im": np.zeros((1, 32, 32, 3), np.float32)})
+    assert runner.rng.device == torch.device("cpu")
+    assert {p.device.type for p in net.parameters()} == {"cpu"}
+    assert state["center_w"].device == torch.device("cpu")
 
 
 def test_uint8_images_normalised_on_device():
