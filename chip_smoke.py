@@ -78,9 +78,28 @@ Phases; any error ends the run with a nonzero exit and no result line:
    plain version on step 2's and step 3's inputs; ``--profile DIR`` adds
    ``gan2shape_train_kernels.txt``.
 
+13. determinism: two identical 3-step trainings on the card, bitwise equal
+   after them (every parameter, and NeuralRecon's recurrent state): the
+   small block NeuralRecon config through ``train_step`` and each Gan2Shape
+   mode through ``Gan2ShapeRunner.train_step`` (hard raster), with the
+   runners' cuDNN flags; a probe step of each under
+   ``use_deterministic_algorithms(warn_only=True)`` lists any op PyTorch
+   knows to be nondeterministic.
+14. the CLIs at full width: a 480x640 fixture scene (36 frames, 4 fragments
+   of 9 keyframes) through the port's data-gen, ``tools/train.py`` at the
+   ``bench.py`` config on ``ScanNetDataset`` for one epoch (the runner's
+   synced step time beside phase 10's bare step, the loader's time per
+   sample, 3 + 3 loss launches per step, peak memory, no host sync in a
+   step that does not log, the checkpoint), then ``tools/test.py`` on that
+   checkpoint with ``evaluate`` (the host C++ op built and used).
+15. learning check: ``tools/quality_regression.py``'s config and fixture
+   through both CLIs at its 120 epochs; the trained model must beat the
+   untrained one by its condition (F-score + 0.05, AbsRel lower).
+
 The raster's launches in the kernels line are phase 7's and phase 12's
-main paths together.  Before the last line it prints one ``{"kernels": [...]}`` line; the last line
-is ``{"ok": true, "device": {...}}``.
+main paths together; the fused loss's are phase 4's (forward) or phase 10's
+(backward) and phase 14's.  Before the last line it prints one
+``{"kernels": [...]}`` line; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -90,6 +109,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -746,9 +766,10 @@ def phase_full_width(nr_module, fused_loss, stack, make_sample, card,
 
 # ---------------------------------------------------------------- phase 10 --
 def phase_train_full_width(nr_module, fused_loss, train_mod, stack,
-                           make_sample, card, profile_dir=None):
+                           make_sample, card, make_deterministic, profile_dir=None):
     phase("full width: training, bench.py config, 9x480x640, 96^3, clip + Adam")
     set_tf32(cudnn=True, matmul=False)   # PyTorch's defaults, as in phase 4
+    make_deterministic()                 # as the runners and the CLIs set it
     t0 = time.perf_counter()
     batch = stack([make_sample(seed=0, n_views=N_VIEWS, img_size=IMG_HW,
                                n_vox=N_VOX, voxel_size=0.04, device="cuda")])
@@ -852,7 +873,8 @@ def phase_train_full_width(nr_module, fused_loss, train_mod, stack,
                 [(nr_module, n) for n in SPAN_OPS] + [(bd, "gather_halo")],
                 [(n, getattr(m, "fpn", m)) for n, m in net.named_children()],
                 os.path.join(profile_dir, "train_kernels.txt"))
-    return dict(timed, launches=launches[1], max_abs_err=err)
+    return dict(timed, launches=launches[1], max_abs_err=err,
+                step_ms_median=statistics.median(lat))
 
 
 # the framework's op calls, each wrapped in a profiler span by ``profile``
@@ -1627,6 +1649,314 @@ def phase_g2s_train_full_width(g2s_module, runner_mod, raster, dataset_cls, card
     return dict(launches=launches, max_abs_err=max(v["max_abs_err"] for v in res.values()))
 
 
+# ---------------------------------------------------------------- phase 13 --
+DET_STEPS = 3
+
+
+def _nondeterministic_ops(step):
+    """The ops that PyTorch names as having no deterministic implementation
+    while ``step()`` runs under ``use_deterministic_algorithms(warn_only)``
+    (a probe: the mode swaps some kernels, so its step is not the path's)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            step()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(".")[0] for w in caught
+                   if "deterministic" in str(w.message)})
+
+
+def phase_determinism(nr_module, train_mod, g2s_module, runner_mod, stack, make_sample,
+                      dataset_cls, make_deterministic):
+    phase(f"determinism: two identical {DET_STEPS}-step trainings on the card, bitwise "
+          "(NeuralRecon small block config; each Gan2Shape mode, hard raster)")
+    set_tf32(cudnn=True, matmul=False)   # PyTorch's defaults, as a user runs
+    make_deterministic()                 # as the runners and the CLIs do
+    frags = []
+    for k, pair in enumerate(((0, 1), (2, 3))):
+        b = stack([make_sample(seed=s, n_views=3, img_size=(64, 64), n_vox=32,
+                               voxel_size=0.08, device="cuda") for s in pair])
+        b["scene_reset"] = np.full(2, 1.0 if k == 0 else 0.0, np.float32)
+        frags.append(b)
+
+    def nr_run(probe=False):
+        fw = nr_module.NeuralRecon(BLOCK_CFGS)
+        st = [train_mod.init_train_state(fw, 0, frags[0], ADAM, CLIP)]
+
+        def step(k):
+            st[0], _ = train_mod.train_step(fw, st[0], frags[min(k, 1)])
+        for k in range(DET_STEPS):
+            step(k)
+        out = {f"param.{n}": p.detach().clone() for n, p in st[0].net.named_parameters()}
+        out.update({f"hidden.{i}": v.clone() for i, v in
+                    enumerate(st[0].model_state["global_hidden"].volumes)})
+        return out, (_nondeterministic_ops(lambda: step(1)) if probe else None)
+
+    def g2s_run(mode, probe=False):
+        data = dataset_cls(n_samples=1, image_size=32, z_dim=32).setup_input(0)
+        fw = g2s_module.Gan2Shape(G2S_TRAIN_SMALL_CFG)
+        cpu_fw = g2s_module.Gan2Shape(G2S_TRAIN_SMALL_CFG, device="cpu")
+        undo = _host_drawn(fw, cpu_fw, 11)
+        r = runner_mod.Gan2ShapeRunner(fw, G2S_ADAM, stage_iters=G2S_SMALL_FIT, num_stage=1)
+        net, _ = r.setup(data)
+        dev = fw.batch_to_device(data)
+        b2 = dict(dev, **r._collect_canon(dev))
+        proj, mask = r._collect_pool(b2)
+        batch = dict(step1=dev, step2=b2,
+                     step3=dict(dev, proj_im=proj[:4], proj_mask=mask[:4]))[mode]
+        for _ in range(DET_STEPS):
+            r.train_step(mode, batch)
+        out = {n: p.detach().clone() for n, p in net.named_parameters()}
+        ops = _nondeterministic_ops(lambda: r.train_step(mode, batch)) if probe else None
+        undo()
+        return out, ops
+
+    results, probes = {}, {}
+    for name, run in [("neuralrecon", nr_run)] + [
+            (f"gan2shape_{m}", lambda probe=False, m=m: g2s_run(m, probe)) for m in G2S_MODES]:
+        a, probes[name] = run(probe=True)
+        b, _ = run()
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        results[name] = (len(a), differ)
+        print(f"determinism {name}: {len(a)} tensors after {DET_STEPS} steps, "
+              f"{len(differ)} differ between two runs {differ[:3]}; ops without a "
+              f"deterministic implementation (use_deterministic_algorithms probe): "
+              f"{probes[name] or 'none'}", flush=True)
+    for name, (n, differ) in results.items():
+        check(not differ, f"{name}: two identical trainings differ at {differ[:5]}")
+
+
+# ---------------------------------------------------------------- phase 14 --
+CLI_FRAMES = 36            # 4 fragments of 9 keyframes at 480x640
+CLI_LOG_INTERVAL = 50      # no logging iteration inside the epoch
+
+
+def _cli_config(datapath, work_dir, model_cfgs, n_views, img_hw, n_vox, voxel_size,
+                epochs, checkpoint_interval, log_interval, lr_config=None,
+                custom_hooks=()):
+    """A NeuralRecon config file in the shape of configs/neural_recon/ and
+    tools/quality_regression.py:40-94, the quality pipeline at ``img_hw``."""
+    h, w = img_hw
+    return f"""
+pipeline = [
+    dict(type="SeqResizeImage", size=({w}, {h}), depth_key="depth"),
+    dict(type="SeqRandomTransformSpace", voxel_dim=({n_vox}, {n_vox}, {n_vox}),
+         voxel_size={voxel_size}, random_rotation=False, random_translation=False,
+         n_layers=3),
+    dict(type="SeqIntrinsicsPoseToProjection", n_views={n_views}, stride=4),
+    dict(type="SeqNormalizeImages", mean=[127.5] * 3, std=[127.5] * 3),
+]
+work_dir = {work_dir!r}
+data = dict(
+    samples_per_gpu=1,
+    train=dict(type="ScanNetDataset", datapath={datapath!r}, mode="train",
+               nviews={n_views}, n_scales=2, img_size=({w}, {h}), n_vox={n_vox},
+               voxel_size={voxel_size}, pipeline=pipeline),
+    test=dict(type="ScanNetDataset", datapath={datapath!r}, mode="test",
+              nviews={n_views}, n_scales=2, img_size=({w}, {h}), n_vox={n_vox},
+              voxel_size={voxel_size}, pipeline=pipeline),
+)
+model = dict(type="NeuralRecon", model_cfgs={dict(model_cfgs, save_scene=True)!r})
+checkpoint_config = dict(interval={checkpoint_interval})
+log_config = dict(interval={log_interval}, hooks=[dict(type="TextLoggerHook")])
+optimizer_config = dict(grad_clip=dict(max_norm=1.0))
+lr_config = {lr_config!r}
+workflow = [("train", 1)]
+runner = dict(type="EpochBasedRunner", runner_cfgs=dict(
+    optimizer=dict(type="Adam", lr=1e-3, betas=(0.9, 0.999), weight_decay=0.0),
+    max_epochs={epochs}))
+custom_hooks = {list(custom_hooks)!r}
+"""
+
+
+def _fixture(write_fixture, data_gen, root, n_views, **kw):
+    """The fixture scene in ScanNet's layout (train and test splits) and the
+    port's data-gen over it; every frame is a keyframe."""
+    t0 = time.perf_counter()
+    write_fixture(root, splits=("train", "test"), device="cuda", **kw)
+    for mode in ("train", "test"):
+        data_gen.main(["--datapath", root, "--mode", mode, "--n-views", str(n_views),
+                       "--min-angle", "1", "--min-distance", "0.01", "--n-proc", "1"])
+    return time.perf_counter() - t0
+
+
+def _timed_evaluate(scannet_mod):
+    """Wraps ``ScanNetDataset.evaluate`` to record its wall seconds."""
+    orig, took = scannet_mod.ScanNetDataset.evaluate, []
+
+    def timed(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = orig(self, *a, **kw)
+        took.append(time.perf_counter() - t0)
+        return out
+    scannet_mod.ScanNetDataset.evaluate = timed
+    return took, lambda: setattr(scannet_mod.ScanNetDataset, "evaluate", orig)
+
+
+def phase_cli_full_width(fused_loss, train_mod, card, work, bare_step_ms, tools, hooks_mod,
+                         scannet_mod, native, write_fixture, checkpoint_mod):
+    phase("CLIs at full width: 480x640 fixture, data-gen, train (bench.py config, "
+          "ScanNetDataset, 96^3, 1 epoch), test + evaluate")
+    set_tf32(cudnn=True, matmul=False)   # PyTorch's defaults
+    root, wd = os.path.join(work, "data"), os.path.join(work, "train")
+    fix_s = _fixture(write_fixture, tools.data_gen_scannet, root, N_VIEWS,
+                     n_frames=CLI_FRAMES, n_vox=N_VOX, voxel_size=0.04, img_size=IMG_HW)
+    probe = {}
+
+    @hooks_mod.HOOKS.register_module(force=True)
+    class ChipSmokeProbe(hooks_mod.Hook):
+        """Per step: synced wall time, fused-loss launches, the host gap
+        before it; one step (not a logging one) under sync debug mode."""
+        PRIORITY = 1
+
+        def before_run(self, runner):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            probe.update(step_ms=[], launches=[], gap_ms=[], t=time.perf_counter())
+
+        def before_train_iter(self, runner):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            probe["gap_ms"].append((now - probe["t"]) * 1e3)
+            probe["t"], probe["l0"] = now, (fused_loss.launches, fused_loss.bwd_launches)
+            if runner.inner_iter == 1:
+                torch.cuda.set_sync_debug_mode("error")
+
+        def after_train_iter(self, runner):
+            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            probe["step_ms"].append((now - probe["t"]) * 1e3)
+            probe["launches"].append((fused_loss.launches - probe["l0"][0],
+                                      fused_loss.bwd_launches - probe["l0"][1]))
+            probe["t"] = now
+
+        def after_run(self, runner):
+            probe["peak"] = torch.cuda.max_memory_allocated()
+
+    cfg = os.path.join(work, "cfg_full_width.py")
+    with open(cfg, "w") as f:
+        f.write(_cli_config(root, wd, BENCH_CFGS, N_VIEWS, IMG_HW, N_VOX, 0.04, epochs=1,
+                            checkpoint_interval=1, log_interval=CLI_LOG_INTERVAL,
+                            custom_hooks=[dict(type="ChipSmokeProbe")]))
+    t0 = time.perf_counter()
+    fused_loss.launches = fused_loss.bwd_launches = 0   # the main path starts here
+    runner = tools.train.main([cfg])
+    launches = (fused_loss.launches, fused_loss.bwd_launches)   # ... and ends here
+    train_s = time.perf_counter() - t0
+    n_steps = len(probe["step_ms"])
+    check(launches == (3 * n_steps, 3 * n_steps), f"fused loss launches {launches}")
+    check(n_steps == CLI_FRAMES // N_VIEWS, f"{n_steps} train steps, expected "
+          f"{CLI_FRAMES // N_VIEWS}")
+    check(probe["launches"] == [(3, 3)] * n_steps,
+          f"fused loss (forward, backward) launches per step {probe['launches']}")
+    ckpt = checkpoint_mod.latest_checkpoint(wd)
+    check(ckpt is not None and ckpt.endswith(f"ckpt_{n_steps}")
+          and os.path.exists(os.path.join(ckpt, "state.pt")), f"checkpoint {ckpt}")
+    check(runner.state.step == n_steps, f"runner at step {runner.state.step}")
+    # the bare train_step (phase 10's measure) on this run's own batches and
+    # state, to hold the runner's step against the same work
+    bare_ms = []
+    for batch in runner.prefetch(runner.cur_loader):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        runner.state, _ = train_mod.train_step(runner.framework, runner.state, batch)
+        torch.cuda.synchronize()
+        bare_ms.append((time.perf_counter() - t1) * 1e3)
+    # loader: one sample built from disk (9 PNG frames decoded, GT pyramid
+    # fused on the card), synced
+    ds = runner.cur_loader.dataset
+    load_ms = []
+    for i in range(len(ds)):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ds[i]
+        torch.cuda.synchronize()
+        load_ms.append((time.perf_counter() - t1) * 1e3)
+
+    check(native.available(), "the host C++ op (ops/csrc/native.cpp) did not build")
+    took, restore = _timed_evaluate(scannet_mod)
+    t1 = time.perf_counter()
+    res = tools.test.main([cfg, "--checkpoint", "auto", "--out",
+                           os.path.join(work, "meshes"), "--eval", "depth_mesh"])
+    test_s = time.perf_counter() - t1
+    restore()
+    check(isinstance(res, dict) and np.isfinite(res.get("fscore", np.nan)),
+          f"evaluate returned {res}")
+    print(f"cli_full_width: card={card!r} fixture_and_data_gen_s={fix_s:.3f} "
+          f"train_cli_s={train_s:.3f} steps={n_steps} "
+          f"runner_step_ms_median={statistics.median(probe['step_ms']):.6f} "
+          f"runner_step_ms_max={max(probe['step_ms']):.6f} "
+          f"runner_step_ms={[round(v, 3) for v in probe['step_ms']]} "
+          f"bare_train_step_ms_median_phase10={bare_step_ms:.6f} "
+          f"bare_train_step_ms_same_batches={[round(v, 3) for v in bare_ms]} "
+          f"loader_ms_per_sample_median={statistics.median(load_ms):.6f} "
+          f"loader_ms_per_sample_max={max(load_ms):.6f} "
+          f"host_gap_ms_before_step={[round(v, 3) for v in probe['gap_ms']]} "
+          f"fused_loss_launches_per_step={probe['launches'][0]} "
+          f"max_memory_allocated_bytes={probe['peak']} checkpoint={os.path.basename(ckpt)} "
+          f"test_cli_s={test_s:.3f} evaluate_s_per_scene={took[0]:.3f} "
+          f"native_cpp=True", flush=True)
+    print(f"cli_full_width evaluate (trained {n_steps} steps): {res}", flush=True)
+    print("host syncs: none in the runner's step 2 (set_sync_debug_mode('error'), "
+          "not a logging iteration)", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------- phase 15 --
+# tools/quality_regression.py:40-94's model and pipeline, its fixture scene
+# (write_scannet_fixture, 10 frames at 48x64, 5-view fragments) and its
+# condition (:171-172); the port's fixture stores the colour frames as PNG
+QUALITY_CFGS = dict(N_LAYER=3, N_VOX=[24, 24, 24], VOXEL_SIZE=0.08,
+                    TRAIN_NUM_SAMPLE=[512, 2048, 8192],
+                    BACKBONE2D=dict(ARC="fpn-mnas-0.5", INFER_MODE="batch"),
+                    FUSION=dict(FUSION_ON=True, FULL=True), LW=[1.0, 0.8, 0.64],
+                    THRESHOLDS=[0, 0, 0], POS_WEIGHT=1.5)
+QUALITY_EPOCHS = 120
+
+
+def phase_learning(card, work, tools, write_fixture):
+    phase(f"learning check: tools/quality_regression.py's config through the CLIs, "
+          f"{QUALITY_EPOCHS} epochs")
+    set_tf32(cudnn=True, matmul=False)
+    root, wd = os.path.join(work, "qdata"), os.path.join(work, "qtrain")
+    _fixture(write_fixture, tools.data_gen_scannet, root, 5, n_frames=10)
+    cfg = os.path.join(work, "cfg_quality.py")
+    with open(cfg, "w") as f:
+        f.write(_cli_config(root, wd, QUALITY_CFGS, 5, (48, 64), 24, 0.08,
+                            epochs=QUALITY_EPOCHS, checkpoint_interval=40, log_interval=20,
+                            lr_config=dict(policy="step", gamma=0.5, step=[60, 90])))
+    t0 = time.perf_counter()
+    un = tools.test.main([cfg, "--out", os.path.join(work, "qmeshes_untrained"),
+                          "--eval", "depth_mesh"])
+    runner = tools.train.main([cfg])
+    tr = tools.test.main([cfg, "--out", os.path.join(work, "qmeshes_trained"),
+                          "--eval", "depth_mesh", "--checkpoint", "auto"])
+    took = time.perf_counter() - t0
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "QUALITY_r05.json")) as f:
+        ref = json.load(f)
+    # an untrained mesh that covers no GT pixel has no depth metrics (NaN):
+    # it counts as worse than any defined AbsRel
+    absrel_lower = tr["AbsRel"] < un["AbsRel"] or (
+        bool(np.isnan(un["AbsRel"])) and bool(np.isfinite(tr["AbsRel"])))
+    ok = tr["fscore"] > un["fscore"] + 0.05 and absrel_lower
+    keys = ("fscore", "prec", "recal", "AbsRel", "complete")
+    print(f"learning: card={card!r} epochs={runner.epoch} steps={runner.state.step} "
+          f"phase_s={took:.3f} "
+          + " ".join(f"trained_{k}={tr[k]!r} untrained_{k}={un[k]!r}" for k in keys)
+          + " | QUALITY_r05.json (the JAX package on the CPU, quality numbers): "
+          + " ".join(f"trained_{k}={ref['trained_fusion'][k]!r} "
+                     f"untrained_{k}={ref['untrained_fusion'][k]!r}" for k in keys)
+          + f" | learns_reconstruction={ok}", flush=True)
+    check(ok, f"the trained model does not beat the untrained one: {tr} vs {un}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -1657,6 +1987,17 @@ def main():
     from deep3dmap_tpu_torch.ops import _cuda, raster
     from deep3dmap_tpu_torch.runners import gan2shape_runner as g2s_runner
 
+    import deep3dmap_tpu_torch.datasets.scannet as scannet_mod
+    import deep3dmap_tpu_torch.runners.checkpoint as checkpoint_mod
+    import deep3dmap_tpu_torch.runners.hooks as hooks_mod
+    import deep3dmap_tpu_torch.tools.data_gen_scannet  # noqa: F401
+    import deep3dmap_tpu_torch.tools.test  # noqa: F401
+    import deep3dmap_tpu_torch.tools.train  # noqa: F401
+    from deep3dmap_tpu_torch import tools
+    from deep3dmap_tpu_torch.datasets.synthetic import write_scannet_fixture
+    from deep3dmap_tpu_torch.ops import native
+    from deep3dmap_tpu_torch.utils.device import make_deterministic
+
     t0 = time.perf_counter()
     loss = phase_kernel_vs_plain(fused_loss)
     loss_bwd = phase_loss_bwd(fused_loss)
@@ -1667,7 +2008,7 @@ def main():
                                 make_fragment_sample, card, args.profile)
     bwd = phase_train_full_width(nr_module, fused_loss, train_mod,
                                  _stack_samples, make_fragment_sample, card,
-                                 args.profile)
+                                 make_deterministic, args.profile)
     raster_err = phase_raster(raster, renderer_mod, _cuda)
     phase_g2s_cpu_vs_card(g2s_module, SyntheticGanFaceDataset)
     g2s = phase_g2s_full_width(g2s_module, raster, SyntheticGanFaceDataset,
@@ -1675,6 +2016,13 @@ def main():
     phase_g2s_train_cpu_vs_card(g2s_module, g2s_runner, raster, SyntheticGanFaceDataset)
     g2s_train = phase_g2s_train_full_width(g2s_module, g2s_runner, raster,
                                            SyntheticGanFaceDataset, card, args.profile)
+    phase_determinism(nr_module, train_mod, g2s_module, g2s_runner, _stack_samples,
+                      make_fragment_sample, SyntheticGanFaceDataset, make_deterministic)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        cli_launches = phase_cli_full_width(
+            fused_loss, train_mod, card, work, bwd["step_ms_median"], tools, hooks_mod,
+            scannet_mod, native, write_scannet_fixture, checkpoint_mod)
+        phase_learning(card, work, tools, write_scannet_fixture)
     print(f"phases took {time.perf_counter() - t0:.3f} s", flush=True)
 
     print(json.dumps({"kernels": [{
@@ -1682,7 +2030,7 @@ def main():
         "route": "triton",
         "source": "deep3dmap_tpu_torch/ops/fused_loss.py",
         "replaces": "deep3dmap_tpu/ops/pallas_loss.py:32",
-        "launches": launches,
+        "launches": launches + cli_launches[0],
         "max_abs_err": loss["max_abs_err"],
         "ms": loss["ms"],
         "plain_ms": loss["plain_ms"],
@@ -1694,7 +2042,7 @@ def main():
         "route": "triton",
         "source": "deep3dmap_tpu_torch/ops/fused_loss.py",
         "replaces": "deep3dmap_tpu/ops/pallas_loss.py:112",
-        "launches": bwd["launches"],
+        "launches": bwd["launches"] + cli_launches[1],
         "max_abs_err": max(loss_bwd["max_abs_err"], bwd["max_abs_err"]),
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],

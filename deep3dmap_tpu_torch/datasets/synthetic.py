@@ -6,6 +6,12 @@ the GT TSDF pyramid is fused from those depths with ``core/tsdf/fusion.py``.
 Projection matrices follow SeqIntrinsicsPoseToProjection (per-level scaled
 intrinsics) plus the world_to_aligned_camera rotation from the middle view.
 The same seed gives the same fragment as the JAX package's generator.
+
+``write_scannet_fixture`` lays such a scene out in ScanNet's on-disk layout
+for ``ScanNetDataset`` and the data-gen tool.  Its colour frames are PNG
+(lossless, decoded without OpenCV by ``utils/image_io.py``) under ScanNet's
+``<i>.jpg`` names: readers pick the decoder by content, as ``cv2.imread``
+does.  The JAX package writes JPEG there.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import torch
 
 from ..core.tsdf.fusion import tsdf_pyramid_from_depths
 from ..utils.device import resolve_device
+from .builder import DATASETS
 
 
 # ---------------------------------------------------------------------------
@@ -176,3 +183,69 @@ def make_fragment_sample(seed: int = 0, n_views: int = 9, img_size=(64, 64),
         occ_list=occ_list,
         scene_reset=np.float32(scene_reset),
     )
+
+
+@DATASETS.register_module()
+class SyntheticScanNetDataset:
+    """Map-style synthetic fragment dataset (tests, benchmarks, demos); the
+    GT pyramid of each sample is fused on ``device``."""
+
+    def __init__(self, n_samples: int = 4, n_views: int = 9, img_size=(64, 64),
+                 n_vox: int = 24, voxel_size: float = 0.08, n_layers: int = 3,
+                 seed: int = 0, pipeline=None, device=None):
+        self.n_samples = n_samples
+        self.kwargs = dict(n_views=n_views, img_size=tuple(img_size), n_vox=n_vox,
+                           voxel_size=voxel_size, n_layers=n_layers,
+                           device=resolve_device(device))
+        self.seed = seed
+        self._cache: Dict[int, Dict] = {}
+
+    def __len__(self):
+        return self.n_samples
+
+    def __getitem__(self, idx: int) -> Dict:
+        if idx not in self._cache:
+            self._cache[idx] = make_fragment_sample(seed=self.seed + idx, **self.kwargs)
+        return self._cache[idx]
+
+
+def write_scannet_fixture(root, scene: str = "scene0707_00", n_frames: int = 10,
+                          splits=("test",), seed: int = 0, n_vox: int = 24,
+                          voxel_size: float = 0.08, img_size=(48, 64), device=None):
+    """Write the synthetic SDF scene in ScanNet's on-disk layout.
+
+    Per frame ``color/<i>.jpg`` (PNG content, BGR as ``cv2`` writes it),
+    ``depth/<i>.png`` (uint16 millimetres), ``pose/<i>.txt``, and
+    ``intrinsic/intrinsic_depth.txt`` under ``scans[_test]/<scene>`` for each
+    split, plus the GT mesh ``<scene>_vh_clean_2.ply`` from the scene's GT
+    TSDF.  Returns the fragment sample it drew."""
+    import os
+    import os.path as osp
+
+    from ..core.utils.io_ply import write_ply
+    from ..core.utils.marching_cubes import tsdf_to_mesh
+    from ..utils.image_io import imwrite_png
+
+    s = make_fragment_sample(seed=seed, n_views=n_frames, img_size=img_size,
+                             n_vox=n_vox, voxel_size=voxel_size, device=device)
+    for split in splits:
+        sub = "scans_test" if split == "test" else "scans"
+        d = osp.join(root, sub, scene)
+        for name in ("color", "depth", "pose", "intrinsic"):
+            os.makedirs(osp.join(d, name), exist_ok=True)
+        K4 = np.eye(4)
+        K4[:3, :3] = s["intrinsics"][0]
+        np.savetxt(osp.join(d, "intrinsic", "intrinsic_depth.txt"), K4)
+        for i in range(n_frames):
+            imwrite_png(osp.join(d, "color", f"{i}.jpg"),
+                        (s["imgs"][i] * 255).astype(np.uint8))
+            imwrite_png(osp.join(d, "depth", f"{i}.png"),
+                        (s["depth"][i] * 1000).astype(np.uint16))
+            np.savetxt(osp.join(d, "pose", f"{i}.txt"), s["extrinsics"][i])
+        verts, faces = tsdf_to_mesh(np.asarray(s["tsdf_list"][0]),
+                                    origin=np.asarray(s["vol_origin"]),
+                                    voxel_size=voxel_size)
+        if len(verts) == 0:
+            raise RuntimeError("write_scannet_fixture: the GT TSDF holds no surface")
+        write_ply(osp.join(d, f"{scene}_vh_clean_2.ply"), verts, faces)
+    return s

@@ -47,6 +47,7 @@ from ...utils.device import resolve_device
 from ...utils.from_flax import load_flax_params
 from ..backbones.encoder import Encoder
 from ..backbones.encoder_decoder import EDDeconv
+from ..builder import RECONSTRUCTORS
 from ..layers import init_flax_defaults
 from ..losses.perceptual_loss import DiscriminatorLoss, PerceptualLoss
 from ..modulars.stylegan2 import Generator, StyleDiscriminator, init_stylegan2
@@ -120,6 +121,7 @@ class Gan2ShapeHeads(nn.Module):
         self.encoder_head = Encoder(cout=z_dim, nf=nf, activation="none")
 
 
+@RECONSTRUCTORS.register_module()
 class Gan2Shape(BaseFramework):
     def __init__(self, model_cfgs: dict, train_cfg=None, test_cfg=None,
                  device=None):

@@ -20,12 +20,14 @@ NDHWC, dict keys unchanged.
 """
 from __future__ import annotations
 
+import logging
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from ...datasets.builder import upload_batch
 from ...ops.back_project import (_voxel_world_from_flat, back_project_batch,
                                  back_project_masked_batch,
                                  back_project_sparse_batch)
@@ -37,6 +39,7 @@ from ...ops.fused_loss import fused_tsdf_occ_loss
 from ...utils.device import resolve_device
 from ...utils.from_flax import load_flax_params
 from ..backbones.fpn2d import MnasFPN
+from ..builder import RECONSTRUCTORS
 from ..layers import Dense, init_flax_defaults
 from ..modulars.block_dense3d import BlockConvGRU3D, BlockUNet3D, _up2_block
 from ..modulars.conv_gru3d import ConvGRU3D
@@ -299,15 +302,7 @@ class NeuralReconNet(nn.Module):
         return outputs
 
 
-def _to_tensor(v, device):
-    if isinstance(v, torch.Tensor):
-        return v.to(device)
-    a = np.asarray(v)
-    if a.dtype == np.float64:   # JAX canonicalises float64 to float32
-        a = a.astype(np.float32)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-
+@RECONSTRUCTORS.register_module()
 class NeuralRecon(BaseFramework):
     """Framework wrapper: global-volume state handling + losses.
 
@@ -403,16 +398,10 @@ class NeuralRecon(BaseFramework):
                 for i in range(self.n_layers)]
 
     def batch_to_device(self, batch):
-        """Arrays (numpy or torch) -> tensors on this framework's device."""
-        out = {}
-        for k, v in batch.items():
-            if isinstance(v, (list, tuple)):
-                out[k] = [_to_tensor(x, self.device) for x in v]
-            elif isinstance(v, (np.ndarray, np.generic, torch.Tensor)):
-                out[k] = _to_tensor(v, self.device)
-            else:
-                out[k] = v
-        return out
+        """Numeric arrays (numpy or torch, and lists of them) -> tensors on
+        this framework's device, float64 as float32; strings and other
+        metadata pass through."""
+        return upload_batch(batch, self.device)
 
     def _rel_origins(self, batch):
         """Fragment origin per level in that level's voxel units, relative
@@ -422,6 +411,40 @@ class NeuralRecon(BaseFramework):
         return [(origin - global_origin)
                 / (self.voxel_size * 2 ** (self.n_layers - 1 - i))
                 for i in range(self.n_layers)]
+
+    def host_check_batch(self, batch):
+        """Host-side batch check that the runners call before the upload
+        (parity: JAX ``neuralrecon.py:605-642``).
+
+        Warns once when a fragment origin would clamp against the global
+        hidden extent: with GLOBAL_DIMS smaller than the scene, every
+        fragment beyond the extent aliases into the same corner window.  Fix:
+        set model_cfgs.GLOBAL_DIMS from the dataset's scene bounds (see
+        configs/neural_recon/scannet.py)."""
+        if not self.fusion_on or "vol_origin_partial" not in batch:
+            return
+        if getattr(self, "_warned_clamp", False):
+            return
+        origin = np.asarray(batch["vol_origin_partial"], np.float32)
+        gorigin = np.asarray(batch.get("vol_origin", np.zeros(3)), np.float32)
+        dims = self._window_dims()
+        for i in range(self.n_layers):
+            vs = self.voxel_size * 2 ** (self.n_layers - 1 - i)
+            rel = np.round((origin - gorigin) / vs).astype(np.int64)
+            hi = self.global_dims[i] - dims[i]
+            if (rel < 0).any() or (rel > hi).any():
+                logging.getLogger("deep3dmap_tpu_torch").warning(
+                    "NeuralRecon: fragment origin %s clamps against the "
+                    "global hidden extent at level %d (GLOBAL_DIMS[%d]=%d, "
+                    "window=%d, rel voxel origin %s outside [0, %d]). "
+                    "Fragments beyond the extent alias into the same corner "
+                    "window -- set model_cfgs.GLOBAL_DIMS to cover the scene "
+                    "bounds (e.g. ceil(scene_extent_m / voxel_size) at the "
+                    "finest scale).",
+                    origin.tolist(), i, i, self.global_dims[i], dims[i],
+                    rel.tolist(), hi)
+                self._warned_clamp = True
+                return
 
     def _read_hidden(self, model_state, batch):
         if not self.fusion_on:

@@ -49,8 +49,11 @@ class _PackedGather(torch.autograd.Function):
     ``index_select`` raises on the CPU and asserts on the card).  The
     backward adds the cotangent rows into zeros in the cotangent's dtype
     (bf16 with the default gather table), as JAX's per-segment scatter does;
-    segments are disjoint, so one flat ``index_add_`` over all of them gives
-    each segment's sums with one launch instead of S.  ``BP_GRAD_FRAC``'s
+    segments are disjoint, so one flat scatter-add over all of them gives
+    each segment's sums with one call instead of S.  The scatter is
+    ``index_put_(accumulate=True)``, which sorts the rows and adds each
+    row's terms in a fixed order on the card (``index_add_`` there takes
+    atomics, whose order changes from run to run).  ``BP_GRAD_FRAC``'s
     compacted scatter is not ported.
     """
 
@@ -67,7 +70,7 @@ class _PackedGather(torch.autograd.Function):
     def backward(ctx, d_out):
         (rows,) = ctx.saved_tensors
         d_table = d_out.new_zeros((ctx.n_rows, d_out.shape[-1]))
-        d_table.index_add_(0, rows, d_out)
+        d_table.index_put_((rows,), d_out, accumulate=True)
         return d_table, None, None
 
 
@@ -187,10 +190,12 @@ def back_project_masked_batch(feats, proj, origin, mask, capacity: int,
                                        gather_dtype=gather_dtype)
     vf = slot_valid.to(f.dtype)
     rows = (flat_idx + (torch.arange(B, device=feats.device) * N)[:, None]).reshape(-1)
-    # real rows are unique; padding rows add exact zeros
+    # real rows are unique; padding rows add exact zeros.  Sorted
+    # accumulation keeps the order fixed on the card (see _PackedGather)
     volume = torch.zeros((B * N, C + 1), dtype=f.dtype, device=f.device)
-    volume.index_add_(0, rows, (f * vf[..., None]).reshape(B * capacity, C + 1))
+    volume.index_put_((rows,), (f * vf[..., None]).reshape(B * capacity, C + 1),
+                      accumulate=True)
     count = torch.zeros((B * N,), dtype=cnt.dtype, device=cnt.device)
-    count.index_add_(0, rows, (cnt * vf).reshape(-1))
+    count.index_put_((rows,), (cnt * vf).reshape(-1), accumulate=True)
     return (volume.reshape(B, dim, dim, dim, C + 1),
             count.reshape(B, dim, dim, dim))

@@ -115,7 +115,9 @@ def dense_to_blocks(vol: torch.Tensor, bset: BlockSet) -> torch.Tensor:
     R = d * d * nb
     flat = vol.reshape(B * R, bs, C)
     rows = _line_rows(bset) + _batch_offsets(B, R, vol.device)
-    g = flat.index_select(0, rows.reshape(-1))
+    # advanced indexing: padding slots repeat rows, and its backward adds
+    # them in a fixed order on the card (index_select's uses atomics)
+    g = flat[rows.reshape(-1)]
     return g.reshape(B, bset.ids.shape[1], bs, bs, bs, C)
 
 

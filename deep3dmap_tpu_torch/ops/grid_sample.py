@@ -26,8 +26,9 @@ def grid_sample_2d_batch(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     keep = in_bounds[..., None].to(img.dtype)
 
     def take(yi, xi):
-        return flat.index_select(0, (base + yi * W + xi).reshape(-1)).reshape(
-            B, -1, C)
+        # advanced indexing, not index_select: its backward accumulates with
+        # a sorted, fixed-order index_put_ on the card, not with atomics
+        return flat[(base + yi * W + xi).reshape(-1)].reshape(B, -1, C)
 
     if mode == "nearest":
         # round half to even, as jnp.round; NaN coordinates are out of
@@ -47,10 +48,10 @@ def grid_sample_2d_batch(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     x0i, x1i = torch.nan_to_num(x0).long(), torch.nan_to_num(x1).long()
     y0i, y1i = torch.nan_to_num(y0).long(), torch.nan_to_num(y1).long()
 
-    v00 = take(y0i, x0i)
-    v01 = take(y0i, x1i)
-    v10 = take(y1i, x0i)
-    v11 = take(y1i, x1i)
+    # the four corners in one gather, so the backward is one sorted
+    # accumulation (a fixed order on the card) instead of four
+    v00, v01, v10, v11 = take(torch.cat([y0i, y0i, y1i, y1i], dim=1),
+                              torch.cat([x0i, x1i, x0i, x1i], dim=1)).chunk(4, dim=1)
     out = (v00 * (1 - wx) * (1 - wy) + v01 * wx * (1 - wy)
            + v10 * (1 - wx) * wy + v11 * wx * wy)
     return out * keep

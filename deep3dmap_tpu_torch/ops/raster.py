@@ -20,7 +20,8 @@ perspective-correct depth of the triangles that cover it, or ``background``.
   overflow threshold ``FAST_PIXELS``); the CPU tests hold it against the
   plain inside test.
 - ``splat_depth_soft``: softmax-z-buffer bilinear splatting, the scatter as
-  ``index_add_``.
+  one sorted ``index_put_(accumulate=True)`` of the four taps (a fixed
+  order on the card).
 - ``raster_depth_st``: the hard raster forward, the VJP of
   ``splat_depth_soft`` as its backward (plain ops: the TPU kernel has no
   backward kernel either).
@@ -267,10 +268,9 @@ def splat_depth_soft(points3d: torch.Tensor, K: torch.Tensor, min_depth: float,
     x0 = torch.floor(px)
     y0 = torch.floor(py)
     base = (torch.arange(b, device=points3d.device) * (h * w))[:, None]
-    num = torch.zeros(b * h * w, device=points3d.device, dtype=zf.dtype)
-    den = torch.zeros(b * h * w, device=points3d.device, dtype=zf.dtype)
     wx = px - x0
     wy = py - y0
+    idxs, vals = [], []
     for dx, dy, wgt in ((0, 0, (1 - wx) * (1 - wy)), (1, 0, wx * (1 - wy)),
                         (0, 1, (1 - wx) * wy), (1, 1, wx * wy)):
         xi, yi = x0 + dx, y0 + dy
@@ -279,8 +279,15 @@ def splat_depth_soft(points3d: torch.Tensor, K: torch.Tensor, min_depth: float,
         idx = (torch.nan_to_num(torch.clamp(yi, 0, h - 1)).long() * w
                + torch.nan_to_num(torch.clamp(xi, 0, w - 1)).long() + base)
         wgt = wgt * inb
-        num = num.index_add_(0, idx.reshape(-1), (wgt * wz * zf).reshape(-1))
-        den = den.index_add_(0, idx.reshape(-1), (wgt * wz).reshape(-1))
+        idxs.append(idx.reshape(-1))
+        vals.append(torch.stack([wgt * wz * zf, wgt * wz], dim=-1).reshape(-1, 2))
+    # one sorted accumulation of all four taps into (num, den): a fixed order
+    # on the card, unlike index_add_'s atomics, so training through this
+    # splat is repeatable.  Each pixel sums its taps in the order tap 0's
+    # points, tap 1's, ..., as four accumulations one after the other would
+    acc = torch.zeros((b * h * w, 2), device=points3d.device, dtype=zf.dtype)
+    acc = acc.index_put_((torch.cat(idxs),), torch.cat(vals), accumulate=True)
+    num, den = acc[:, 0], acc[:, 1]
 
     depth = num / torch.clamp(den, min=EPS)
     depth = torch.where(den > 1e-4, depth, torch.full_like(depth, max_depth))

@@ -1,11 +1,11 @@
 """Gan2ShapeRunner: the per-instance fitting loop of Gan2Shape.
 
 Port of ``deep3dmap_tpu/runners/gan2shape_runner.py:25-173`` without
-``BaseRunner`` (hooks, checkpoints and the log buffer come with the runtime,
-ROADMAP.md Queue 1 item 9).  Each epoch fits one instance: ``num_stage``
-stages of step 1 (photometric), a snapshot of the canonical estimate,
-step 2 (latent projection) and a pool of projected samples, then step 3
-(joint refinement on samples drawn from the pool).
+``BaseRunner`` (its hooks, checkpoints and log buffer for this runner are
+ROADMAP.md Queue 1, the runtime's leftovers).  Each epoch fits one
+instance: ``num_stage`` stages of step 1 (photometric), a snapshot of the
+canonical estimate, step 2 (latent projection) and a pool of projected
+samples, then step 3 (joint refinement on samples drawn from the pool).
 
 - One Adam per head from ``runners/optim.py::build_optimizer``; a mode
   steps only its ``MODE_NETS`` heads, as optax's per-head ``opt_state``.
@@ -27,6 +27,7 @@ from typing import Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils.device import make_deterministic
 from .optim import build_optimizer
 
 MODE_NETS = {
@@ -69,7 +70,9 @@ class Gan2ShapeRunner:
 
     def setup(self, sample_batch):
         """Seeded weights (``framework.init``), one optimizer per head, the
-        snapshot ``reset_weight`` restores, and the step generator."""
+        snapshot ``reset_weight`` restores, and the step generator; training
+        is made bitwise repeatable (``utils/device.py``)."""
+        make_deterministic()
         fw = self.framework
         self.net, self.model_state = fw.init(self.seed, sample_batch)
         self.optimizers = {name: build_optimizer(self.optimizer_cfg,

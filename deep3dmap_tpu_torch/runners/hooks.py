@@ -1,0 +1,185 @@
+"""Hooks: host-side callbacks at step/epoch boundaries (port of
+``deep3dmap_tpu/runners/hooks.py:20-186``).
+
+Hooks observe the runner for timing, logging and checkpoints; the lr
+schedule and the clip live in the optimizer (``runners/optim.py``).  Ported:
+``Hook``, ``HOOKS``, ``build_hook``, ``IterTimerHook``, ``TextLoggerHook``
+(its JSON log in the JAX keys) and ``CheckpointHook``.
+"""
+from __future__ import annotations
+
+import json
+import os.path as osp
+import time
+
+from ..utils.registry import Registry
+
+HOOKS = Registry("hook")
+
+
+def build_hook(cfg, default_args=None):
+    return HOOKS.build(dict(cfg), **(default_args or {}))
+
+
+class Hook:
+    PRIORITY = 50  # lower runs earlier
+
+    stages = ("before_run", "before_train_epoch", "before_train_iter",
+              "after_train_iter", "after_train_epoch", "before_val_epoch",
+              "before_val_iter", "after_val_iter", "after_val_epoch",
+              "after_run")
+
+    def before_run(self, runner):
+        pass
+
+    def after_run(self, runner):
+        pass
+
+    def before_train_epoch(self, runner):
+        pass
+
+    def after_train_epoch(self, runner):
+        pass
+
+    def before_train_iter(self, runner):
+        pass
+
+    def after_train_iter(self, runner):
+        pass
+
+    def before_val_epoch(self, runner):
+        pass
+
+    def after_val_epoch(self, runner):
+        pass
+
+    def before_val_iter(self, runner):
+        pass
+
+    def after_val_iter(self, runner):
+        pass
+
+    @staticmethod
+    def every_n_epochs(runner, n):
+        return (runner.epoch + 1) % n == 0 if n > 0 else False
+
+    @staticmethod
+    def every_n_iters(runner, n):
+        return (runner.iter + 1) % n == 0 if n > 0 else False
+
+    @staticmethod
+    def is_last_epoch(runner):
+        return runner.epoch + 1 == runner.max_epochs
+
+    @staticmethod
+    def is_last_iter(runner):
+        return runner.iter + 1 == runner.max_iters
+
+
+@HOOKS.register_module()
+class IterTimerHook(Hook):
+    """Per-iteration host wall time into the log buffer.  The port's step
+    does not wait for the device, so ``time`` is the host's time per step,
+    which the device catches up with at the logger's interval."""
+
+    def before_train_epoch(self, runner):
+        self.t = time.time()
+
+    def before_train_iter(self, runner):
+        runner.log_buffer.update({"data_time": time.time() - self.t})
+
+    def after_train_iter(self, runner):
+        now = time.time()
+        runner.log_buffer.update({"time": now - self.t})
+        self.t = now
+
+
+@HOOKS.register_module()
+class TextLoggerHook(Hook):
+    """Console and JSON logging every ``interval`` iters; the only place the
+    training loop reads its logged values from the device."""
+
+    PRIORITY = 90
+
+    def __init__(self, interval: int = 50, by_epoch: bool = True, json_log: bool = True):
+        self.interval = interval
+        self.by_epoch = by_epoch
+        self.json_log = json_log
+        self._json_path = None
+        self._iters_since_log = 0
+
+    def before_run(self, runner):
+        if self.json_log and runner.work_dir is not None:
+            self._json_path = osp.join(runner.work_dir, f"{runner.timestamp}.log.json")
+
+    def _log(self, runner, mode: str):
+        runner.log_buffer.average(self.interval)
+        out = dict(runner.log_buffer.output)
+        lr = runner.current_lr()
+        head = (f"Epoch [{runner.epoch + 1}][{runner.inner_iter + 1}/{len(runner.cur_loader)}]"
+                if self.by_epoch and runner.cur_loader is not None
+                else f"Iter [{runner.iter + 1}]")
+        items = ", ".join(f"{k}: {v:.4f}" for k, v in out.items())
+        runner.logger.info(f"{head} lr: {lr:.3e}, {items}")
+        if self._json_path is not None:
+            rec = dict(mode=mode, epoch=runner.epoch + 1, iter=runner.iter + 1, lr=float(lr), **out)
+            with open(self._json_path, "a") as f:
+                f.write(json.dumps(rec) + "\n")
+        runner.log_buffer.clear_output()
+
+    def after_train_iter(self, runner):
+        if self.every_n_iters(runner, self.interval):
+            self._log(runner, "train")
+            self._iters_since_log = 0
+        else:
+            self._iters_since_log += 1
+
+    def after_train_epoch(self, runner):
+        # flush only iters not already covered by an interval log
+        if runner.log_buffer.val_history and self._iters_since_log > 0:
+            self._log(runner, "train")
+        self._iters_since_log = 0
+        runner.log_buffer.clear()
+
+    def after_val_epoch(self, runner):
+        runner.log_buffer.average()
+        out = dict(runner.log_buffer.output)
+        items = ", ".join(f"{k}: {v:.4f}" for k, v in out.items())
+        runner.logger.info(f"Epoch(val) [{runner.epoch + 1}] {items}")
+        runner.log_buffer.clear()
+
+
+@HOOKS.register_module()
+class CheckpointHook(Hook):
+    """Periodic checkpoints (``runners/checkpoint.py``)."""
+
+    PRIORITY = 70
+
+    def __init__(self, interval: int = 1, by_epoch: bool = True, max_keep_ckpts: int = -1,
+                 save_last: bool = True):
+        self.interval = interval
+        self.by_epoch = by_epoch
+        self.max_keep_ckpts = max_keep_ckpts
+        self.save_last = save_last
+
+    def _save(self, runner, completed_iters):
+        from .checkpoint import save_checkpoint
+        save_checkpoint(runner.work_dir, runner.state,
+                        meta=dict(epoch=runner.epoch + 1, iter=completed_iters),
+                        max_keep=self.max_keep_ckpts)
+        runner.logger.info(f"Saved checkpoint at epoch {runner.epoch + 1} "
+                           f"(step {runner.state.step})")
+
+    def after_train_epoch(self, runner):
+        if not self.by_epoch:
+            return
+        if self.every_n_epochs(runner, self.interval) or (self.save_last and self.is_last_epoch(runner)):
+            # the epoch loop has already counted its last run_iter
+            self._save(runner, runner.iter)
+
+    def after_train_iter(self, runner):
+        if self.by_epoch:
+            return
+        if self.every_n_iters(runner, self.interval) or (self.save_last and self.is_last_iter(runner)):
+            # after_train_iter fires before the loop's `iter += 1`
+            self._save(runner, runner.iter + 1)

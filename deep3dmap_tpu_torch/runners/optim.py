@@ -1,11 +1,13 @@
-"""The optimizer NeuralRecon's configs use: Adam after a global-norm clip.
+"""The optimizer NeuralRecon's configs use: Adam after a global-norm clip,
+with the ``step`` lr policy.
 
 The subset of ``deep3dmap_tpu/runners/optim.py::build_optimizer`` (:270-316)
 that ``configs/neural_recon/`` asks for: ``dict(type="Adam", lr, betas, eps,
 weight_decay=0)`` with ``grad_clip=dict(max_norm)``, i.e.
 ``optax.chain(optax.clip_by_global_norm(max_norm), optax.adam(lr, b1, b2,
-eps))``.  Every other optimizer, option, schedule or paramwise setting raises
-``NotImplementedError``: they come with the runtime around the step.
+eps))``, and ``build_lr_schedule`` (:49-78) for ``policy="step"``.  Every
+other optimizer, option, policy or paramwise setting raises
+``NotImplementedError``.
 
 TRAP: ``torch.nn.utils.clip_grad_norm_`` scales by ``max_norm / (norm +
 1e-6)`` whenever it is called; optax scales by ``max_norm / norm`` only when
@@ -16,12 +18,12 @@ optax's rule, computed on the device without a host sync.  ``torch.optim.Adam``
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
+import numpy as np
 import torch
 
-_LATER = ("is not ported yet (ROADMAP.md Queue 1 item 9, the runtime around "
-          "the training step)")
+_LATER = "is not ported yet (ROADMAP.md Queue 1, the runtime's leftovers)"
 
 
 def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -41,17 +43,71 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor], norm: torch.Tensor,
     torch._foreach_mul_(list(grads), torch.where(keep, one, one * max_norm))
 
 
+# the JAX package's policies (runners/optim.py:49-160); only "step" is ported
+_POLICIES = ("fixed", "step", "exp", "poly", "inv", "cosineannealing", "cosine",
+             "flatcosineannealing", "cosinerestart", "cyclic", "onecycle")
+
+
+def build_lr_schedule(policy: str, base_lr: float, total_iters: int,
+                      iters_per_epoch: int = 1, by_epoch: bool = True,
+                      warmup: Optional[str] = None, warmup_iters: int = 0,
+                      warmup_ratio: float = 0.1, **kwargs) -> Callable[[int], float]:
+    """An iteration -> lr schedule, JAX's ``build_lr_schedule`` for
+    ``policy="step"``: ``base_lr * gamma ** (number of bounds <= step)``,
+    floored at ``min_lr``, with the bounds in epochs when ``by_epoch``.
+    ``step`` is a list of bounds or an int period.  Computed in float32 as
+    JAX computes it, so the values are JAX's bit for bit."""
+    del warmup_ratio
+    policy = policy.lower()
+    if policy not in _POLICIES:
+        raise ValueError(f"Unknown lr policy: {policy}")
+    if policy != "step":
+        raise NotImplementedError(f"lr policy {policy!r} {_LATER}")
+    if warmup is not None and warmup_iters > 0:
+        raise NotImplementedError(f"lr warmup {warmup!r} {_LATER}")
+    e = iters_per_epoch if by_epoch else 1
+    steps = kwargs.pop("step")
+    gamma = np.float32(kwargs.pop("gamma", 0.1))
+    min_lr = kwargs.pop("min_lr", None)
+    if kwargs:
+        raise NotImplementedError(f"lr options {sorted(kwargs)} {_LATER}")
+    if isinstance(steps, int):
+        steps = list(range(steps, total_iters // e + 1, steps))
+    bounds = [s * e for s in steps]
+    if not bounds:      # JAX's exponent is then the Python 0.0
+        return lambda step: float(base_lr)
+    lr0 = np.float32(base_lr)
+
+    def sched(step: int) -> float:
+        lr = lr0 * gamma ** np.float32(sum(step >= b for b in bounds))
+        if min_lr is not None:
+            lr = np.maximum(lr, np.float32(min_lr))
+        return float(lr)
+    return sched
+
+
 class ClippedAdam:
     """``optax.chain(clip_by_global_norm(max_norm), adam(...))`` over a
     module's parameters.  A parameter without a gradient is skipped, as a
-    zero gradient leaves it unchanged under optax."""
+    zero gradient leaves it unchanged under optax.
 
-    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
+    ``lr`` is a number or a schedule: update k (from 0) then takes
+    ``lr(k)``, as optax's ``scale_by_schedule`` reads its step count before
+    incrementing it.  ``count`` is that count."""
+
+    def __init__(self, params, lr, betas=(0.9, 0.999), eps: float = 1e-8,
                  max_norm: Optional[float] = None):
         self.params: List[torch.nn.Parameter] = list(params)
         self.max_norm = max_norm
-        self.adam = torch.optim.Adam(self.params, lr=lr, betas=tuple(betas),
-                                     eps=eps, foreach=True)
+        self.schedule = lr if callable(lr) else None
+        self.fixed_lr = None if callable(lr) else float(lr)
+        self.count = 0
+        self.adam = torch.optim.Adam(self.params, lr=self.lr_at(0),
+                                     betas=tuple(betas), eps=eps, foreach=True)
+
+    def lr_at(self, count: int) -> float:
+        """The lr of update ``count``."""
+        return self.schedule(count) if self.schedule else self.fixed_lr
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
@@ -65,15 +121,21 @@ class ClippedAdam:
         norm = global_norm(grads)
         if self.max_norm is not None:
             clip_by_global_norm_(grads, norm, self.max_norm)
+        if self.schedule is not None:
+            for group in self.adam.param_groups:
+                group["lr"] = self.schedule(self.count)
         self.adam.step()
+        self.count += 1
         return norm
 
 
-def build_optimizer(cfg: dict, params, grad_clip: Optional[dict] = None
+def build_optimizer(cfg: dict, params, grad_clip: Optional[dict] = None,
+                    lr_schedule: Optional[Callable[[int], float]] = None
                     ) -> ClippedAdam:
     """``cfg`` as in the configs, e.g. ``dict(type="Adam", lr=1e-3,
     betas=(0.9, 0.999), weight_decay=0.0)``; ``grad_clip`` e.g.
-    ``dict(max_norm=1.0)``."""
+    ``dict(max_norm=1.0)``; ``lr_schedule`` (from ``build_lr_schedule``)
+    replaces the fixed ``lr``."""
     cfg = dict(cfg)
     opt_type = cfg.pop("type")
     if opt_type != "Adam":
@@ -89,4 +151,5 @@ def build_optimizer(cfg: dict, params, grad_clip: Optional[dict] = None
     max_norm = clip.pop("max_norm", None)
     if clip:
         raise NotImplementedError(f"grad_clip options {sorted(clip)} {_LATER}")
-    return ClippedAdam(params, lr, betas=betas, eps=eps, max_norm=max_norm)
+    return ClippedAdam(params, lr_schedule or lr, betas=betas, eps=eps,
+                       max_norm=max_norm)

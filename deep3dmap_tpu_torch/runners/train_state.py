@@ -3,8 +3,8 @@
 
 ``train_step`` zeroes the gradients, runs the framework's ``loss_fn``,
 backpropagates, clips and takes an Adam step, and carries the recurrent
-model state on.  Nothing in it waits for the device.  The runner around it
-(hooks, epochs, checkpoints) is ROADMAP.md Queue 1 item 9.
+model state on.  Nothing in it waits for the device.  ``BaseRunner.run_iter``
+(``base_runner.py``) calls it.
 """
 from __future__ import annotations
 

@@ -21,3 +21,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "deep3dmap_tpu_torch: CUDA requested (the default) but no CUDA "
             "device is available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def make_deterministic() -> None:
+    """Make training bitwise repeatable on the card, as the JAX package's
+    is: cuDNN picks deterministic algorithms and no autotuned ones.  The
+    port's own scatter-adds reduce in a fixed order on every device (sorted
+    ``index_put_(accumulate=True)`` and advanced-indexing gathers in
+    ``ops/``, never ``index_add_`` or ``index_select`` under autograd).
+    Called by the runner and the CLIs."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False

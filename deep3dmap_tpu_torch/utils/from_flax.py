@@ -1,4 +1,6 @@
-"""Carry flax params across: a JAX ``init`` param tree -> the port's modules.
+"""Carry flax params across: a JAX ``init`` param tree -> the port's modules,
+and a JAX training checkpoint -> the port's ``TrainState``
+(``load_jax_checkpoint``).
 
 The reverse of ``deep3dmap_tpu/utils/torch_import.py:50-57`` (which maps torch
 state dicts into flax trees), kept as the port's own copy:
@@ -103,11 +105,11 @@ def _unwrap(flax_params: Mapping, module: nn.Module) -> Mapping:
     return flax_params
 
 
-def load_flax_params(module: nn.Module, flax_params: Mapping) -> nn.Module:
-    """Fill ``module``'s parameters from a flax param tree (nested dicts of
-    arrays, optionally under a top-level ``"params"`` key).  Raises on any
-    leaf missing on either side or with the wrong shape."""
-    flat = _flatten(_unwrap(flax_params, module))
+def _torch_layout(module: nn.Module, flax_tree: Mapping) -> Dict[str, np.ndarray]:
+    """A flax-layout tree over ``module``'s parameters (optionally under a
+    top-level ``"params"`` key) -> torch-layout arrays by parameter name.
+    Raises on any leaf missing on either side or with the wrong shape."""
+    flat = _flatten(_unwrap(flax_tree, module))
     leaf_map = _leaf_map(module)
     params = dict(module.named_parameters())
     wanted = {path for path, _ in leaf_map.values()}
@@ -116,18 +118,82 @@ def load_flax_params(module: nn.Module, flax_params: Mapping) -> nn.Module:
     if extra or missing:
         raise ValueError(f"from_flax: flax leaves with no torch param: {extra}; "
                          f"torch params with no flax leaf: {missing}")
+    out = {}
+    for tname, (path, kind) in leaf_map.items():
+        src = flat[path]
+        if kind in _TO_TORCH:
+            src = _TO_TORCH[kind](src)
+        if tuple(src.shape) != tuple(params[tname].shape):
+            raise ValueError(
+                f"from_flax: {'/'.join(path)} has shape {tuple(src.shape)} "
+                f"after conversion, torch {tname} wants {tuple(params[tname].shape)}")
+        out[tname] = np.array(src)
+    return out
+
+
+def load_flax_params(module: nn.Module, flax_params: Mapping) -> nn.Module:
+    """Fill ``module``'s parameters from a flax param tree (nested dicts of
+    arrays, optionally under a top-level ``"params"`` key).  Raises on any
+    leaf missing on either side or with the wrong shape."""
+    values = _torch_layout(module, flax_params)
     with torch.no_grad():
-        for tname, (path, kind) in leaf_map.items():
-            src = flat[path]
-            if kind in _TO_TORCH:
-                src = _TO_TORCH[kind](src)
-            dst = params[tname]
-            if tuple(src.shape) != tuple(dst.shape):
-                raise ValueError(
-                    f"from_flax: {'/'.join(path)} has shape {tuple(src.shape)} "
-                    f"after conversion, torch {tname} wants {tuple(dst.shape)}")
-            dst.copy_(torch.from_numpy(np.array(src)).to(dst.dtype))
+        for tname, p in module.named_parameters():
+            p.copy_(torch.from_numpy(values[tname]).to(p.dtype))
     return module
+
+
+def load_jax_checkpoint(raw: Mapping, state):
+    """Load a JAX ``TrainState`` checkpoint, as
+    ``deep3dmap_tpu/runners/checkpoint.py::load_checkpoint_raw`` returns it
+    (``params``, ``opt_state``, ``model_state``, ``step``), into the port's
+    ``TrainState`` (``runners/train_state.py``) built from the same config,
+    and return it.  ``runners/checkpoint.py::save_checkpoint`` then writes
+    it as the port's checkpoint, so a run trained by JAX resumes in the port.
+
+    ``opt_state`` is optax's chain: ``[clip state (None), [ScaleByAdamState
+    (count, mu, nu), ScaleByScheduleState (count) or None]]`` with the
+    global-norm clip, the Adam chain alone without it.  A JAX optimizer of
+    another structure than the port's (clip or schedule on one side only)
+    raises ``ValueError``."""
+    import dataclasses
+
+    from ..runners.checkpoint import tree_unflatten
+
+    opt_state = raw["opt_state"]
+    clip = (isinstance(opt_state, (list, tuple)) and len(opt_state) == 2
+            and opt_state[0] is None and isinstance(opt_state[1], (list, tuple)))
+    adam_state, sched_state = opt_state[1] if clip else opt_state
+    opt = state.optimizer
+    jax_structure = dict(clip=clip, schedule=sched_state is not None)
+    port_structure = dict(clip=opt.max_norm is not None, schedule=opt.schedule is not None)
+    if jax_structure != port_structure:
+        raise ValueError(f"optimizer structure {jax_structure} in the JAX checkpoint, "
+                         f"{port_structure} in the port's state")
+    net = state.net
+    load_flax_params(net, raw["params"])
+    count = int(np.asarray(adam_state["count"]))
+    mu = _torch_layout(net, adam_state["mu"])
+    nu = _torch_layout(net, adam_state["nu"])
+    opt.adam.state.clear()
+    for name, p in net.named_parameters():
+        opt.adam.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": torch.from_numpy(mu[name]).to(p.device, p.dtype),
+            "exp_avg_sq": torch.from_numpy(nu[name]).to(p.device, p.dtype)}
+    opt.count = int(np.asarray(sched_state["count"])) if sched_state is not None else count
+    leaves = [torch.from_numpy(np.asarray(v)) for v in _jax_leaves(raw["model_state"])]
+    return dataclasses.replace(state, model_state=tree_unflatten(state.model_state, leaves),
+                               step=int(np.asarray(raw["step"])))
+
+
+def _jax_leaves(tree):
+    """Array leaves of a restored pytree of dicts and lists, dict keys
+    sorted, as ``jax.tree_util.tree_leaves`` orders them."""
+    if isinstance(tree, Mapping):
+        return [x for k in sorted(tree) for x in _jax_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _jax_leaves(v)]
+    return [] if tree is None else [tree]
 
 
 def _to_flax_tree(module: nn.Module,

@@ -129,7 +129,7 @@ def test_clip_is_optax_rule_not_clip_grad_norm(rng):
     (dict(type="Adam", lr=1e-3), dict(max_norm=1.0, norm_type=2)),
 ])
 def test_other_optimizers_and_options_raise(rng, cfg, clip):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="Queue 1, the runtime.s leftovers"):
         build_optimizer(cfg, _net(rng).parameters(), clip)
 
 

@@ -1,11 +1,14 @@
 """Rules of the PyTorch port that hold for every slice.
 
-- ``deep3dmap_tpu_torch/`` and ``chip_smoke.py`` import no ``jax``, ``flax``
-  or ``deep3dmap_tpu`` (an AST scan of every import statement);
+- ``deep3dmap_tpu_torch/`` (the CLIs included) and ``chip_smoke.py`` import
+  no ``jax``, ``flax``, ``optax``, ``orbax`` or ``deep3dmap_tpu`` (an AST
+  scan of every import statement);
 - entry points (the frameworks, the renderer, the perceptual loss, the
-  StyleGAN2 generator and discriminator, the Gan2Shape runner) default to
-  CUDA and raise on a machine without a GPU unless the caller asks for
-  ``device="cpu"``.
+  StyleGAN2 generator and discriminator, the Gan2Shape runner, the data
+  path's GT fusion, the fixture writer, the data-gen) default to CUDA and
+  raise on a machine without a GPU unless the caller asks for
+  ``device="cpu"`` (the CLIs: ``tests/test_torch_cli.py``);
+- the evaluation's worker processes import no torch.
 """
 import ast
 import os
@@ -15,7 +18,7 @@ import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "deep3dmap_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "deep3dmap_tpu")
 
 
 def _port_files():
@@ -145,3 +148,41 @@ def test_training_entry_points_run_on_the_framework_device():
     moments = [s["exp_avg"] for s in state.optimizer.adam.state.values()]
     assert moments and {m.device.type for m in moments} == {"cpu"}
     assert np.isfinite(float(log["loss"])) and float(log["grad_norm"]) > 0
+
+
+def test_data_path_entry_points_raise_without_gpu(tmp_path):
+    """The data path's device users -- the GT fusion of
+    ``SeqRandomTransformSpace`` (directly or through ``ScanNetDataset``'s
+    pipeline), ``SyntheticScanNetDataset``, ``write_scannet_fixture`` and the
+    data-gen's ``--save-tsdf`` -- default to CUDA like every entry point."""
+    _no_gpu()
+    from deep3dmap_tpu_torch.datasets.pipelines.transforms_seq import SeqRandomTransformSpace
+    from deep3dmap_tpu_torch.datasets.scannet import ScanNetDataset
+    from deep3dmap_tpu_torch.datasets.synthetic import (SyntheticScanNetDataset,
+                                                        write_scannet_fixture)
+    from deep3dmap_tpu_torch.tools.data_gen_scannet import save_scene_tsdf
+
+    fuse = dict(type="SeqRandomTransformSpace", voxel_dim=(8, 8, 8))
+    for make in (lambda: SeqRandomTransformSpace(), lambda: SyntheticScanNetDataset(),
+                 lambda: ScanNetDataset(str(tmp_path), pipeline=[fuse]),
+                 lambda: write_scannet_fixture(str(tmp_path), n_frames=2),
+                 lambda: save_scene_tsdf(str(tmp_path), [], 0.04, "cuda")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert SeqRandomTransformSpace(device="cpu").device == torch.device("cpu")
+    assert ScanNetDataset(str(tmp_path), pipeline=[fuse], device="cpu") \
+        .pipeline.transforms[0].device == torch.device("cpu")
+    assert SeqRandomTransformSpace(fuse_from_depth=False).device is None
+
+
+def test_eval_workers_import_no_torch():
+    """``ScanNetDataset.evaluate``'s spawned workers import the scene
+    evaluation and the host C++ op only: no torch, so no CUDA context."""
+    import subprocess
+    import sys
+    code = ("import sys; import deep3dmap_tpu_torch.core.evaluation.scene_eval, "
+            "deep3dmap_tpu_torch.ops.native; "
+            "assert 'torch' not in sys.modules, sorted(m for m in sys.modules if 'torch' in m)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr
