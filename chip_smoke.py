@@ -95,8 +95,22 @@ Phases; any error ends the run with a nonzero exit and no result line:
 15. learning check: ``tools/quality_regression.py``'s config and fixture
    through both CLIs at its 120 epochs; the trained model must beat the
    untrained one by its condition (F-score + 0.05, AbsRel lower).
+16. Gan2Shape through the CLIs at full width: seeded ``stylegan2``,
+   ``bisenet`` and PSPNet ``.npz`` files in ``tools/import_weights.py``'s
+   layouts and 4 synthetic 128² faces in CelebA's layout (PNG, ``.npy``
+   latents); ``tools/train.py`` on ``configs/gan2shape/celeba.py`` as
+   published but for the paths, stage_iters (20, 20, 20) x 1 stage and the
+   hard raster (use_mask with BiSeNet at 512², nf 32, z_dim 512, batchsize
+   4): 2 epochs, then ``--resume-from auto`` for a third; the runner's
+   synced step per mode beside phase 12's bare step, raster launches 1 / 1 /
+   2 per step and 86 per instance, the instance mask (1, 128, 128, 1) on the
+   card, the instance wall, peak memory; ``tools/test.py`` on the
+   checkpoint (its heads in ``forward_test``); ``parse_mask`` of
+   celeba/car/church (BiSeNet at 512², PSPNet at 473² with 21 and 150
+   classes) timed on the card and held against the CPU at TF32 off under
+   the near-tie rule.
 
-The raster's launches in the kernels line are phase 7's and phase 12's
+The raster's launches in the kernels line are phases 7's, 12's and 16's
 main paths together; the fused loss's are phase 4's (forward) or phase 10's
 (backward) and phase 14's.  Before the last line it prints one
 ``{"kernels": [...]}`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -104,6 +118,7 @@ main paths together; the fused loss's are phase 4's (forward) or phase 10's
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -1646,7 +1661,8 @@ def phase_g2s_train_full_width(g2s_module, runner_mod, raster, dataset_cls, card
                     G2S_PROFILED, spans, modules,
                     os.path.join(profile_dir, "gan2shape_train_kernels.txt"),
                     append=i > 0)
-    return dict(launches=launches, max_abs_err=max(v["max_abs_err"] for v in res.values()))
+    return dict(launches=launches, max_abs_err=max(v["max_abs_err"] for v in res.values()),
+                step_ms={m: statistics.median(lat[m]) for m in G2S_MODES})
 
 
 # ---------------------------------------------------------------- phase 13 --
@@ -1957,6 +1973,302 @@ def phase_learning(card, work, tools, write_fixture):
     check(ok, f"the trained model does not beat the untrained one: {tr} vs {un}")
 
 
+# ---------------------------------------------------------------- phase 16 --
+# configs/gan2shape/celeba.py through the CLIs: the file as published but for
+# the data and checkpoint paths, stage_iters, num_stage and the epochs, and
+# raster_mode="hard" (the repo's TPU kernel's path; the config's default is
+# the soft splat)
+G2S_CLI_ITERS = (20, 20, 20)         # celeba: (600, 600, 400) x 4 stages
+G2S_CLI_EPOCHS = 2                   # then resumed for a third
+G2S_CLI_FACES, G2S_CLI_TEST_FACES = 4, 2
+PARSE_WARMUP, PARSE_TIMED = 3, 20
+# card vs CPU parse at TF32 off (tests/test_torch_parsing.py's rule): logits
+# within 1e-3 abs or 2e-5 of their largest magnitude (PSPNet's GroupNorm
+# variance E[x²] - E[x]² cancels on smooth inputs, so two summation orders
+# differ by ~3e-4); class maps equal where the CPU's top-2 margin exceeds
+# 1e-3 (or twice 2e-5 of the largest logit); other pixels at most 0.1%
+TOL_PARSE = dict(atol=1e-3, rel_of_max=2e-5, margin=1e-3, max_tie_share=1e-3)
+SCENES = (("car", 21), ("church", 150))      # configs/gan2shape/{car,church}.py
+
+
+def _seeded_npz(work):
+    """Seeded weights in tools/import_weights.py's layouts, in place of the
+    published checkpoints: ``stylegan2`` (g and d trees) at celeba's width,
+    ``bisenet`` and the two PSPNets (a ``params`` tree each)."""
+    from deep3dmap_tpu_torch.models.layers import init_flax_defaults
+    from deep3dmap_tpu_torch.models.modulars.stylegan2 import (Generator,
+                                                               StyleDiscriminator,
+                                                               init_stylegan2)
+    from deep3dmap_tpu_torch.models.parsing import BiSeNetFP, PSPNet
+    from deep3dmap_tpu_torch.utils.from_flax import to_flax_params
+
+    gen, out = torch.Generator().manual_seed(16), {}
+    g = Generator(128, 512, 8, channel_multiplier=1, device="cpu")
+    d = StyleDiscriminator(128, channel_multiplier=1, device="cpu")
+    init_stylegan2(g, gen)
+    init_stylegan2(d, gen)
+    out["gan"] = os.path.join(work, "stylegan2_celeba.npz")
+    np.savez(out["gan"], g=np.array(to_flax_params(g), dtype=object),
+             d=np.array(to_flax_params(d), dtype=object))
+    for key, net in (("face", BiSeNetFP()), ("car", PSPNet(21)), ("church", PSPNet(150))):
+        init_flax_defaults(net, gen)
+        out[key] = os.path.join(work, f"parsing_{key}.npz")
+        np.savez(out[key], params=np.array({"params": to_flax_params(net)}, dtype=object))
+    return out
+
+
+def _celeba_fixture(root, dataset_cls, imwrite_png):
+    """Synthetic faces at 128² in CelebA's layout: ``images/*.png``,
+    ``latents/*.npy``, ``list.txt`` (training) and ``list_val.txt``."""
+    for d in ("images", "latents"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    n = G2S_CLI_FACES + G2S_CLI_TEST_FACES
+    ds = dataset_cls(n_samples=n, image_size=128, z_dim=512)
+    names = []
+    for i in range(n):
+        item = ds[i]
+        rgb = np.rint((item["input_im"] + 1) / 2 * 255).clip(0, 255).astype(np.uint8)
+        imwrite_png(os.path.join(root, "images", f"face_{i}.png"), rgb[..., ::-1])
+        np.save(os.path.join(root, "latents", f"face_{i}.npy"), item["latent_w"])
+        names.append(f"face_{i}.png")
+    for name, part in (("list.txt", names[:G2S_CLI_FACES]),
+                       ("list_val.txt", names[G2S_CLI_FACES:])):
+        with open(os.path.join(root, name), "w") as f:
+            f.write("\n".join(part) + "\n")
+
+
+def _celeba_options(root, npz, category="face"):
+    opts = [f"data.{split}.{k}={os.path.join(root, v)}"
+            for split, lst in (("train", "list.txt"), ("test", "list_val.txt"))
+            for k, v in (("img_list_path", lst), ("img_root", "images"),
+                         ("latent_root", "latents"))]
+    return opts + [f"model.model_cfgs.gan_ckpt={npz['gan']}",
+                   f"model.model_cfgs.parsing_ckpt={npz[category]}",
+                   "model.model_cfgs.raster_mode=hard",
+                   f"runner.stage_iters={G2S_CLI_ITERS}", "runner.num_stage=1",
+                   "custom_hooks=[{'type': 'ChipSmokeG2SProbe'}]"]
+
+
+def _synced_ms(fn, warmup: int, timed: int) -> list:
+    for _ in range(warmup):
+        fn()
+    out = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _parse_card_vs_cpu(parser, cpu_parser, images, category, resize_bilinear):
+    """The card's logits and mask against the CPU's (same weights, TF32
+    off) under the near-tie rule; returns the numbers it compared."""
+    size = 512 if category in ("face", "synface") else 473
+    x = resize_bilinear(images, size)
+    if category in ("car", "cat"):
+        x = (x / 2 + 0.5 - x.new_tensor((0.485, 0.456, 0.406))) \
+            / x.new_tensor((0.229, 0.224, 0.225))
+    with torch.no_grad():
+        card = parser.net(x).cpu()
+        ref = cpu_parser.net(x.cpu())
+    scaled = TOL_PARSE["rel_of_max"] * float(ref.abs().max())
+    err = float((card - ref).abs().max())
+    check(err <= max(TOL_PARSE["atol"], scaled),
+          f"parse {category}: card vs CPU logits differ by {err}")
+    top2 = torch.topk(ref, 2, dim=-1).values
+    sure = top2[..., 0] - top2[..., 1] > max(TOL_PARSE["margin"], 2 * scaled)
+    ccls, rcls = card.argmax(-1), ref.argmax(-1)
+    check(torch.equal(ccls[sure], rcls[sure]),
+          f"parse {category}: the class maps differ beyond the near-tie margin")
+    share = float((ccls != rcls).float().mean())
+    check(share <= TOL_PARSE["max_tie_share"], f"parse {category}: {share} of the "
+          f"pixels change class")
+    mask_err = float((parser.parse_mask(images, category, 128).cpu()
+                      - cpu_parser.parse_mask(images.cpu(), category, 128)).abs().max())
+    if share == 0:
+        check(mask_err <= 1e-6, f"parse {category}: masks differ by {mask_err}")
+    return dict(logit_max_abs_err=err, logit_scale=float(ref.abs().max()),
+                near_tie_share=share, mask_max_abs_err=mask_err,
+                classes=int(rcls.unique().numel()))
+
+
+def phase_g2s_cli(card, work, tools, hooks_mod, raster, dataset_cls, g2s_bare_ms):
+    phase("Gan2Shape through the CLIs at full width: configs/gan2shape/celeba.py "
+          "(use_mask, BiSeNet at 512², hard raster), train 2 epochs, resume a third, "
+          "test; car.py and church.py parse_mask (PSPNet at 473²)")
+    set_tf32(cudnn=True, matmul=False)   # PyTorch's defaults
+    from deep3dmap_tpu_torch.models.builder import build_reconstruction
+    from deep3dmap_tpu_torch.models.frameworks import gan2shape as g2s_module
+    from deep3dmap_tpu_torch.models.parsing import FaceParser, SceneParser
+    from deep3dmap_tpu_torch.ops.resize import resize_bilinear
+    from deep3dmap_tpu_torch.utils.config import Config
+    from deep3dmap_tpu_torch.utils.image_io import imwrite_png
+
+    print(f"cut: stage_iters (600, 600, 400) x 4 stages -> {G2S_CLI_ITERS} x 1, "
+          f"{G2S_CLI_EPOCHS} epochs + 1 resumed; seeded stylegan2/bisenet/pspnet .npz in "
+          f"place of the published checkpoints; {G2S_CLI_FACES} synthetic 128² faces "
+          f"in place of CelebA; raster_mode=hard", flush=True)
+    t0 = time.perf_counter()
+    npz = _seeded_npz(work)
+    root, wd = os.path.join(work, "celeba"), os.path.join(work, "g2s_train")
+    _celeba_fixture(root, dataset_cls, imwrite_png)
+    setup_s = time.perf_counter() - t0
+    cfg = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "configs", "gan2shape", "celeba.py")
+    probe = {}
+
+    @hooks_mod.HOOKS.register_module(force=True)
+    class ChipSmokeG2SProbe(hooks_mod.Hook):
+        """Times each step of a run's first epoch (synced), the instance
+        wall of the others; raster launches per step and per instance; the
+        instance's mask; the peak memory."""
+        PRIORITY = 1
+
+        def before_run(self, runner):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            probe.update(step_ms={m: [] for m in G2S_MODES}, step_launches={m: [] for m in G2S_MODES},
+                         fit_s=[], fit_launches=[], masks=[], first=runner.epoch)
+            fit, step = runner.fit_instance, runner.train_step
+
+            def timed_step(mode, batch):
+                if runner.epoch != probe["first"]:
+                    return step(mode, batch)
+                torch.cuda.synchronize()
+                t1, l0 = time.perf_counter(), raster.launches
+                out = step(mode, batch)
+                torch.cuda.synchronize()
+                probe["step_ms"][mode].append((time.perf_counter() - t1) * 1e3)
+                probe["step_launches"][mode].append(raster.launches - l0)
+                return out
+
+            def timed_fit(batch):
+                m = batch["input_mask"]
+                probe["masks"].append((tuple(m.shape), m.device.type, float(m.min()),
+                                       float(m.max())))
+                torch.cuda.synchronize()
+                t1, l0 = time.perf_counter(), raster.launches
+                out = fit(batch)
+                torch.cuda.synchronize()
+                probe["fit_s"].append(time.perf_counter() - t1)
+                probe["fit_launches"].append(raster.launches - l0)
+                return out
+            runner.train_step, runner.fit_instance = timed_step, timed_fit
+
+        def after_run(self, runner):
+            probe["peak"] = torch.cuda.max_memory_allocated()
+
+    opts = _celeba_options(root, npz)
+    raster.launches = 0                               # the main path starts here
+    t1 = time.perf_counter()
+    runner = tools.train.main([cfg, "--work-dir", wd, "--max-epochs", str(G2S_CLI_EPOCHS),
+                               "--cfg-options", *opts])
+    train_s = time.perf_counter() - t1
+    first = dict(probe)
+    fw = runner.framework
+    trained = (type(runner).__name__, fw.use_mask, fw.renderer.raster_mode, runner.epoch,
+               runner.step)
+    del runner, fw          # the resumed run's peak memory is its own (the
+    gc.collect()            # probe's wrappers and the runner form a cycle)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    resumed = tools.train.main([cfg, "--work-dir", wd, "--resume-from", "auto",
+                                "--max-epochs", str(G2S_CLI_EPOCHS + 1), "--cfg-options", *opts])
+    resume_s = time.perf_counter() - t1
+    seen, orig = [], g2s_module.Gan2Shape.forward_test
+
+    def spy(self, net, state, batch):
+        seen.append(torch.equal(net.depth_head.Conv_0.weight,
+                                resumed.net.depth_head.Conv_0.weight))
+        return orig(self, net, state, batch)
+    g2s_module.Gan2Shape.forward_test = spy
+    try:
+        t1 = time.perf_counter()
+        res = tools.test.main([cfg, "--work-dir", wd, "--checkpoint", "auto",
+                               "--cfg-options", *opts[:-1]])
+        test_s = time.perf_counter() - t1
+    finally:
+        g2s_module.Gan2Shape.forward_test = orig
+    launches = raster.launches                        # ... and ends here
+
+    s1, s2, s3 = G2S_CLI_ITERS
+    per_instance = 1 + s1 + s2 + max(s2 // 4, 1) + 2 * s3   # + the canon snapshot, the pool
+    check(trained == ("Gan2ShapeRunner", True, "hard", G2S_CLI_EPOCHS,
+                      G2S_CLI_EPOCHS * (s1 + s2 + s3)), f"the train CLI's run: {trained}")
+    check((resumed.epoch, resumed.step) == (G2S_CLI_EPOCHS + 1,
+                                            (G2S_CLI_EPOCHS + 1) * (s1 + s2 + s3)),
+          f"resumed to epoch {resumed.epoch}, step {resumed.step}")
+    for name, pr in (("train", first), ("resume", probe)):
+        for mode, n in RASTER_PER_STEP.items():
+            check(pr["step_launches"][mode] == [n] * len(pr["step_launches"][mode])
+                  and len(pr["step_launches"][mode]) == G2S_CLI_ITERS[G2S_MODES.index(mode)],
+                  f"{name} {mode}: raster launches per step {pr['step_launches'][mode]}")
+        check(pr["fit_launches"] == [per_instance] * len(pr["fit_launches"]),
+              f"{name}: raster launches per instance {pr['fit_launches']}")
+        # in [0, 1] up to the resize's rounding (its weights sum to 1 +- an ulp)
+        check(all(m[:2] == ((1, 128, 128, 1), "cuda") and -1e-6 <= m[2] <= m[3] <= 1 + 1e-6
+                  for m in pr["masks"]), f"{name}: instance masks {pr['masks']}")
+    check(res is None and seen == [True] * G2S_CLI_TEST_FACES,
+          f"test CLI: {len(seen)} forward_test calls, checkpoint heads {seen}")
+    want = (G2S_CLI_EPOCHS + 1) * per_instance + G2S_CLI_TEST_FACES
+    check(launches == want, f"raster launches {launches} on the path, expected {want}")
+    # each run's first step of a mode holds the first-use costs (the raster's
+    # build, cuDNN's algorithm choice): reported apart
+    steps = {m: first["step_ms"][m][1:] + probe["step_ms"][m][1:] for m in G2S_MODES}
+    first_steps = {m: (first["step_ms"][m][0], probe["step_ms"][m][0]) for m in G2S_MODES}
+    fw = resumed.framework
+
+    # parse_mask per parser on the card (synced), then against the CPU
+    from deep3dmap_tpu_torch.datasets.real_files import CelebaDataset
+    face = CelebaDataset(os.path.join(root, "list.txt"), os.path.join(root, "images"),
+                         os.path.join(root, "latents")).setup_input(0)["input_im"]
+    images = torch.from_numpy(face).cuda()
+    frameworks, cpu_parsers = {"face": fw}, {"face": FaceParser(npz["face"], device="cpu")}
+    for category, n_classes in SCENES:
+        scfg = Config.fromfile(os.path.join(os.path.dirname(cfg), f"{category}.py")).model
+        model = dict(scfg, model_cfgs=dict(scfg["model_cfgs"], parsing_ckpt=npz[category]))
+        frameworks[category] = build_reconstruction(model)
+        cpu_parsers[category] = SceneParser(npz[category], n_classes=n_classes, device="cpu")
+    parse_ms = {}
+    for category, f in frameworks.items():
+        parse_ms[category] = _synced_ms(lambda: f.parse_mask(images), PARSE_WARMUP, PARSE_TIMED)
+        mask = f.parse_mask(images)
+        check(tuple(mask.shape) == (1, 128, 128, 1) and mask.is_cuda,
+              f"parse_mask {category}: {tuple(mask.shape)} on {mask.device}")
+    for category, n_classes in SCENES:
+        got = frameworks[category]._parser.net.Conv_6.weight.shape[0]
+        check(got == n_classes, f"{category}: PSPNet with {got} classes")
+    set_tf32(cudnn=False, matmul=False)
+    compare = {c: _parse_card_vs_cpu(frameworks[c]._parser, cpu_parsers[c], images, c,
+                                     resize_bilinear) for c in frameworks}
+    set_tf32(cudnn=True, matmul=False)
+
+    fit_ms = statistics.median(first["fit_s"][1:]) * 1e3
+    print(f"g2s_cli: card={card!r} setup_s={setup_s:.3f} train_cli_s={train_s:.3f} "
+          f"resume_cli_s={resume_s:.3f} test_cli_s={test_s:.3f} "
+          + " ".join(f"runner_{m}_ms_median={statistics.median(steps[m]):.6f} "
+                     f"runner_{m}_ms_max={max(steps[m]):.6f} "
+                     f"bare_{m}_ms_median_phase12={g2s_bare_ms[m]:.6f}" for m in G2S_MODES)
+          + f" synced_steps_per_mode={len(steps['step1'])} "
+          f"first_step_ms_per_run={first_steps} "
+          f"fit_instance_s={[round(v, 6) for v in first['fit_s'] + probe['fit_s']]} "
+          f"fit_instance_ms_unsynced_median={fit_ms:.6f} "
+          + " ".join(f"parse_mask_{c}_ms_median={statistics.median(v):.6f} "
+                     f"parse_mask_{c}_ms_max={max(v):.6f}" for c, v in parse_ms.items())
+          + f" parse_share_of_instance={statistics.median(parse_ms['face']) / fit_ms:.6f} "
+          f"max_memory_allocated_bytes_train={first['peak']} "
+          f"max_memory_allocated_bytes_resume={probe['peak']} "
+          + " ".join(f"raster_launches_per_{m}={n}" for m, n in RASTER_PER_STEP.items())
+          + f" raster_launches_per_instance={per_instance} raster_launches={launches} "
+          f"stage_iters={G2S_CLI_ITERS} num_stage=1 epochs={resumed.epoch} "
+          f"instance_mask={first['masks'][0]}", flush=True)
+    print("g2s_cli parse card vs CPU (TF32 off): " + " ".join(
+        f"{c}.{k}={v!r}" for c, d in compare.items() for k, v in d.items()), flush=True)
+    return dict(launches=launches)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -2023,6 +2335,8 @@ def main():
             fused_loss, train_mod, card, work, bwd["step_ms_median"], tools, hooks_mod,
             scannet_mod, native, write_scannet_fixture, checkpoint_mod)
         phase_learning(card, work, tools, write_scannet_fixture)
+        g2s_cli = phase_g2s_cli(card, work, tools, hooks_mod, raster, SyntheticGanFaceDataset,
+                                g2s_train["step_ms"])
     print(f"phases took {time.perf_counter() - t0:.3f} s", flush=True)
 
     print(json.dumps({"kernels": [{
@@ -2054,7 +2368,7 @@ def main():
         "route": "cuda",
         "source": "deep3dmap_tpu_torch/ops/csrc/raster_hard.cu",
         "replaces": "deep3dmap_tpu/ops/raster_pallas.py:76",
-        "launches": g2s["launches"] + g2s_train["launches"],
+        "launches": g2s["launches"] + g2s_train["launches"] + g2s_cli["launches"],
         "max_abs_err": max(raster_err, g2s["max_abs_err"], g2s_train["max_abs_err"]),
         "ms": g2s["ms"],
         "plain_ms": g2s["plain_ms"],

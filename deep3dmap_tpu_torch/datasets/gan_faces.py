@@ -4,7 +4,10 @@ Copy of ``deep3dmap_tpu/datasets/gan_faces.py::SyntheticGanFaceDataset``,
 numpy only like the original, so the two packages make the same inputs from
 one seed.  Pull-model ``setup_input(idx)`` returns one image instance with
 its StyleGAN w latent: images are shaded sphere renders (face-like smooth
-depth) in [-1, 1], NHWC, and latents fixed random vectors.
+depth) in [-1, 1], NHWC, and latents fixed random vectors.  Registered in
+``DATASETS`` as in JAX, so ``configs/gan2shape/celeba_synthetic.py`` builds
+through the CLIs; ``device`` is the keyword they pass every dataset (the
+items are host arrays).
 """
 from __future__ import annotations
 
@@ -12,10 +15,13 @@ from typing import Dict
 
 import numpy as np
 
+from .builder import DATASETS
 
+
+@DATASETS.register_module()
 class SyntheticGanFaceDataset:
     def __init__(self, n_samples: int = 4, image_size: int = 64, z_dim: int = 128,
-                 n_latent: int = 8, seed: int = 0, pipeline=None):
+                 n_latent: int = 8, seed: int = 0, pipeline=None, device=None):
         self.n_samples = n_samples
         self.image_size = image_size
         self.z_dim = z_dim

@@ -16,8 +16,8 @@ fitting of depth/albedo/view/light heads against a frozen StyleGAN2.
 - step 3: step 1 on the input plus the projected samples re-rendered under
   their predicted views and lights.
 
-Ported: the whole framework but the parsing models (``parse_mask``:
-``parsing_ckpt`` raises).  ``init`` builds the five heads and the frozen
+``parse_mask`` derives the region mask from the parsing models
+(``models/parsing``, ``parsing_ckpt``).  ``init`` builds the five heads and the frozen
 generator and discriminator (StyleGAN2's initializers, or ``gan_ckpt``, the
 ``.npz`` that ``tools/import_weights.py`` writes); ``load_flax`` carries a
 JAX ``init``'s trees across.  ``params`` is the heads module; ``model_state``
@@ -43,6 +43,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...core.renderer.renderer_nr import NrRenderer, get_transform_matrices
+from ...ops.resize import resize_bilinear
 from ...utils.device import resolve_device
 from ...utils.from_flax import load_flax_params
 from ..backbones.encoder import Encoder
@@ -51,6 +52,7 @@ from ..builder import RECONSTRUCTORS
 from ..layers import init_flax_defaults
 from ..losses.perceptual_loss import DiscriminatorLoss, PerceptualLoss
 from ..modulars.stylegan2 import Generator, StyleDiscriminator, init_stylegan2
+from ..parsing import FaceParser, SceneParser
 from .base import BaseFramework
 
 _TEST_KEYS = ("depth", "albedo", "normal", "recon_im", "recon_depth")
@@ -77,38 +79,6 @@ def smooth_loss(x):
     return dx + dy
 
 
-def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
-    """(n_in, n_out) weights of ``jax.image.resize(..., "bilinear")`` on one
-    axis, as ``jax.image.scale_and_translate`` computes them: samples at
-    half-pixel centres, the triangle kernel widened by the scale when it
-    shrinks (antialiasing), columns normalised, samples outside dropped."""
-    inv_scale = 1.0 / (n_out / n_in)
-    kernel_scale = max(inv_scale, 1.0)
-    sample_f = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) \
-        * inv_scale - 0.5
-    x = torch.abs(sample_f[None, :] - torch.arange(n_in, dtype=torch.float32,
-                                                   device=device)[:, None]) / kernel_scale
-    w = torch.clamp(1.0 - x, min=0.0)
-    total = w.sum(0, keepdim=True)
-    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
-                    w / torch.where(total != 0, total, torch.ones_like(total)),
-                    torch.zeros_like(w))
-    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
-    return torch.where(inside[None, :], w, torch.zeros_like(w))
-
-
-def resize_bilinear(x: torch.Tensor, size: int) -> torch.Tensor:
-    """``jax.image.resize(x, (B, size, size, C), "bilinear")`` for NHWC x:
-    one weight matrix per axis that changes size, applied by ``matmul``
-    (``F.interpolate`` neither antialiases nor matches JAX's sampling)."""
-    B, H, W, C = x.shape
-    if W != size:
-        x = (x.transpose(2, 3) @ _resize_weights(W, size, x.device)).transpose(2, 3)
-    if H != size:
-        x = (x.permute(0, 2, 3, 1) @ _resize_weights(H, size, x.device)).permute(0, 3, 1, 2)
-    return x
-
-
 class Gan2ShapeHeads(nn.Module):
     """The five heads, named as the JAX ``params`` tree's keys."""
 
@@ -126,10 +96,6 @@ class Gan2Shape(BaseFramework):
     def __init__(self, model_cfgs: dict, train_cfg=None, test_cfg=None,
                  device=None):
         cfg = dict(model_cfgs)
-        if cfg.get("parsing_ckpt"):
-            raise NotImplementedError(
-                "Gan2Shape: parsing_ckpt needs the parsing models (BiSeNet / "
-                "PSPNet, parse_mask), which are not ported yet")
         self.image_size = cfg.get("image_size", 64)
         self.gan_size = cfg.get("gan_size", self.image_size)
         self.z_dim = cfg.get("z_dim", 128)
@@ -151,6 +117,10 @@ class Gan2Shape(BaseFramework):
         self.view_scale = cfg.get("view_scale", 1.0)
         self.use_mask = cfg.get("use_mask", False)
         self.category = cfg.get("category", "face")
+        # the parsing model's .npz (``tools/import_weights.py bisenet``);
+        # seeded weights without it
+        self.parsing_ckpt = cfg.get("parsing_ckpt")
+        self._parser = None
         self.gan_ckpt = cfg.get("gan_ckpt")
         self.mode = "step1"
         self.test_cfg = test_cfg
@@ -181,6 +151,22 @@ class Gan2Shape(BaseFramework):
 
     def depth_rescaler(self, d):
         return (1 + d) / 2 * self.max_depth + (1 - d) / 2 * self.min_depth
+
+    def parse_mask(self, images):
+        """The category's region mask from the parsing model, built once:
+        BiSeNet face parsing for ``face``/``synface``, PSPNet scene parsing
+        otherwise (150 ADE classes for ``church``, 21 VOC classes else).
+        ``images`` (B, S, S, 3) in [-1, 1], numpy or a tensor; returns the
+        (B, image_size, image_size, 1) soft mask on the framework's device."""
+        if self._parser is None:
+            if self.category in ("face", "synface"):
+                self._parser = FaceParser(self.parsing_ckpt, device=self.device)
+            else:
+                n_classes = 150 if self.category == "church" else 21
+                self._parser = SceneParser(self.parsing_ckpt, n_classes=n_classes,
+                                           device=self.device)
+        return self._parser.parse_mask(self._on_device(images), self.category,
+                                       out_size=self.image_size)
 
     def set_mode(self, mode: str):
         if mode not in ("step1", "step2", "step3"):

@@ -30,14 +30,15 @@ import torch.nn.functional as F
 _TRUNC_STD = 0.87962566103423978
 
 
-def _same_pads(size: int, k: int, s: int):
-    """flax/XLA ``SAME`` padding of one spatial dim.
+def _same_pads(size: int, k: int, s: int, d: int = 1):
+    """flax/XLA ``SAME`` padding of one spatial dim, for a kernel of ``k``
+    taps ``d`` apart (the effective kernel is ``(k - 1) * d + 1`` wide).
 
     TRAP: at stride 2 it is asymmetric -- k=3 on an even side pads (0, 1),
     not torch's (1, 1); k=5 pads (1, 2).  The extra row goes on the high side.
     """
     out = -(-size // s)
-    total = max((out - 1) * s + k - size, 0)
+    total = max((out - 1) * s + (k - 1) * d + 1 - size, 0)
     return total // 2, total - total // 2
 
 
@@ -49,18 +50,21 @@ class Conv(nn.Module):
     """``flax.linen.Conv`` on channel-last input, 2-D or 3-D.
 
     ``padding`` is ``"SAME"``, ``"VALID"`` or an explicit per-dim list of
-    (lo, hi) pairs.
+    (lo, hi) pairs; ``dilation`` is flax's ``kernel_dilation``.
     """
 
     def __init__(self, in_ch: int, out_ch: int, kernel: Sequence[int],
                  strides: Union[int, Sequence[int]] = 1, padding="SAME",
                  groups: int = 1, use_bias: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 dilation: Union[int, Sequence[int]] = 1):
         super().__init__()
         self.kernel = tuple(kernel)
         nd = len(self.kernel)
         self.strides = ((strides,) * nd if isinstance(strides, int)
                         else tuple(strides))
+        self.dilation = ((dilation,) * nd if isinstance(dilation, int)
+                         else tuple(dilation))
         self.padding = padding
         self.groups = groups
         self.dtype = dtype
@@ -77,8 +81,8 @@ class Conv(nn.Module):
         if self.padding == "VALID":
             pads = [(0, 0)] * nd
         elif self.padding == "SAME":
-            pads = [_same_pads(x.shape[1 + i], self.kernel[i], self.strides[i])
-                    for i in range(nd)]
+            pads = [_same_pads(x.shape[1 + i], self.kernel[i], self.strides[i],
+                               self.dilation[i]) for i in range(nd)]
         else:
             pads = [tuple(p) for p in self.padding]
         conv_pad = 0
@@ -95,7 +99,7 @@ class Conv(nn.Module):
         xc = x.movedim(-1, 1)
         conv = F.conv3d if nd == 3 else F.conv2d
         y = conv(xc, w, None, stride=self.strides, padding=conv_pad,
-                 groups=self.groups).movedim(1, -1)
+                 dilation=self.dilation, groups=self.groups).movedim(1, -1)
         # flax rounds the conv output to ``dt`` and then adds the bias in
         # ``dt``; a bias fused into the conv rounds once, which in bf16 moves
         # outputs by an ulp

@@ -24,7 +24,7 @@ import logging
 import os
 import os.path as osp
 import time
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import torch
 
@@ -133,7 +133,20 @@ class BaseRunner:
               iters_per_epoch: int = 1) -> TrainState:
         """Seeded weights and model state, the schedule and the optimizer."""
         make_deterministic()
-        optimizer = dict(optimizer or self.runner_cfgs.get("optimizer", dict(type="Adam", lr=1e-3)))
+        make_optimizer = self._optimizer_factory(optimizer, lr_config, optimizer_config,
+                                                 iters_per_epoch, dict(type="Adam", lr=1e-3))
+        net, model_state = self.framework.init(self.seed, sample_batch)
+        self.state = TrainState(net=net, model_state=model_state,
+                                optimizer=make_optimizer(net.parameters()))
+        self._log_init(net)
+        return self.state
+
+    def _optimizer_factory(self, optimizer: Optional[dict], lr_config: Optional[dict],
+                           optimizer_config: Optional[dict], iters_per_epoch: int,
+                           default: dict) -> Callable:
+        """Sets ``base_lr`` and ``lr_schedule`` from the configs and returns
+        parameters -> optimizer (``runners/optim.py``)."""
+        optimizer = dict(optimizer or self.runner_cfgs.get("optimizer", default))
         self.base_lr = optimizer.get("lr", 1e-3)
         total_iters = (self._max_iters if self._max_iters is not None
                        else (self._max_epochs or 1) * iters_per_epoch)
@@ -149,17 +162,14 @@ class BaseRunner:
             raise NotImplementedError(f"paramwise_cfg {_LATER}")
         if optimizer_config.get("cumulative_iters", 1) > 1:
             raise NotImplementedError(f"gradient accumulation {_LATER}")
+        grad_clip, schedule = optimizer_config.get("grad_clip"), self.lr_schedule
+        return lambda params: build_optimizer(optimizer, params, grad_clip,
+                                              lr_schedule=schedule)
 
-        net, model_state = self.framework.init(self.seed, sample_batch)
-        self.state = TrainState(
-            net=net, model_state=model_state,
-            optimizer=build_optimizer(optimizer, net.parameters(),
-                                      optimizer_config.get("grad_clip"),
-                                      lr_schedule=self.lr_schedule))
+    def _log_init(self, net) -> None:
         n_params = sum(p.numel() for p in net.parameters())
         self.logger.info(f"Initialized {type(self.framework).__name__}: "
                          f"{n_params / 1e6:.2f}M params, device={self.framework.device}")
-        return self.state
 
     # -- loops (implemented by subclasses) ---------------------------------
     def run(self, data_loaders, workflow, **kwargs):

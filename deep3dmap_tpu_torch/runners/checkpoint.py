@@ -9,10 +9,14 @@ reads it):
 
     net          the network's ``state_dict()``
     optimizer    Adam's ``state_dict()``, the schedule's ``count`` and the
-                 optimizer's ``structure`` (clip and schedule on or off)
-    model_state  the recurrent model state's tensors, in tree order (dict
-                 keys sorted, as ``jax.tree_util.tree_leaves`` orders them)
+                 optimizer's ``structure`` (clip and schedule on or off);
+                 with one optimizer per head, a dict of those by head
+    model_state  the model state's tensors, in tree order (dict keys
+                 sorted, as ``jax.tree_util.tree_leaves`` orders them);
+                 modules in it (Gan2Shape's frozen GAN, which comes from
+                 ``gan_ckpt`` or the seeded init) are not saved
     step         updates taken
+    rng          the step generator's state, where the state has one
 
 Loading restores into an existing ``TrainState`` (the runner's, built from
 the config) with an explicit ``map_location``.  A checkpoint of another
@@ -26,7 +30,7 @@ import os
 import os.path as osp
 import re
 import shutil
-from typing import Any, List, Optional
+from typing import Any, List, Mapping, Optional
 
 import torch
 
@@ -82,6 +86,31 @@ def _structure(optimizer) -> dict:
                 schedule=optimizer.schedule is not None)
 
 
+def _optimizer_state(opt) -> dict:
+    if isinstance(opt, Mapping):
+        return {name: _optimizer_state(o) for name, o in opt.items()}
+    return dict(adam=opt.adam.state_dict(), count=opt.count, structure=_structure(opt))
+
+
+def _load_optimizer(opt, saved: Mapping) -> None:
+    """Restore an optimizer (or a dict of them by head) from its saved
+    state; raises ``ValueError`` where the structure differs."""
+    if isinstance(opt, Mapping):
+        if set(saved) != set(opt):
+            raise ValueError(f"optimizers {sorted(saved)} in the checkpoint, "
+                             f"{sorted(opt)} in the runner")
+        for name, o in opt.items():
+            _load_optimizer(o, saved[name])
+        return
+    if "structure" not in saved:
+        raise ValueError("one optimizer per head in the checkpoint, one in the runner")
+    if saved["structure"] != _structure(opt):
+        raise ValueError(f"optimizer structure {saved['structure']} in the checkpoint, "
+                         f"{_structure(opt)} in the runner")
+    opt.adam.load_state_dict(saved["adam"])
+    opt.count = int(saved["count"])
+
+
 def save_checkpoint(work_dir: str, state, meta: Optional[dict] = None,
                     max_keep: int = -1) -> str:
     """Save a ``TrainState`` under ``work_dir/checkpoints/ckpt_<step>``."""
@@ -92,12 +121,11 @@ def save_checkpoint(work_dir: str, state, meta: Optional[dict] = None,
     if osp.exists(path):
         shutil.rmtree(path)
     os.makedirs(path)
-    opt = state.optimizer
-    torch.save(dict(net=state.net.state_dict(),
-                    optimizer=dict(adam=opt.adam.state_dict(), count=opt.count,
-                                   structure=_structure(opt)),
-                    model_state=tree_leaves(state.model_state), step=step),
-               osp.join(path, STATE_FILE))
+    raw = dict(net=state.net.state_dict(), optimizer=_optimizer_state(state.optimizer),
+               model_state=tree_leaves(state.model_state), step=step)
+    if state.rng is not None:
+        raw["rng"] = state.rng.get_state()
+    torch.save(raw, osp.join(path, STATE_FILE))
     if meta is not None:
         with open(osp.join(path, "meta.json"), "w") as f:
             json.dump(meta, f)
@@ -138,14 +166,12 @@ def load_checkpoint(path: str, state, map_location) -> Any:
     import dataclasses
 
     raw = load_checkpoint_raw(path, map_location)
-    opt = state.optimizer
-    saved = raw["optimizer"]["structure"]
-    if saved != _structure(opt):
-        raise ValueError(f"optimizer structure {saved} in the checkpoint, "
-                         f"{_structure(opt)} in the runner")
+    _load_optimizer(state.optimizer, raw["optimizer"])
+    if state.rng is not None:
+        if "rng" not in raw:
+            raise ValueError("the checkpoint holds no generator state")
+        state.rng.set_state(raw["rng"].cpu())
     state.net.load_state_dict(raw["net"])
-    opt.adam.load_state_dict(raw["optimizer"]["adam"])
-    opt.count = int(raw["optimizer"]["count"])
     model_state = tree_unflatten(state.model_state, raw["model_state"])
     return dataclasses.replace(state, model_state=model_state,
                                step=int(raw["step"]))

@@ -9,7 +9,7 @@ model state on.  Nothing in it waits for the device.  ``BaseRunner.run_iter``
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
@@ -18,10 +18,15 @@ from .optim import ClippedAdam, build_optimizer
 
 @dataclasses.dataclass
 class TrainState:
+    """The network, its optimizer (one ``ClippedAdam``, or one per head by
+    name as Gan2Shape's runner keeps them), the model state, the updates
+    taken, and the generator of the steps' random draws where they draw
+    (JAX's ``TrainState.rng``)."""
     net: torch.nn.Module
-    optimizer: ClippedAdam
+    optimizer: Union[ClippedAdam, Mapping[str, ClippedAdam]]
     model_state: Dict[str, Any]
     step: int = 0
+    rng: Optional[torch.Generator] = None
 
 
 def init_train_state(framework, seed: int, batch, optimizer_cfg: dict,

@@ -8,8 +8,10 @@ print ``dataset.evaluate(...)`` as the last line.  Usage:
         [--work-dir D] [--out DIR] [--eval depth_mesh] [--cfg-options k=v ...] \\
         [--device cuda|cpu]
 
-Without a checkpoint (none given and none in the work dir) it evaluates the
-seeded initial weights.  It runs on the card (``--device cuda``, the
+Gan2Shape's test split goes through the same loop: ``forward_test`` from
+the checkpoint's heads, no scenes, and no ``evaluate`` (its datasets have
+none).  Without a checkpoint (none given and none in the work dir) it
+evaluates the seeded initial weights.  It runs on the card (``--device cuda``, the
 default) and raises on a machine without one unless ``--device cpu`` is
 given.
 """

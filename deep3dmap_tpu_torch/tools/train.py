@@ -7,7 +7,10 @@ from a Python config file, the training hooks, the workflow.  Usage:
         [--cfg-options k=v ...] [--device cuda|cpu]
 
 It trains on the card (``--device cuda``, the default), and raises on a
-machine without one unless ``--device cpu`` is given.  One card: there is no
+machine without one unless ``--device cpu`` is given.  The config's
+``runner.type`` picks the loop: ``EpochBasedRunner`` (NeuralRecon) or
+``Gan2ShapeRunner`` (``configs/gan2shape/``: one instance an epoch, its
+mask from the parsing model when ``use_mask`` is set).  One card: there is no
 ``--launcher jax`` (multi-GPU is ROADMAP.md Queue 1).
 """
 import argparse

@@ -142,6 +142,14 @@ def load_flax_params(module: nn.Module, flax_params: Mapping) -> nn.Module:
     return module
 
 
+def load_flax_npz(module: nn.Module, path: str) -> nn.Module:
+    """Fill ``module`` from an ``.npz`` whose ``params`` entry is a pickled
+    flax param tree, the layout ``tools/import_weights.py`` writes (the
+    parsing nets, VGG, MNASNet)."""
+    with np.load(path, allow_pickle=True) as data:
+        return load_flax_params(module, data["params"].item())
+
+
 def load_jax_checkpoint(raw: Mapping, state):
     """Load a JAX ``TrainState`` checkpoint, as
     ``deep3dmap_tpu/runners/checkpoint.py::load_checkpoint_raw`` returns it
@@ -152,38 +160,60 @@ def load_jax_checkpoint(raw: Mapping, state):
 
     ``opt_state`` is optax's chain: ``[clip state (None), [ScaleByAdamState
     (count, mu, nu), ScaleByScheduleState (count) or None]]`` with the
-    global-norm clip, the Adam chain alone without it.  A JAX optimizer of
-    another structure than the port's (clip or schedule on one side only)
-    raises ``ValueError``."""
+    global-norm clip, the Adam chain alone without it.  Where the port keeps
+    one optimizer per head (``Gan2ShapeRunner``), JAX's ``opt_state`` holds
+    one such chain per head, by the same names.  A JAX optimizer of another
+    structure than the port's (clip or schedule on one side only) raises
+    ``ValueError``.  Modules in the port's model state (Gan2Shape's frozen
+    generator and discriminator) take JAX's trees of the same key; the
+    tensors take the remaining leaves in tree order.  The step generator, if
+    any, is the port's own: JAX's key does not carry across."""
     import dataclasses
 
-    from ..runners.checkpoint import tree_unflatten
+    net = state.net
+    load_flax_params(net, raw["params"])
+    if isinstance(state.optimizer, Mapping):
+        for name, opt in state.optimizer.items():
+            _load_optax(getattr(net, name), opt, raw["opt_state"][name])
+    else:
+        _load_optax(net, state.optimizer, raw["opt_state"])
+    return dataclasses.replace(state, model_state=_load_model_state(
+        state.model_state, raw["model_state"]), step=int(np.asarray(raw["step"])))
 
-    opt_state = raw["opt_state"]
+
+def _load_optax(module: nn.Module, opt, opt_state) -> None:
+    """optax's clip + Adam (+ schedule) state over ``module``'s parameters
+    into the port's ``ClippedAdam``."""
     clip = (isinstance(opt_state, (list, tuple)) and len(opt_state) == 2
             and opt_state[0] is None and isinstance(opt_state[1], (list, tuple)))
     adam_state, sched_state = opt_state[1] if clip else opt_state
-    opt = state.optimizer
     jax_structure = dict(clip=clip, schedule=sched_state is not None)
     port_structure = dict(clip=opt.max_norm is not None, schedule=opt.schedule is not None)
     if jax_structure != port_structure:
         raise ValueError(f"optimizer structure {jax_structure} in the JAX checkpoint, "
                          f"{port_structure} in the port's state")
-    net = state.net
-    load_flax_params(net, raw["params"])
     count = int(np.asarray(adam_state["count"]))
-    mu = _torch_layout(net, adam_state["mu"])
-    nu = _torch_layout(net, adam_state["nu"])
+    mu = _torch_layout(module, adam_state["mu"])
+    nu = _torch_layout(module, adam_state["nu"])
     opt.adam.state.clear()
-    for name, p in net.named_parameters():
+    for name, p in module.named_parameters():
         opt.adam.state[p] = {
             "step": torch.tensor(float(count)),
             "exp_avg": torch.from_numpy(mu[name]).to(p.device, p.dtype),
             "exp_avg_sq": torch.from_numpy(nu[name]).to(p.device, p.dtype)}
     opt.count = int(np.asarray(sched_state["count"])) if sched_state is not None else count
-    leaves = [torch.from_numpy(np.asarray(v)) for v in _jax_leaves(raw["model_state"])]
-    return dataclasses.replace(state, model_state=tree_unflatten(state.model_state, leaves),
-                               step=int(np.asarray(raw["step"])))
+
+
+def _load_model_state(template, jax_state):
+    from ..runners.checkpoint import tree_unflatten
+
+    modules = ({k: v for k, v in template.items() if isinstance(v, nn.Module)}
+               if isinstance(template, Mapping) else {})
+    for k, m in modules.items():
+        load_flax_params(m, jax_state[k])
+    rest = {k: v for k, v in jax_state.items() if k not in modules} if modules else jax_state
+    leaves = [torch.from_numpy(np.asarray(v)) for v in _jax_leaves(rest)]
+    return tree_unflatten(template, leaves)
 
 
 def _jax_leaves(tree):

@@ -7,9 +7,11 @@ The JAX package reads and writes frames with ``cv2`` (``datasets/scannet.py``,
 with its own PNG codec (``zlib`` and ``struct``): 8-bit grey/RGB/RGBA and
 16-bit grey, every PNG row filter, no interlacing.  JPEG goes through ``cv2``
 or else ``PIL`` where one is importable; without either, reading a JPEG
-raises, naming the file.  Resizing to another size needs ``cv2`` (its
-``INTER_LINEAR`` arithmetic is what the JAX pipeline gives); a resize to the
-same size is a copy, as it is in ``cv2``.
+raises, naming the file.  Resizing a ``uint8`` frame to another size needs
+``cv2`` (its fixed-point ``INTER_LINEAR`` arithmetic is what the JAX
+pipeline gives); a resize to the same size is a copy, as it is in ``cv2``.
+``resize_float`` resizes float images with ``cv2``'s ``INTER_AREA`` and
+``INTER_LINEAR`` weights and no ``cv2`` (Gan2Shape's CelebA reader).
 
 The encoder writes filter type 0 (none) on every row, so the fixture frames
 the port writes decode without a loop over rows.  Rows that another encoder
@@ -186,3 +188,69 @@ def resize(img: np.ndarray, size, nearest: bool = False) -> np.ndarray:
             f"needs cv2; store frames at the pipeline's size") from None
     return cv2.resize(img, tuple(size),
                       interpolation=cv2.INTER_NEAREST if nearest else cv2.INTER_LINEAR)
+
+
+def _linear_weights(n_in: int, n_out: int, area_mode: bool = False) -> np.ndarray:
+    """(n_out, n_in) weights of ``cv2.resize``'s ``INTER_LINEAR`` on one axis
+    (and of ``INTER_AREA`` when it enlarges, ``area_mode``): two taps at
+    ``floor`` of the source position, clamped at the borders."""
+    scale = n_in / n_out
+    w = np.zeros((n_out, n_in), np.float32)
+    for d in range(n_out):
+        if area_mode:
+            sx = int(np.floor(d * scale))
+            fx = (d + 1) - (sx + 1) / scale
+            fx = 0.0 if fx <= 0 else fx - np.floor(fx)
+        else:
+            fx = (d + 0.5) * scale - 0.5
+            sx = int(np.floor(fx))
+            fx -= sx
+        if sx < 0:
+            fx, sx = 0.0, 0
+        if sx >= n_in - 1:
+            fx, sx = 0.0, n_in - 1
+        fx = np.float32(fx)
+        w[d, sx] += 1 - fx
+        w[d, min(sx + 1, n_in - 1)] += fx
+    return w
+
+
+def _area_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) weights of ``cv2.resize``'s ``INTER_AREA`` when it
+    shrinks: each output sample averages the source cells it covers, a
+    partly covered cell by the share it covers (a box mean at an integer
+    factor)."""
+    scale = n_in / n_out
+    w = np.zeros((n_out, n_in), np.float64)
+    for d in range(n_out):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, n_in - f1)
+        s1 = min(int(np.ceil(f1)), n_in - 1)
+        s2 = min(int(np.floor(f2)), n_in - 1)
+        s1 = min(s1, s2)
+        if s1 - f1 > 1e-3:
+            w[d, s1 - 1] = (s1 - f1) / cell
+        w[d, s1:s2] = 1.0 / cell
+        if f2 - s2 > 1e-3:
+            w[d, s2] = min(min(f2 - s2, 1.0), cell) / cell
+    return w.astype(np.float32)
+
+
+def resize_float(img: np.ndarray, size, area: bool = True) -> np.ndarray:
+    """``cv2.resize(img, size, interpolation=INTER_AREA)`` (or ``INTER_LINEAR``
+    with ``area=False``) of a float32 (H, W[, C]) image, ``size = (W, H)``:
+    one weight matrix per axis, rows then columns, in float32."""
+    img = np.asarray(img, np.float32)
+    w_out, h_out = size
+    h, w = img.shape[:2]
+    if (w_out, h_out) == (w, h):
+        return img.copy()
+
+    def weights(n_in, n_out):
+        if area and n_out < n_in:
+            return _area_weights(n_in, n_out)
+        return _linear_weights(n_in, n_out, area_mode=area)
+    out = np.tensordot(weights(w, w_out), img, axes=([1], [1]))    # (W', H[, C])
+    out = np.tensordot(weights(h, h_out), out, axes=([1], [1]))    # (H', W'[, C])
+    return np.ascontiguousarray(out, np.float32)

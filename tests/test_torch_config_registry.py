@@ -111,16 +111,18 @@ def test_registries_build_by_name(tmp_path):
     cfg = Config.fromfile(osp.join(ROOT, "configs", "neural_recon", "scannet_synthetic.py"))
     fw = build_reconstruction(cfg.model, device="cpu")
     assert type(fw).__name__ == "NeuralRecon" and fw.device.type == "cpu"
-    g2s = Config.fromfile(osp.join(ROOT, "configs", "gan2shape", "celeba.py")).model
-    model_cfgs = {k: v for k, v in g2s["model_cfgs"].items()
-                  if k not in ("gan_ckpt", "parsing_ckpt", "use_mask")}
-    fw2 = build_reconstruction(dict(type="Gan2Shape", model_cfgs=model_cfgs), device="cpu")
+    # celeba's model as published: the checkpoint files are read at init and
+    # at the first parse_mask, not when the framework is built
+    g2s = Config.fromfile(osp.join(ROOT, "configs", "gan2shape", "celeba.py"))
+    fw2 = build_reconstruction(g2s.model, device="cpu")
     assert type(fw2).__name__ == "Gan2Shape" and fw2.image_size == 128
+    assert fw2.use_mask and fw2.parsing_ckpt == "checkpoints/bisenet_faceparse.npz"
     assert {"NeuralRecon", "Gan2Shape"} <= set(RECONSTRUCTORS.module_dict)
 
     ds = build_dataset(dict(type="SyntheticScanNetDataset", n_samples=2, n_views=3,
                             img_size=(32, 32), n_vox=16), default_args=dict(device="cpu"))
     assert len(ds) == 2 and "ScanNetDataset" in DATASETS.module_dict
+    assert {"CelebaDataset", "SyntheticGanFaceDataset"} <= set(DATASETS.module_dict)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_dataset(dict(type="RepeatDataset", dataset=dict(type="X"), times=2))
 
@@ -130,4 +132,8 @@ def test_registries_build_by_name(tmp_path):
     runner = build_runner(dict(type="EpochBasedRunner"), default_args=dict(
         framework=fw, work_dir=str(tmp_path), runner_cfgs=dict(max_epochs=2)))
     assert type(runner).__name__ == "EpochBasedRunner" and runner.max_epochs == 2
-    assert "EpochBasedRunner" in RUNNERS.module_dict
+    g2s_runner = build_runner(dict(g2s.runner), default_args=dict(
+        framework=fw2, work_dir=str(tmp_path), runner_cfgs=dict(max_epochs=4)))
+    assert type(g2s_runner).__name__ == "Gan2ShapeRunner" and g2s_runner.max_epochs == 4
+    assert g2s_runner.stage_iters == dict(step1=600, step2=600, step3=400)
+    assert {"EpochBasedRunner", "Gan2ShapeRunner"} <= set(RUNNERS.module_dict)

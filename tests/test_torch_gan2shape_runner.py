@@ -5,8 +5,9 @@ up and ragged sizes; within 1e-6 abs), a ``gan_ckpt`` round trip through an
 ``.npz`` written from the JAX init's trees, and ``Gan2ShapeRunner``: one
 Adam step per mode against ``optax.adam`` given the port's gradients,
 heads outside ``MODE_NETS`` bitwise unchanged, step-3 pool indices equal to
-those JAX's own ``fit_instance`` gives, and ``reset_weight`` restoring the
-heads but not Adam's state.  The steps themselves are
+those JAX's own ``fit_instance`` gives, ``reset_weight`` restoring the
+heads but not Adam's state, and the mask derived by ``parse_mask`` once per
+instance when ``use_mask`` is set and the instance has none.  The steps themselves are
 ``tests/test_torch_gan2shape_train.py``'s.
 """
 import types
@@ -62,7 +63,9 @@ def test_resize_matches_jax_image_resize(rng, n_in, n_out):
 def test_gan_ckpt_round_trip(jax_init, tmp_path):
     """An ``.npz`` as ``tools/import_weights.py`` writes it, from the JAX
     init's trees: the port loads both trees leaf for leaf and computes the
-    centres JAX computed from them; ``parsing_ckpt`` still raises."""
+    centres JAX computed from them.  ``parsing_ckpt`` (an ``.npz`` from a
+    JAX ``FaceParser`` init) loads the same way into the parser that
+    ``parse_mask`` builds on its first call."""
     mstate, batch = jax_init
     path = tmp_path / "stylegan2.npz"
     np.savez(path, g=np.array(mstate["gan_params"], dtype=object),
@@ -79,8 +82,20 @@ def test_gan_ckpt_round_trip(jax_init, tmp_path):
         assert not any(p.requires_grad for p in module.parameters())
     for k in ("center_w", "center_h"):
         np.testing.assert_allclose(state[k].numpy(), mstate[k], atol=1e-5, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="parsing"):
-        TG.Gan2Shape(dict(CFG, parsing_ckpt="x.npz"), device="cpu")
+    from deep3dmap_tpu.models.parsing.bisenet_fp import FaceParser as JFaceParser
+    parsing = JFaceParser().params
+    ppath = tmp_path / "bisenet.npz"
+    np.savez(ppath, params=np.array(jax.tree_util.tree_map(np.asarray, parsing),
+                                    dtype=object))
+    pfw = TG.Gan2Shape(dict(CFG, parsing_ckpt=str(ppath), use_mask=True), device="cpu")
+    mask = pfw.parse_mask(batch["input_im"])
+    assert mask.shape == (1, 32, 32, 1) and mask.device.type == "cpu"
+    assert float(mask.min()) >= 0.0 and float(mask.max()) <= 1.0
+    got = dict(jax.tree_util.tree_leaves_with_path(to_flax_params(pfw._parser.net)))
+    want = dict(jax.tree_util.tree_leaves_with_path(parsing["params"]))
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
 
 
 # -- the runner -------------------------------------------------------------
@@ -199,6 +214,7 @@ def test_step3_indices_match_jax_runner(runner, monkeypatch):
         reset_weight=False, _init_params=None, num_stage=num_stage,
         stage_iters=dict(zip(("step1", "step2", "step3"), stage_iters)),
         epoch=0, logs=[], net=None, train_step=step, _collect_canon=lambda d: {},
+        log_buffer=types.SimpleNamespace(update=lambda d: None),
         _collect_pool=pool, _stage_means=lambda logs, stage: {})
     TR.Gan2ShapeRunner.fit_instance(fake, {"input_im": torch.zeros(1, 2, 2, 3)})
     np.testing.assert_array_equal(np.stack(seen), want)
@@ -248,11 +264,26 @@ def test_fit_instance_reset_weight_keeps_adam_state(runner):
 
 
 def test_use_mask_without_input_mask_raises():
+    """``use_mask`` with an instance that has no ``input_mask``: the runner
+    derives it with ``parse_mask`` once per instance and fits the instance
+    with it, (1, S, S, 1) on the device (JAX ``:147-154``); an instance
+    with its own mask keeps it.  ``run`` without ``max_epochs`` raises."""
     fw = TG.Gan2Shape(dict(CFG, use_mask=True), device="cpu")
-    r = TR.Gan2ShapeRunner(fw, stage_iters=(1, 1, 1), num_stage=1, max_epochs=1)
-    ds = types.SimpleNamespace(setup_input=lambda i: JDataset(
-        n_samples=1, image_size=32, z_dim=32).setup_input(i))
-    with pytest.raises(NotImplementedError, match="parsing"):
-        r.run([ds])
+    r = TR.Gan2ShapeRunner(fw, stage_iters=(1, 1, 1), num_stage=1, max_epochs=2)
+    data = JDataset(n_samples=2, image_size=32, z_dim=32)
+    ds = types.SimpleNamespace(setup_input=data.setup_input)
+    parsed, fitted = [], []
+    parse = fw.parse_mask
+    fw.parse_mask = lambda im: parsed.append(im) or parse(im)
+    r.fit_instance = fitted.append
+    r.run([ds])
+    assert len(parsed) == len(fitted) == 2 and r.epoch == 2 and r.iter == 2
+    for i, batch in enumerate(fitted):
+        np.testing.assert_array_equal(parsed[i], data.setup_input(i)["input_im"])
+        m = batch["input_mask"]
+        assert torch.is_tensor(m) and m.shape == (1, 32, 32, 1) and m.dtype == torch.float32
+    own = dict(data.setup_input(0), input_mask=np.ones((1, 32, 32, 1), np.float32))
+    r.run([types.SimpleNamespace(setup_input=lambda i: own)], max_epochs=3)
+    assert len(parsed) == 2 and fitted[-1]["input_mask"] is own["input_mask"]
     with pytest.raises(ValueError, match="max_epochs"):
         TR.Gan2ShapeRunner(fw).run([ds])

@@ -4,10 +4,11 @@
   no ``jax``, ``flax``, ``optax``, ``orbax`` or ``deep3dmap_tpu`` (an AST
   scan of every import statement);
 - entry points (the frameworks, the renderer, the perceptual loss, the
-  StyleGAN2 generator and discriminator, the Gan2Shape runner, the data
-  path's GT fusion, the fixture writer, the data-gen) default to CUDA and
-  raise on a machine without a GPU unless the caller asks for
-  ``device="cpu"`` (the CLIs: ``tests/test_torch_cli.py``);
+  StyleGAN2 generator and discriminator, the Gan2Shape runner, the parsers,
+  the data path's GT fusion, the fixture writer, the data-gen) default to
+  CUDA and raise on a machine without a GPU unless the caller asks for
+  ``device="cpu"`` (the CLIs on a NeuralRecon config:
+  ``tests/test_torch_cli.py``; on a Gan2Shape config: here);
 - the evaluation's worker processes import no torch.
 """
 import ast
@@ -186,3 +187,33 @@ def test_eval_workers_import_no_torch():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                        timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+def test_gan2shape_entry_points_raise_without_gpu():
+    """The parsers, the parse mask of a framework on the CPU, the runner
+    from the registry, and both CLIs on ``configs/gan2shape/celeba_synthetic.py``."""
+    _no_gpu()
+    from deep3dmap_tpu_torch.models.frameworks.gan2shape import Gan2Shape
+    from deep3dmap_tpu_torch.models.parsing import FaceParser, SceneParser
+    from deep3dmap_tpu_torch.runners.builder import build_runner
+    from deep3dmap_tpu_torch.tools import test as test_cli
+    from deep3dmap_tpu_torch.tools import train as train_cli
+
+    torch.set_num_threads(2)
+    for make in (FaceParser, lambda: SceneParser(n_classes=150)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert next(FaceParser(device="cpu").net.parameters()).device == torch.device("cpu")
+    assert next(SceneParser(device="cpu").net.parameters()).device == torch.device("cpu")
+    fw = Gan2Shape(dict(image_size=32, gan_size=16, z_dim=32, n_mlp=2, nf=8, use_mask=True,
+                        category="car"), device="cpu")
+    mask = fw.parse_mask(np.zeros((1, 32, 32, 3), np.float32))
+    assert mask.shape == (1, 32, 32, 1) and mask.device == torch.device("cpu")
+    runner = build_runner(dict(type="Gan2ShapeRunner"), default_args=dict(framework=fw))
+    net, _ = runner.setup({"input_im": np.zeros((1, 32, 32, 3), np.float32)})
+    assert runner.rng.device == torch.device("cpu")
+    assert {o.params[0].device.type for o in runner.optimizers.values()} == {"cpu"}
+    cfg = os.path.join(ROOT, "configs", "gan2shape", "celeba_synthetic.py")
+    for cli in (train_cli, test_cli):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main([cfg])
