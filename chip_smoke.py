@@ -110,6 +110,29 @@ Phases; any error ends the run with a nonzero exit and no result line:
    classes) timed on the card and held against the CPU at TF32 off under
    the near-tie rule.
 
+17. PRNet at ``configs/prnet/prnet_300wlp.py``'s model (R 256, base 16,
+   B 16): ``forward_test`` and ``loss_fn`` on the CPU and on the card from
+   the same seeded weights at TF32 off; 2 warm-up and 3 synced bare
+   ``train_step`` calls (Adam 1e-4) and synced ``forward_test`` calls, with
+   launches, device time and busy share from torch.profiler and the peak
+   memory; then ``tools/train.py`` on the config for 2 epochs over a
+   300W-LP-layout fixture (48 crops at 256² as PNG bytes named
+   ``*_inp.jpg``, smooth ``.npy`` UV maps, the lists, ``uv_kpt_ind.txt``
+   from ``uv_kpt_ind_from_bfm``; ``--cfg-options`` for the data paths only)
+   and ``tools/test.py --eval nme`` on its checkpoint.
+18. imgs2mesh at ``configs/pt3d_demos/imgs2face_multipie.py``'s model
+   (256², V 3, B 2, n_verts 512, texture 64, sampling on): ``loss_fn`` in
+   ``sup`` (with a supplied ``uvtex``) and ``sup_unsup`` on the CPU and on
+   the card at TF32 off, every log var; 2 warm-up and 3 synced steps per
+   state through ``StateMachineRunner.run_iter``, launches, busy share and
+   peak memory; then the CLIs on a MultiPIE-layout fixture (4 identities x
+   4 views at 256², pickled indexes, 512-vertex ``.obj`` scans) with
+   ``use_sampling=False`` (the published ``sup`` state reads a ``uvtex``
+   the reader does not give, in JAX as here) and ``state_steps=[0,1]`` for
+   2 epochs, the state switch read from the log, and ``tools/test.py``.
+   Neither face path launches a kernel of the repo: the counts stay as
+   phase 16 left them.
+
 The raster's launches in the kernels line are phases 7's, 12's and 16's
 main paths together; the fused loss's are phase 4's (forward) or phase 10's
 (backward) and phase 14's.  Before the last line it prints one
@@ -2269,6 +2292,333 @@ def phase_g2s_cli(card, work, tools, hooks_mod, raster, dataset_cls, g2s_bare_ms
     return dict(launches=launches)
 
 
+# ---------------------------------------------------------------- phase 17 --
+# the face workloads run none of the repo's kernels: PRNet is convs,
+# GroupNorm and L1 losses, imgs2mesh's UV sampler gathers from tables made
+# once on the host.  Their CPU-vs-card checks run at TF32 off; ResFCN256's
+# ~40 GroupNorms each add ~1e-6 relative in float32 (tests/test_torch_prnet.py:
+# port vs JAX 7e-5 on maps in [0, 1] at R 64), so maps within 1e-3 abs and
+# the losses (means over the maps) within 1e-4 relative
+PRNET_CFG = os.path.join("configs", "prnet", "prnet_300wlp.py")
+PRNET_TRAIN, PRNET_VAL = 32, 16      # fixture crops: 2 steps an epoch at B 16
+FACE_CLI_EPOCHS = 2
+FACE_WARMUP, FACE_TIMED, FACE_PROFILED = 2, 3, 2
+FWD_WARMUP, FWD_TIMED = 2, 5
+TOL_FACE_MAP = 1e-3
+TOL_FACE_LOSS_RTOL = 1e-4
+
+
+def _launch_stats(call, n) -> dict:
+    """torch.profiler over ``n`` calls: device ops launched per call, their
+    device time per call, the host wall per call with the profiler on, and
+    the device's busy share of that wall."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = kernel_us(prof) / 1e3
+    return dict(launches=sum(e.count for e in device_kernels(prof)) / n,
+                device_ms=busy_ms / n, busy=busy_ms / wall_ms, wall_ms=wall_ms / n)
+
+
+def _smooth_image(rs, S) -> np.ndarray:
+    """A smooth face-like uint8 BGR image: a shaded disc with noise."""
+    yy, xx = np.meshgrid(np.linspace(-1, 1, S), np.linspace(-1, 1, S), indexing="ij")
+    cx, cy = rs.uniform(-0.2, 0.2, 2)
+    shade = np.clip(1.1 - (xx - cx) ** 2 - (yy - cy) ** 2, 0, 1)[..., None]
+    img = shade * rs.uniform(0.4, 1.0, 3) + rs.uniform(0, 0.1, (S, S, 3))
+    return np.rint(np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
+def _prnet_fixture(root, S, n_train, n_val, imwrite_png, kpt_ind):
+    """300W-LP's layout: ``f<i>_inp.jpg`` crops (lossless PNG bytes: the
+    card's machine has no JPEG decoder, and the reader picks the format from
+    the bytes), smooth ``.npy`` UV position maps in pixels, ``list.txt``,
+    ``list_val.txt`` and ``uv_kpt_ind.txt``."""
+    os.makedirs(root, exist_ok=True)
+    rs = np.random.RandomState(17)
+    yy, xx = np.meshgrid(np.arange(float(S)), np.arange(float(S)), indexing="ij")
+    names = []
+    for i in range(n_train + n_val):
+        imwrite_png(os.path.join(root, f"f{i}_inp.jpg"), _smooth_image(rs, S))
+        z = S / 8 * (1 + np.cos((xx - S / 2) / S * np.pi) * np.cos((yy - S / 2) / S * np.pi))
+        uv = np.stack([xx, yy, z + rs.uniform(0, 2)], -1)
+        np.save(os.path.join(root, f"f{i}.npy"), uv.astype(np.float32))
+        names.append(f"f{i}.jpg")
+    for name, part in (("list.txt", names[:n_train]), ("list_val.txt", names[n_train:])):
+        with open(os.path.join(root, name), "w") as f:
+            f.write("\n".join(part) + "\n")
+    np.savetxt(os.path.join(root, "uv_kpt_ind.txt"), kpt_ind)
+
+
+def phase_prnet(card, work, tools):
+    phase("face: PRNet, configs/prnet/prnet_300wlp.py's model (R 256, base 16, B 16), "
+          "CPU vs card, bare steps, the CLIs")
+    from deep3dmap_tpu_torch.datasets.builder import (NumpyLoader, build_dataset,
+                                                      upload_batch)
+    from deep3dmap_tpu_torch.models.frameworks.prnet import FaceImg2UV, uv_kpt_ind_from_bfm
+    from deep3dmap_tpu_torch.runners.train_state import init_train_state, train_step
+    from deep3dmap_tpu_torch.utils.config import Config
+    from deep3dmap_tpu_torch.utils.image_io import imwrite_png
+
+    t0 = time.perf_counter()
+    cfg_path, S, n_train = PRNET_CFG, 256, PRNET_TRAIN
+    cfg = Config.fromfile(cfg_path)
+    root = os.path.join(work, "300wlp")
+    _prnet_fixture(root, S, n_train, PRNET_VAL, imwrite_png, uv_kpt_ind_from_bfm(None, S))
+    kpt = os.path.join(root, "uv_kpt_ind.txt")
+    paths = dict(train=("list.txt", "train"), test=("list_val.txt", "test"))
+    data_opts = [f"data.{split}.{k}={v}" for split, (lst, _) in paths.items()
+                 for k, v in (("datapath", os.path.join(root, lst)), ("img_prefix", root),
+                              ("uv_kpt_ind_file", kpt))]
+    data_opts.append(f"model.model_cfgs.uv_kpt_ind_file={kpt}")
+    cfg.merge_from_dict(tools.train.parse_args([cfg_path, "--cfg-options", *data_opts])
+                        .cfg_options)
+    model_cfgs = cfg.model["model_cfgs"]
+    B = cfg.data["samples_per_gpu"]
+    batch = next(iter(NumpyLoader(build_dataset(cfg.data["train"]), batch_size=B)))
+    print(f"set-up (fixture of {n_train + PRNET_VAL} crops at {S}², config) "
+          f"{time.perf_counter() - t0:.3f} s card={card!r}", flush=True)
+
+    # 1. CPU vs card on the same seeded weights, TF32 off
+    set_tf32(cudnn=False, matmul=False)
+    cpu_fw, fw = FaceImg2UV(model_cfgs, device="cpu"), FaceImg2UV(model_cfgs)
+    cpu_net, _ = cpu_fw.init(0, batch)
+    net, _ = fw.init(0, batch)
+    with torch.no_grad():
+        outs = [f.forward_test(n, {}, batch)[0] for f, n in ((cpu_fw, cpu_net), (fw, net))]
+        losses = [f.loss_fn(n, {}, batch)[1]["log_vars"] for f, n in ((cpu_fw, cpu_net),
+                                                                       (fw, net))]
+    err = {k: float((outs[0][k] - outs[1][k].cpu()).abs().max()) for k in ("uvpos", "kpt")}
+    rel = {k: abs(float(losses[0][k]) - float(losses[1][k])) / abs(float(losses[0][k]))
+           for k in losses[0]}
+    print(f"prnet card vs CPU (TF32 off, B {B}): card={card!r} " + " ".join(
+        f"{k}_max_abs_err={v:.3e}" for k, v in err.items()) + " " + " ".join(
+        f"{k}_rel_err={v:.3e} ({float(losses[0][k])!r})" for k, v in rel.items()), flush=True)
+    check(all(v <= TOL_FACE_MAP for v in err.values()), f"prnet card vs CPU maps: {err}")
+    check(all(v <= TOL_FACE_LOSS_RTOL for v in rel.values()), f"prnet card vs CPU losses: {rel}")
+    set_tf32(cudnn=True, matmul=False)     # PyTorch's defaults, as the CLIs run
+    del cpu_fw, cpu_net, outs
+
+    # 2. bare train_step calls and forward_test at full width
+    optimizer = cfg.runner["runner_cfgs"]["optimizer"]
+    state = init_train_state(fw, 0, batch, optimizer)
+    dbatch = upload_batch(batch, "cuda")
+    box = [state]
+
+    def step():
+        box[0], log = train_step(fw, box[0], dbatch)
+        return log
+    torch.cuda.reset_peak_memory_stats()
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+    step_ms = _synced_ms(step, FACE_WARMUP, FACE_TIMED)
+    logs = {k: float(v) for k, v in step().items()}
+    check(all(np.isfinite(v) for v in logs.values()), f"prnet step log {logs}")
+    check(all(not torch.equal(v, before[k]) for k, v in net.state_dict().items()),
+          "prnet: a parameter did not move")
+    stats = _launch_stats(step, FACE_PROFILED)
+    peak = torch.cuda.max_memory_allocated()
+    fwd_ms = _synced_ms(lambda: fw.forward_test(net, {}, dbatch), FWD_WARMUP, FWD_TIMED)
+    fwd_stats = _launch_stats(lambda: fw.forward_test(net, {}, dbatch), FACE_PROFILED)
+
+    # 3. the CLIs: 2 epochs of the config on the fixture, then --eval nme
+    wd = os.path.join(work, "prnet_wd")
+    t1 = time.perf_counter()
+    runner = tools.train.main([cfg_path, "--work-dir", wd, "--max-epochs", str(FACE_CLI_EPOCHS),
+                               "--cfg-options", *data_opts])
+    train_s = time.perf_counter() - t1
+    per_epoch = n_train // B
+    check((type(runner).__name__, runner.epoch, runner.state.step)
+          == ("EpochBasedRunner", FACE_CLI_EPOCHS, FACE_CLI_EPOCHS * per_epoch),
+          f"prnet train CLI: {type(runner).__name__} epoch {runner.epoch} step "
+          f"{runner.state.step}")
+    t1 = time.perf_counter()
+    res = tools.test.main([cfg_path, "--work-dir", wd, "--checkpoint", "auto", "--eval", "nme",
+                           "--cfg-options", *data_opts])
+    test_s = time.perf_counter() - t1
+    check(res is not None and np.isfinite(res["nme"]), f"prnet test CLI: {res}")
+    print(f"prnet: card={card!r} R={S} base={fw.base_channels} B={B} "
+          f"train_step_ms_median={statistics.median(step_ms):.6f} "
+          f"train_step_ms_max={max(step_ms):.6f} synced_steps={FACE_TIMED} "
+          f"train_launches_per_step={stats['launches']:.1f} "
+          f"train_device_ms_per_step={stats['device_ms']:.6f} "
+          f"train_busy_share={stats['busy']:.6f} "
+          f"train_profiled_wall_ms_per_step={stats['wall_ms']:.6f} "
+          f"forward_test_ms_median={statistics.median(fwd_ms):.6f} "
+          f"forward_test_ms_max={max(fwd_ms):.6f} "
+          f"forward_test_launches={fwd_stats['launches']:.1f} "
+          f"forward_test_busy_share={fwd_stats['busy']:.6f} "
+          f"max_memory_allocated_bytes={peak} train_cli_s={train_s:.3f} "
+          f"test_cli_s={test_s:.3f} cli_epochs={runner.epoch} cli_steps={runner.state.step} "
+          f"nme={res['nme']!r}", flush=True)
+    print(f"prnet step log: card={card!r} " + " ".join(f"{k}={v!r}" for k, v in logs.items()),
+          flush=True)
+    return dict(step_ms=statistics.median(step_ms))
+
+
+# ---------------------------------------------------------------- phase 18 --
+I2F_CFG = os.path.join("configs", "pt3d_demos", "imgs2face_multipie.py")
+MPIE_IDS, MPIE_VIEWS = 4, 4          # 2 batches an epoch at B 2
+I2F_STATES = ("sup", "sup_unsup")
+
+
+def _multipie_fixture(root, S, n_verts, imwrite_png, euler):
+    """MultiPIE's layout as ``tools/data_gen/multipie.py organize`` writes
+    it: ``images/*.png`` at S², the two pickled indexes and registered
+    ``objs/<id>_<sess>_<rec>.obj`` scans of ``n_verts`` vertices."""
+    import pickle
+    for d in ("images", "objs"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    rs = np.random.RandomState(18)
+    poses = ["05_1", "14_0", "13_0", "04_1"]
+    uvtex2poseimgs, aux = {}, {}
+    for i in range(MPIE_IDS):
+        key = f"{i + 1:03d}_01_01"
+        pose2imgs = {}
+        for v in range(MPIE_VIEWS):
+            name = f"{key}_{poses[v]}_10.png"
+            imwrite_png(os.path.join(root, "images", name), _smooth_image(rs, S))
+            pose2imgs.setdefault(poses[v], []).append(name)
+            ang = rs.uniform(-0.3, 0.3, 3).astype(np.float32)
+            aux[name] = dict(lm68=(rs.rand(68, 2) * S).astype(np.float32),
+                             s=float(1e-3 + rs.rand() * 1e-3),
+                             R=euler(torch.from_numpy(ang)).numpy().astype(np.float64),
+                             t=rs.uniform(0.2 * S, 0.8 * S, 3))
+        uvtex2poseimgs[f"{key}.npy"] = pose2imgs
+        with open(os.path.join(root, "objs", f"{key}.obj"), "w") as f:
+            for v3 in rs.randn(n_verts, 3) * 0.1:
+                f.write(f"v {v3[0]:.5f} {v3[1]:.5f} {v3[2]:.5f}\n")
+    for name, obj in (("multipie_uvtex2poseimgs.pkl", uvtex2poseimgs),
+                      ("multipie_imgpath2auxinfo.pkl", aux)):
+        with open(os.path.join(root, name), "wb") as f:
+            pickle.dump(obj, f)
+
+
+def phase_imgs2mesh(card, work, tools):
+    phase("face: imgs2mesh, configs/pt3d_demos/imgs2face_multipie.py's model (256², V 3, "
+          "B 2, sampling on), CPU vs card, bare steps per state, the CLIs")
+    import logging
+    from deep3dmap_tpu_torch.core.all3dtrans.rotations import euler_angles_to_matrix
+    from deep3dmap_tpu_torch.datasets.builder import NumpyLoader, build_dataset, upload_batch
+    from deep3dmap_tpu_torch.models.frameworks.imgs2mesh import Imgs2Mesh
+    from deep3dmap_tpu_torch.runners.builder import build_runner
+    from deep3dmap_tpu_torch.utils.config import Config
+    from deep3dmap_tpu_torch.utils.image_io import imwrite_png
+
+    t0 = time.perf_counter()
+    cfg_path = I2F_CFG
+    cfg = Config.fromfile(cfg_path)
+    model_cfgs = cfg.model["model_cfgs"]
+    S, V, NV = model_cfgs["image_size"], model_cfgs["tuplesize"], model_cfgs["n_verts"]
+    root = os.path.join(work, "multipie")
+    _multipie_fixture(root, S, NV, imwrite_png, euler_angles_to_matrix)
+    data_opts = [f"data.{split}.{k}={os.path.join(root, v)}" for split in ("train", "test")
+                 for k, v in (("datadir", ""), ("imgdir", "images"), ("objroot", "objs"))]
+    cfg.merge_from_dict(tools.train.parse_args([cfg_path, "--cfg-options", *data_opts])
+                        .cfg_options)
+    B = cfg.data["samples_per_gpu"]
+    batch = next(iter(NumpyLoader(build_dataset(cfg.data["train"]), batch_size=B)))
+    tex = model_cfgs.get("texture_size", 64)
+    batch["uvtex"] = np.random.RandomState(5).rand(B, tex, tex, 3).astype(np.float32)
+    print(f"set-up (fixture of {MPIE_IDS} identities x {MPIE_VIEWS} views at {S}², "
+          f"config) {time.perf_counter() - t0:.3f} s card={card!r}", flush=True)
+
+    # 1. CPU vs card, TF32 off, the same seeded weights: each state's log vars
+    set_tf32(cudnn=False, matmul=False)
+    cpu_fw, fw = Imgs2Mesh(model_cfgs, device="cpu"), Imgs2Mesh(model_cfgs)
+    cpu_net, _ = cpu_fw.init(0, batch)
+    net, _ = fw.init(0, batch)
+    errs, pairs = {}, []
+    for state in I2F_STATES:
+        with torch.no_grad():
+            (cl, ca), (_, ga) = (f.loss_fn(n, {}, batch, state=state)
+                                  for f, n in ((cpu_fw, cpu_net), (fw, net)))
+        check(set(ca["log_vars"]) == set(ga["log_vars"]), f"{state}: log vars differ")
+        for k, v in ca["log_vars"].items():
+            want, got = float(v), float(ga["log_vars"][k])
+            # of the value plus the state's loss: the scale consistency is
+            # 2000 x |s_0 - s_1| of two near-equal scales, whose rounding
+            # shows in it (tests/test_torch_state_machine_runner.py)
+            errs[f"{state}.{k}"] = abs(got - want) / (abs(want) + abs(float(cl)))
+            pairs.append(f"{state}.{k}: cpu={want!r} card={got!r}")
+    print(f"imgs2mesh card vs CPU (TF32 off, B {B}): card={card!r} " + " ".join(pairs)
+          + " " + " ".join(f"{k}_err={v:.3e}" for k, v in errs.items()), flush=True)
+    check(all(v <= TOL_FACE_LOSS_RTOL for v in errs.values()),
+          f"imgs2mesh card vs CPU log vars: {errs}")
+    check({"texloss", "tex_consistent_loss"} <= {k.split(".")[1] for k in errs},
+          "imgs2mesh: the sampling losses are missing")
+    set_tf32(cudnn=True, matmul=False)
+    del cpu_fw, cpu_net
+
+    # 2. bare steps per state through the runner's step (the sampling path)
+    runner_cfg = dict(cfg.runner)
+    r = build_runner(dict(type="StateMachineRunner", state_seq=runner_cfg["state_seq"],
+                          state_steps=[0, 1]),
+                     default_args=dict(framework=fw, runner_cfgs=runner_cfg["runner_cfgs"]))
+    r.setup(batch)
+    dbatch = upload_batch(batch, "cuda")
+    per_state = {}
+    for epoch, state in enumerate(I2F_STATES):
+        r.epoch = epoch
+        r.state_switch()
+        check(r.cur_state == fw.state == state, f"runner in {r.cur_state}, want {state}")
+        torch.cuda.reset_peak_memory_stats()
+        ms = _synced_ms(lambda: r.run_iter(dbatch), FACE_WARMUP, FACE_TIMED)
+        logs = {k: float(v) for k, v in r.run_iter(dbatch).items()}
+        check(all(np.isfinite(v) for v in logs.values()), f"imgs2mesh {state} log {logs}")
+        stats = _launch_stats(lambda: r.run_iter(dbatch), FACE_PROFILED)
+        per_state[state] = dict(ms=ms, logs=logs, stats=stats,
+                                peak=torch.cuda.max_memory_allocated())
+
+    # 3. the CLIs: use_sampling off (the published config's sup state reads
+    # a uvtex that MultiPIE's reader does not give, in JAX as here), the
+    # switch after the first epoch
+    wd = os.path.join(work, "imgs2mesh_wd")
+    cli_opts = [*data_opts, "model.model_cfgs.use_sampling=False", "runner.state_steps=[0,1]"]
+    seen = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: seen.append(rec.getMessage())
+    logging.getLogger("deep3dmap_tpu_torch").addHandler(handler)
+    try:
+        t1 = time.perf_counter()
+        runner = tools.train.main([cfg_path, "--work-dir", wd, "--max-epochs",
+                                   str(FACE_CLI_EPOCHS), "--cfg-options", *cli_opts])
+        train_s = time.perf_counter() - t1
+    finally:
+        logging.getLogger("deep3dmap_tpu_torch").removeHandler(handler)
+    per_epoch = MPIE_IDS // B
+    check((type(runner).__name__, runner.epoch, runner.state.step, runner.cur_state)
+          == ("StateMachineRunner", FACE_CLI_EPOCHS, FACE_CLI_EPOCHS * per_epoch, "sup_unsup"),
+          f"imgs2mesh train CLI: {type(runner).__name__} epoch {runner.epoch} step "
+          f"{runner.state.step} state {runner.cur_state}")
+    check("state switch: sup -> sup_unsup" in seen, "imgs2mesh: no state switch in the log")
+    t1 = time.perf_counter()
+    res = tools.test.main([cfg_path, "--work-dir", wd, "--cfg-options", *cli_opts])
+    test_s = time.perf_counter() - t1
+    check(res is None, f"imgs2mesh test CLI: {res}")
+    print(f"imgs2mesh: card={card!r} S={S} V={V} B={B} n_verts={NV} texture={tex} "
+          f"use_sampling={fw.use_sampling} " + " ".join(
+              f"{st}_step_ms_median={statistics.median(d['ms']):.6f} "
+              f"{st}_step_ms_max={max(d['ms']):.6f} "
+              f"{st}_launches_per_step={d['stats']['launches']:.1f} "
+              f"{st}_device_ms_per_step={d['stats']['device_ms']:.6f} "
+              f"{st}_busy_share={d['stats']['busy']:.6f} "
+              f"{st}_profiled_wall_ms_per_step={d['stats']['wall_ms']:.6f} "
+              f"{st}_max_memory_allocated_bytes={d['peak']}" for st, d in per_state.items())
+          + f" synced_steps_per_state={FACE_TIMED} train_cli_s={train_s:.3f} "
+          f"test_cli_s={test_s:.3f} cli_epochs={runner.epoch} cli_steps={runner.state.step} "
+          f"cli_state={runner.cur_state} state_switch_logged=True", flush=True)
+    print(f"imgs2mesh step logs: card={card!r} " + " ".join(
+        f"{st}.{k}={v!r}" for st, d in per_state.items() for k, v in d["logs"].items()),
+        flush=True)
+    return dict(step_ms={st: statistics.median(d["ms"]) for st, d in per_state.items()})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -2337,6 +2687,12 @@ def main():
         phase_learning(card, work, tools, write_scannet_fixture)
         g2s_cli = phase_g2s_cli(card, work, tools, hooks_mod, raster, SyntheticGanFaceDataset,
                                 g2s_train["step_ms"])
+        # the face workloads launch none of the repo's kernels
+        counts = (fused_loss.launches, fused_loss.bwd_launches, raster.launches)
+        phase_prnet(card, work, tools)
+        phase_imgs2mesh(card, work, tools)
+        check((fused_loss.launches, fused_loss.bwd_launches, raster.launches) == counts,
+              "a face workload launched a kernel of the NeuralRecon or Gan2Shape paths")
     print(f"phases took {time.perf_counter() - t0:.3f} s", flush=True)
 
     print(json.dumps({"kernels": [{

@@ -1,13 +1,17 @@
-"""Gan2Shape's CelebA reader (port of
-``deep3dmap_tpu/datasets/real_files.py::CelebaDataset``, :36-52 and
-:165-237): an image list, an image root and one inverted StyleGAN latent
-per image, ``.npy``/``.npz`` or a torch ``.pt``.
+"""Real-file readers (port of ``deep3dmap_tpu/datasets/real_files.py``):
+Gan2Shape's CelebA (``CelebaDataset``, :36-52 and :165-237: an image list,
+an image root and one inverted StyleGAN latent per image, ``.npy``/``.npz``
+or a torch ``.pt``) and PRNet's 300W-LP (``ThreeHundredWLPDataset``,
+:240-315: ``*_inp.jpg`` crops with ``.npy`` UV position maps, and NME
+``evaluate``).
 
 Host-side and independent of OpenCV: frames are read by ``utils/image_io.py``
 (PNG by the port's codec; JPEG through ``cv2`` or ``PIL`` where one is
-importable) and resized with ``cv2``'s ``INTER_AREA`` weights, its
-``INTER_LINEAR`` ones for the depth maps (``image_io.resize_float``), as the
-JAX reader's ``cv2.resize`` calls do.
+importable; the format comes from the file's first bytes, as in
+``cv2.imread``, so PNG bytes under a ``.jpg`` name read without a decoder)
+and resized with ``cv2``'s ``INTER_AREA`` weights, its ``INTER_LINEAR``
+ones for the depth and UV maps (``image_io.resize_float``), as the JAX
+readers' ``cv2.resize`` calls do.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..core.evaluation.face_eval import eval_nme
 from ..utils.image_io import imread, resize_float
 from .builder import DATASETS
 
@@ -116,3 +121,79 @@ class CelebaDataset:
         """One instance with a leading batch axis of 1 (the runner's pull)."""
         s = self[idx % len(self)]
         return {k: np.asarray(v)[None] for k, v in s.items()}
+
+
+@DATASETS.register_module()
+class ThreeHundredWLPDataset:
+    """300W-LP PRNet training data: each line of ``datapath`` names
+    ``<name>.jpg``; the item reads ``<name>_inp.jpg`` and ``<name>.npy``
+    under ``img_prefix`` (lines without both files are skipped).  Items:
+    ``faceimg`` (R, R, 3) in [0, 1], ``gt_uvimg`` the position map over
+    R - 1 clipped to [0, 1], an identity ``tform_mat`` and zero
+    ``gt_kpt_proj2d``.  ``evaluate`` needs the landmark texel indices
+    (``uv_kpt_ind`` or ``uv_kpt_ind_file``) and raises without them.
+    ``device`` is the keyword the CLIs pass every dataset."""
+
+    CLASSES = ("face",)
+
+    def __init__(self, datapath: str, img_prefix: str = "", pipeline=None,
+                 resolution: int = 256, test_mode: bool = False,
+                 uv_kpt_ind=None, uv_kpt_ind_file: Optional[str] = None, device=None):
+        self.img_prefix = img_prefix
+        self.resolution = resolution
+        self.test_mode = test_mode
+        self.pipeline = pipeline
+        if uv_kpt_ind is not None:
+            self.uv_kpt_ind = np.asarray(uv_kpt_ind, np.int64)
+        elif uv_kpt_ind_file:
+            self.uv_kpt_ind = np.loadtxt(uv_kpt_ind_file).astype(np.int64)
+        else:
+            self.uv_kpt_ind = None
+        self.data_infos: List[Dict] = []
+        with open(datapath) as f:
+            for line in f:
+                name = line.strip()
+                if not name:
+                    continue
+                img_file = name.replace(".jpg", "_inp.jpg")
+                uv_file = img_file.replace("_inp.jpg", ".npy")
+                if (osp.exists(osp.join(img_prefix, img_file))
+                        and osp.exists(osp.join(img_prefix, uv_file))):
+                    self.data_infos.append(dict(filename=img_file, uv_file=uv_file))
+
+    def __len__(self):
+        return len(self.data_infos)
+
+    def __getitem__(self, idx: int) -> Dict:
+        info = self.data_infos[idx]
+        img = imread_rgb(osp.join(self.img_prefix, info["filename"]))
+        uv = np.load(osp.join(self.img_prefix, info["uv_file"])).astype(np.float32)
+        S = self.resolution
+        if img.shape[0] != S:
+            img = resize_float(img, (S, S), area=True)
+        if uv.shape[0] != S:
+            uv = resize_float(uv, (S, S), area=False) * (S / uv.shape[0])
+        uv01 = np.clip(uv / max(S - 1, 1), 0.0, 1.0).astype(np.float32)
+        item = dict(faceimg=img.astype(np.float32), gt_uvimg=uv01,
+                    tform_mat=np.eye(3, dtype=np.float32),
+                    gt_kpt_proj2d=np.zeros((2, 68), np.float32))
+        return self.pipeline(item) if self.pipeline else item
+
+    def evaluate(self, results, metric: str = "nme", **kwargs):
+        """NME against the landmarks read from the GT UV maps (the
+        ``AFLW2000.py:131`` contract); ``results["kpt"]`` as ``tools/test.py``
+        collects it."""
+        if metric not in ("nme", "rmse"):
+            raise KeyError(f"metric {metric} is not supported")
+        if self.uv_kpt_ind is None:
+            raise ValueError(
+                "ThreeHundredWLPDataset.evaluate: NME requires the real landmark "
+                "texel indices -- construct the dataset with "
+                "uv_kpt_ind_file=<path to uv_kpt_ind.txt> (or uv_kpt_ind=)")
+        kpt = np.concatenate(results["kpt"], axis=0)
+        n = min(kpt.shape[0], len(self))
+        ind = self.uv_kpt_ind
+        items = [self[i] for i in range(n)]
+        gt = np.stack([it["gt_uvimg"][ind[1], ind[0], :2].T * 255.0 for it in items])
+        tforms = np.stack([it["tform_mat"] for it in items])
+        return {"nme": eval_nme(kpt[:n], tforms, gt)}

@@ -188,14 +188,20 @@ class BaseRunner:
             loader, self.framework.device, depth=depth,
             host_check=getattr(self.framework, "host_check_batch", None))
 
-    def run_iter(self, data_batch):
-        """One ``train_step``; its log (the JAX keys: the framework's log
-        vars and ``loss``) goes to the log buffer as device tensors."""
+    def _host_checked(self, data_batch):
+        """The batch, checked by the framework's ``host_check_batch`` unless
+        it came through ``prefetch`` (checked there, on the device)."""
         if not self._on_device(data_batch):
             check = getattr(self.framework, "host_check_batch", None)
             if check is not None:
                 check(data_batch)
-        self.state, log_vars = train_step(self.framework, self.state, data_batch)
+        return data_batch
+
+    def run_iter(self, data_batch):
+        """One ``train_step``; its log (the JAX keys: the framework's log
+        vars and ``loss``) goes to the log buffer as device tensors."""
+        self.state, log_vars = train_step(self.framework, self.state,
+                                          self._host_checked(data_batch))
         log_vars.pop("grad_norm")
         log_vars = dict(sorted(log_vars.items()))   # JAX's jitted dict is key-sorted
         self.log_buffer.update(log_vars)

@@ -5,6 +5,6 @@ RUNNERS = Registry("runner")
 
 
 def build_runner(cfg, default_args=None):
-    from . import epoch_based_runner, gan2shape_runner  # noqa: F401  (register)
+    from . import epoch_based_runner, gan2shape_runner, state_machine_runner  # noqa: F401
 
     return RUNNERS.build(dict(cfg), **(default_args or {}))

@@ -10,7 +10,11 @@ print ``dataset.evaluate(...)`` as the last line.  Usage:
 
 Gan2Shape's test split goes through the same loop: ``forward_test`` from
 the checkpoint's heads, no scenes, and no ``evaluate`` (its datasets have
-none).  Without a checkpoint (none given and none in the work dir) it
+none).  So do the face workloads: PRNet (``configs/prnet/``, ``FaceImg2UV``
+on ``SyntheticFaceUVDataset`` or ``ThreeHundredWLPDataset``, ``--eval nme``)
+and imgs2mesh (``configs/pt3d_demos/``, ``Imgs2Mesh`` on
+``SyntheticFaceTupleDataset`` or ``MultiPIEFaceTupleDataset``, whose
+per-view outputs are collected as (V, B, ...) arrays; no ``evaluate``).  Without a checkpoint (none given and none in the work dir) it
 evaluates the seeded initial weights.  It runs on the card (``--device cuda``, the
 default) and raises on a machine without one unless ``--device cpu`` is
 given.
@@ -42,6 +46,15 @@ def _numeric(v) -> bool:
     return bool(leaves) and all(
         isinstance(x, (int, float, np.number))
         or (isinstance(x, np.ndarray) and x.dtype.kind in "bifuc") for x in leaves)
+
+
+def _to_host(v):
+    """Tensors, and lists of them (imgs2mesh's per-view outputs), as numpy."""
+    if isinstance(v, torch.Tensor):
+        return v.float().cpu().numpy()
+    if isinstance(v, (list, tuple)) and v and all(isinstance(x, torch.Tensor) for x in v):
+        return [x.float().cpu().numpy() for x in v]
+    return v
 
 
 def split_meta(batch):
@@ -104,8 +117,7 @@ def main(argv=None):
     for i, raw in enumerate(loader):
         batch, meta = split_meta(raw)
         out, mstate = framework.forward_test(net, mstate, batch)
-        out = {k: v.float().cpu().numpy() if isinstance(v, torch.Tensor) else v
-               for k, v in out.items()}
+        out = {k: _to_host(v) for k, v in out.items()}
         for k, v in out.items():
             outputs.setdefault(k, []).append(np.asarray(v))
         if assembler is not None and "tsdf" in out:

@@ -8,9 +8,14 @@ from a Python config file, the training hooks, the workflow.  Usage:
 
 It trains on the card (``--device cuda``, the default), and raises on a
 machine without one unless ``--device cpu`` is given.  The config's
-``runner.type`` picks the loop: ``EpochBasedRunner`` (NeuralRecon) or
-``Gan2ShapeRunner`` (``configs/gan2shape/``: one instance an epoch, its
-mask from the parsing model when ``use_mask`` is set).  One card: there is no
+``runner.type`` picks the loop: ``EpochBasedRunner`` (NeuralRecon, and
+PRNet's ``FaceImg2UV`` on ``SyntheticFaceUVDataset`` or
+``ThreeHundredWLPDataset``, ``configs/prnet/``), ``Gan2ShapeRunner``
+(``configs/gan2shape/``: one instance an epoch, its mask from the parsing
+model when ``use_mask`` is set) or ``StateMachineRunner`` (imgs2mesh,
+``configs/pt3d_demos/``: ``Imgs2Mesh`` on ``SyntheticFaceTupleDataset`` or
+``MultiPIEFaceTupleDataset``, the state switching by epoch).  A config's
+``evaluation`` is ignored, as the JAX CLI ignores it.  One card: there is no
 ``--launcher jax`` (multi-GPU is ROADMAP.md Queue 1).
 """
 import argparse

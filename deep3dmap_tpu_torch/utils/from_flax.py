@@ -161,8 +161,9 @@ def load_jax_checkpoint(raw: Mapping, state):
     ``opt_state`` is optax's chain: ``[clip state (None), [ScaleByAdamState
     (count, mu, nu), ScaleByScheduleState (count) or None]]`` with the
     global-norm clip, the Adam chain alone without it.  Where the port keeps
-    one optimizer per head (``Gan2ShapeRunner``), JAX's ``opt_state`` holds
-    one such chain per head, by the same names.  A JAX optimizer of another
+    one optimizer per head or per collection (``Gan2ShapeRunner``,
+    ``StateMachineRunner``), JAX's ``opt_state`` holds one such chain per
+    head, by the same names (``param_collection``).  A JAX optimizer of another
     structure than the port's (clip or schedule on one side only) raises
     ``ValueError``.  Modules in the port's model state (Gan2Shape's frozen
     generator and discriminator) take JAX's trees of the same key; the
@@ -174,11 +175,18 @@ def load_jax_checkpoint(raw: Mapping, state):
     load_flax_params(net, raw["params"])
     if isinstance(state.optimizer, Mapping):
         for name, opt in state.optimizer.items():
-            _load_optax(getattr(net, name), opt, raw["opt_state"][name])
+            _load_optax(param_collection(net, name), opt, raw["opt_state"][name])
     else:
         _load_optax(net, state.optimizer, raw["opt_state"])
     return dataclasses.replace(state, model_state=_load_model_state(
         state.model_state, raw["model_state"]), step=int(np.asarray(raw["step"])))
+
+
+def param_collection(net: nn.Module, name: str) -> nn.Module:
+    """The module that holds JAX's top-level param collection ``name``: the
+    child of that name, or for ``"params"`` (a flax module's one
+    collection) the whole net."""
+    return net if name == "params" else getattr(net, name)
 
 
 def _load_optax(module: nn.Module, opt, opt_state) -> None:

@@ -5,10 +5,11 @@
   scan of every import statement);
 - entry points (the frameworks, the renderer, the perceptual loss, the
   StyleGAN2 generator and discriminator, the Gan2Shape runner, the parsers,
-  the data path's GT fusion, the fixture writer, the data-gen) default to
-  CUDA and raise on a machine without a GPU unless the caller asks for
-  ``device="cpu"`` (the CLIs on a NeuralRecon config:
-  ``tests/test_torch_cli.py``; on a Gan2Shape config: here);
+  the data path's GT fusion, the fixture writer, the data-gen, the face
+  frameworks and the UV sampler's tables) default to CUDA and raise on a
+  machine without a GPU unless the caller asks for ``device="cpu"`` (the
+  CLIs on a NeuralRecon config: ``tests/test_torch_cli.py``; on a Gan2Shape
+  config: here; on the face configs: ``tests/test_torch_face_cli.py``);
 - the evaluation's worker processes import no torch.
 """
 import ast
@@ -80,6 +81,31 @@ def test_entry_points_raise_without_gpu():
     with pytest.raises(RuntimeError):
         resolve_device("cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")
+
+    # the face workloads: the frameworks and the UV tables default to CUDA;
+    # their datasets are host readers that take the CLIs' ``device`` keyword
+    # and give numpy items, on any machine
+    from deep3dmap_tpu_torch.core.renderer.uv_sampler import precompute_uv_rasterization
+    from deep3dmap_tpu_torch.datasets.face_tuple import SyntheticFaceTupleDataset
+    from deep3dmap_tpu_torch.datasets.face_uv import SyntheticFaceUVDataset
+    from deep3dmap_tpu_torch.models.frameworks.imgs2mesh import Imgs2Mesh
+    from deep3dmap_tpu_torch.models.frameworks.prnet import FaceImg2UV
+    for make in (lambda: FaceImg2UV(dict(resolution=32, base_channels=4)),
+                 lambda: Imgs2Mesh(dict(image_size=32, n_verts=64)),
+                 lambda: Imgs2Mesh(dict(image_size=32, n_verts=64), device="cuda"),
+                 lambda: precompute_uv_rasterization(np.zeros((3, 2)), [[0, 1, 2]], 8)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    fw = Imgs2Mesh(dict(image_size=32, n_verts=64, use_sampling=True, texture_size=8),
+                   device="cpu")
+    assert {fw.bfm.w_shape.device, fw.rast.bary.device, fw.lookview.device} == \
+        {torch.device("cpu")}
+    assert FaceImg2UV(dict(resolution=32, base_channels=4), device="cpu").weight_mask.device \
+        == torch.device("cpu")
+    for ds in (SyntheticFaceUVDataset(n_samples=1, resolution=16),
+               SyntheticFaceTupleDataset(n_samples=1, tuplesize=2, image_size=16, n_verts=64,
+                                         device="cuda")):
+        assert all(isinstance(v, np.ndarray) for v in ds[0].values())
 
     from deep3dmap_tpu_torch.models.modulars.stylegan2 import (Generator,
                                                                StyleDiscriminator)
