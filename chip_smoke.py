@@ -45,12 +45,17 @@ Phases; any error ends the run with a nonzero exit and no result line:
    this path's own inputs.
 
 8. kernel vs plain (loss backward), run after phase 2: the Triton
-   ``loss_bwd_kernel`` against ``fused_tsdf_occ_loss_bwd_plain`` on the
-   card, given the same sums (from the forward kernel) and cotangents: the
-   three level sizes in the dtypes ``loss_fn`` hands it, a ragged size with
-   bf16 predictions, an empty target, an all-zero mask, bf16 predictions at
-   96³, each of g_total, g_occ and g_tsdf alone, and once through autograd.
-   Device time against the bytes bound.
+   ``loss_bwd_kernel`` (one launch for up to three levels) against
+   ``fused_tsdf_occ_loss_bwd_plain`` on each level, on the card, given the
+   same sums (from the forward kernel) and cotangents: each of the three
+   level sizes alone and all three in one launch, in the dtypes ``loss_fn``
+   hands it (bool mask) and with the float32 mask it handed over before, a
+   ragged size with bf16 predictions, ragged levels of three dtype sets in
+   one launch, four levels (two launches), an empty target, an all-zero
+   mask, bf16 predictions at 96³, each of g_total, g_occ and g_tsdf alone,
+   and the three levels once through autograd (3 forward launches, 1
+   backward).  Device time (the L2 flushed before each call) against the
+   bytes bound.
 9. CPU vs card (training), run after phase 3: the small block config at
    float32 with TF32 off, the same seeded weights, two ``train_step`` calls
    (clip + Adam) on the CPU and on the card; identical block ids, losses,
@@ -58,9 +63,11 @@ Phases; any error ends the run with a nonzero exit and no result line:
 10. full width (training), run after phase 4: the bench config with seeded
    weights, ``Adam(1e-3)`` after ``clip(1.0)`` as ``bench.py:218`` has it,
    the fragment and the state carried from step to step: 2 warm-up, 5 timed
-   back to back and 5 synced steps; 3 loss forward and 3 backward launches
-   per step, finite gradients, parameters that moved, no host sync, and the
-   backward kernel against its plain version on this path's own inputs.
+   back to back and 5 synced steps; 3 loss forward launches and 1 backward
+   launch (every level) per step, finite gradients, parameters that moved,
+   no host sync, and the backward kernel against its plain version on this
+   path's own inputs, its device time per step (the L2 flushed before each
+   call) beside the bytes bound.
 11. CPU vs card (Gan2Shape training), run after phase 7: the small config
    with batchsize 4, hard raster, float32, TF32 off, the same seeded
    weights, host-drawn lights, views and generator noise (its strength set
@@ -89,7 +96,7 @@ Phases; any error ends the run with a nonzero exit and no result line:
    of 9 keyframes) through the port's data-gen, ``tools/train.py`` at the
    ``bench.py`` config on ``ScanNetDataset`` for one epoch (the runner's
    synced step time beside phase 10's bare step, the loader's time per
-   sample, 3 + 3 loss launches per step, peak memory, no host sync in a
+   sample, 3 + 1 loss launches per step, peak memory, no host sync in a
    step that does not log, the checkpoint), then ``tools/test.py`` on that
    checkpoint with ``evaluate`` (the host C++ op built and used).
 15. learning check: ``tools/quality_regression.py``'s config and fixture
@@ -135,7 +142,9 @@ Phases; any error ends the run with a nonzero exit and no result line:
 
 The raster's launches in the kernels line are phases 7's, 12's and 16's
 main paths together; the fused loss's are phase 4's (forward) or phase 10's
-(backward) and phase 14's.  Before the last line it prints one
+(backward) and phase 14's.  The backward's ms, plain_ms and bound_ms are per
+train step on phase 10's own inputs: its one launch over the three levels.
+Before the last line it prints one
 ``{"kernels": [...]}`` line; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -258,6 +267,24 @@ def cold_copies(args):
     nbytes = sum(a.numel() * a.element_size() for a in args)
     n = int(min(64, max(2, -(-2 * L2_BYTES // nbytes))))
     return [tuple(a.clone() for a in args) for _ in range(n)]
+
+
+_FLUSH = []
+
+
+def l2_flushed(fn):
+    """``fn`` after a read of twice the L2 (one ``reduce_kernel``, which a
+    ``names`` filter leaves out of the device time).  Cycling over cold
+    copies does not cool the inputs of a kernel whose loads carry
+    ``evict_first``: its own lines leave the L2 first, so the copies that
+    ``clone`` last wrote stay there from call to call."""
+    if not _FLUSH:
+        _FLUSH.append(torch.zeros(int(2 * L2_BYTES) // 4, device="cuda"))
+
+    def run(*a):
+        _FLUSH[0].sum()
+        return fn(*a)
+    return run
 
 
 def _profile_window(fn, arg_sets, reps: int) -> dict:
@@ -445,30 +472,48 @@ def loss_bwd_bound_ms(args) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def compare_loss_bwd(fused_loss, name, args, g) -> float:
-    """The backward kernel against the plain version on one input, given the
-    forward kernel's sums and the cotangents ``g``; returns the max abs
-    difference and the kernel's (d_tsdf, d_occ)."""
-    out = fused_loss.fused_tsdf_occ_loss_cuda(*args, pos_weight=1.5)
+def forward_sums(fused_loss, levels) -> torch.Tensor:
+    """The forward kernel's five floats of each level, as rows of one (L, 8)
+    tensor: what the levels' autograd Function hands its backward."""
+    sums = torch.empty((len(levels), 8), device="cuda", dtype=torch.float32)
+    for row, args in zip(sums, levels):
+        fused_loss.fused_tsdf_occ_loss_cuda(*args, pos_weight=1.5, out=row)
+    return sums
+
+
+def compare_loss_bwd(fused_loss, name, levels, g):
+    """The backward kernel on a set of levels (one launch for up to
+    ``_BWD_LEVELS`` of them) against the plain version on each level, given
+    the forward kernel's sums and the (L, 3) cotangents ``g``; returns the
+    max abs difference and the kernel's [(d_tsdf, d_occ), ...]."""
+    sums = forward_sums(fused_loss, levels)
+    n_launch = -(-len(levels) // fused_loss._BWD_LEVELS)
     before = fused_loss.bwd_launches
-    got = fused_loss.fused_tsdf_occ_loss_bwd_cuda(*args, out, g, 1.5)
-    again = fused_loss.fused_tsdf_occ_loss_bwd_cuda(*args, out, g, 1.5)
-    want = fused_loss.fused_tsdf_occ_loss_bwd_plain(*args, out[3:], g, 1.5)
+    got = fused_loss.fused_tsdf_occ_loss_bwd_cuda(levels, sums, g, 1.5)
+    again = fused_loss.fused_tsdf_occ_loss_bwd_cuda(levels, sums, g, 1.5)
     torch.cuda.synchronize()
-    check(fused_loss.bwd_launches == before + 2,
-          f"{name}: the wrapper did not launch the backward kernel")
+    check(fused_loss.bwd_launches == before + 2 * n_launch,
+          f"{name}: {fused_loss.bwd_launches - before} backward launches for two "
+          f"calls on {len(levels)} levels, expected {2 * n_launch}")
     err = 0.0
-    for what, a, b, c in zip(("d_tsdf", "d_occ"), got, again, want):
-        check(a.dtype == c.dtype and a.shape == c.shape,
-              f"{name} {what}: {a.dtype} {tuple(a.shape)} vs {c.dtype} {tuple(c.shape)}")
-        check(torch.equal(a, b), f"{name} {what}: two runs differ")
-        check(torch.isfinite(a).all().item(), f"{name} {what}: non-finite")
-        tol = TOL_LOSS_BWD[a.dtype]
-        check(torch.allclose(a.float(), c.float(), **tol),
-              f"{name} {what}: kernel vs plain max abs diff "
-              f"{(a.float() - c.float()).abs().max().item()} (tol {tol})")
-        err = max(err, (a.float() - c.float()).abs().max().item())
+    for i, (args, pair, pair2) in enumerate(zip(levels, got, again)):
+        want = fused_loss.fused_tsdf_occ_loss_bwd_plain(*args, sums[i, 3:5], g[i], 1.5)
+        for what, a, b, c in zip(("d_tsdf", "d_occ"), pair, pair2, want):
+            where = f"{name} level {i} {what}"
+            check(a.dtype == c.dtype and a.shape == c.shape,
+                  f"{where}: {a.dtype} {tuple(a.shape)} vs {c.dtype} {tuple(c.shape)}")
+            check(torch.equal(a, b), f"{where}: two runs differ")
+            check(torch.isfinite(a).all().item(), f"{where}: non-finite")
+            tol = TOL_LOSS_BWD[a.dtype]
+            check(torch.allclose(a.float(), c.float(), **tol),
+                  f"{where}: kernel vs plain max abs diff "
+                  f"{(a.float() - c.float()).abs().max().item()} (tol {tol})")
+            err = max(err, (a.float() - c.float()).abs().max().item())
     return err, got
+
+
+def _dtypes(args) -> str:
+    return str([str(a.dtype).replace("torch.", "") for a in args])
 
 
 def phase_loss_bwd(fused_loss):
@@ -476,87 +521,120 @@ def phase_loss_bwd(fused_loss):
     set_tf32(cudnn=False, matmul=False)
     gen = torch.Generator(device="cuda").manual_seed(1)
     bf16, b, f32 = torch.bfloat16, torch.bool, torch.float32
-    first = torch.tensor([1.0, 0.0, 0.0], device="cuda")
+    sides = (24, 48, 96)
 
-    def f32_mask(args):     # loss_fn hands the mask over as float32
+    def rows(*r):
+        return torch.tensor(r, device="cuda", dtype=f32)
+
+    def f32_mask(args):     # the mask loss_fn handed over before: float32
         return args[:4] + (args[4].to(f32),)
-    cases = [(f"level{i}_{d}^3", f32_mask(loss_inputs(gen, (1, d, d, d))), first)
-             for i, d in enumerate((24, 48, 96))]
-    cases += [("ragged_1000003_bf16", loss_inputs(gen, (1000003,), pred_dtype=bf16,
-                                                  target_dtype=b), first),
-              ("empty_target_48^3", loss_inputs(gen, (1, 48, 48, 48),
-                                                empty_target=True),
-               torch.tensor([1.0, 0.5, 0.25], device="cuda")),
-              ("zero_mask_48^3", loss_inputs(gen, (1, 48, 48, 48), zero_mask=True),
-               torch.tensor([1.0, 0.5, 0.25], device="cuda")),
-              ("bf16_pred_96^3", loss_inputs(gen, (1, 96, 96, 96), pred_dtype=bf16,
-                                             target_dtype=b), first)]
-    alone = f32_mask(loss_inputs(gen, (1, 48, 48, 48)))
+    first = rows([1.0, 0.0, 0.0])
+    lw = rows([1.0, 0.0, 0.0], [0.8, 0.0, 0.0], [0.64, 0.0, 0.0])  # loss_fn's
+    # one level per launch, in loss_fn's dtypes (float32 predictions and
+    # targets, a bool mask)
+    cases = [(f"level{i}_{d}^3", [loss_inputs(gen, (1, d, d, d))], first)
+             for i, d in enumerate(sides)]
+    # the three levels in one launch, as a train step runs them
+    cases += [("levels_24_48_96", [loss_inputs(gen, (1, d, d, d)) for d in sides], lw),
+              ("levels_24_48_96_f32_mask",
+               [f32_mask(loss_inputs(gen, (1, d, d, d))) for d in sides], lw)]
+    cases += [("ragged_1000003_bf16", [loss_inputs(gen, (1000003,), pred_dtype=bf16,
+                                                   target_dtype=b)], first),
+              ("empty_target_48^3", [loss_inputs(gen, (1, 48, 48, 48),
+                                                 empty_target=True)],
+               rows([1.0, 0.5, 0.25])),
+              ("zero_mask_48^3", [loss_inputs(gen, (1, 48, 48, 48), zero_mask=True)],
+               rows([1.0, 0.5, 0.25])),
+              ("bf16_pred_96^3", [loss_inputs(gen, (1, 96, 96, 96), pred_dtype=bf16,
+                                              target_dtype=b)], first),
+              # ragged levels of three dtype sets, cotangents that differ per
+              # level, in one launch
+              ("ragged_levels", [loss_inputs(gen, (1000003,), pred_dtype=bf16,
+                                             target_dtype=b),
+                                 loss_inputs(gen, (4097,)),
+                                 f32_mask(loss_inputs(gen, (1, 7, 9, 11)))],
+               rows([0.7, -0.3, 2.0], [1.0, 0.5, 0.25], [0.0, 1.0, 0.0])),
+              # more levels than one launch takes: two launches
+              ("four_levels", [loss_inputs(gen, (1, d, d, d)) for d in (8, 24, 48, 96)],
+               rows([1.0, 0.0, 0.0], [0.8, 0.1, 0.0], [0.64, 0.0, 0.3],
+                    [0.5, 0.2, 0.1]))]
+    alone = loss_inputs(gen, (1, 48, 48, 48))
     for k, gname in enumerate(("g_total", "g_occ", "g_tsdf")):
-        cases.append((f"{gname}_alone_48^3", alone,
-                      torch.eye(3, device="cuda")[k].contiguous()))
-    max_err, timed = 0.0, {}
-    for name, args, g in cases:
-        err, got = compare_loss_bwd(fused_loss, name, args, g)
+        cases.append((f"{gname}_alone_48^3", [alone],
+                      torch.eye(3, device="cuda")[k:k + 1].contiguous()))
+    max_err, per_level = 0.0, {}
+    for name, levels, g in cases:
+        err, got = compare_loss_bwd(fused_loss, name, levels, g)
         max_err = max(max_err, err)
         if name.startswith("zero_mask"):
-            check(not any(d.any().item() for d in got), f"{name}: nonzero gradient")
+            check(not any(d.any().item() for d in got[0]), f"{name}: nonzero gradient")
         if name.startswith("empty_target"):
-            check(not got[0].any().item(), f"{name}: nonzero tsdf gradient")
-        line = (f"fused_loss_bwd {name}: n={args[0].numel()} dtypes="
-                f"{[str(a.dtype).replace('torch.', '') for a in args]} "
-                f"g={g.tolist()} abs_err={err:.3g}")
+            check(not got[0][0].any().item(), f"{name}: nonzero tsdf gradient")
+        line = (f"fused_loss_bwd {name}: n={[lv[0].numel() for lv in levels]} "
+                f"dtypes={_dtypes(levels[0])} g={g.tolist()} abs_err={err:.3g}")
         if name.startswith("level"):
-            t = time_loss_bwd(fused_loss, args, g)
-            for k, v in t.items():
-                timed[k] = timed.get(k, 0.0) + v
+            t = time_loss_bwd(fused_loss, levels, g)
+            if len(levels) == 1:
+                for k, v in t.items():
+                    per_level[k] = per_level.get(k, 0.0) + v
             line += " " + " ".join(f"{k}={v:.6f}" for k, v in t.items())
+            line += f" bound_share={t['bound_ms'] / t['ms']:.6f}"
         print(line, flush=True)
-    print("fused_loss_bwd per train step (3 levels): " + " ".join(
-        f"{k}={v:.6f}" for k, v in timed.items()) + " (ms: device time of "
-          "loss_bwd_kernel; plain_ms: of the plain backward; call_ms: one call "
-          f"with its host launch; bound: bytes over {HBM_BYTES_PER_S / 1e12} TB/s; "
-          f"tolerances {TOL_LOSS_BWD})", flush=True)
+    print("fused_loss_bwd the 3 levels one launch each (3 launches): " + " ".join(
+        f"{k}={v:.6f}" for k, v in per_level.items()) + " (ms: device time of "
+          "loss_bwd_kernel, the L2 flushed before each call; plain_ms: of the plain backward; "
+          "call_ms: one call with its host launch; bound: bytes over "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s; tolerances {TOL_LOSS_BWD})", flush=True)
     max_err = max(max_err, loss_bwd_through_autograd(fused_loss, gen))
-    return dict(timed, max_abs_err=max_err)
+    return dict(max_abs_err=max_err)
 
 
-def time_loss_bwd(fused_loss, args, g) -> dict:
-    """Device times of the backward kernel and of the plain backward on cold
-    copies of one input, and the bytes bound."""
-    out = fused_loss.fused_tsdf_occ_loss_cuda(*args, pos_weight=1.5)
-    sets = cold_copies(tuple(args) + (out, g))
+def time_loss_bwd(fused_loss, levels, g) -> dict:
+    """Device times of one backward call over ``levels`` (after an L2 flush)
+    and of the plain backward on each level (on cold copies), and the bytes
+    bound summed over the levels."""
+    sums = forward_sums(fused_loss, levels)
+    n_lv = len(levels)
+    sets = cold_copies(tuple(a for lv in levels for a in lv) + (sums, g))
 
     def kern(*a):
-        return fused_loss.fused_tsdf_occ_loss_bwd_cuda(*a[:5], a[5], a[6], 1.5)
+        return fused_loss.fused_tsdf_occ_loss_bwd_cuda(
+            [a[5 * i:5 * i + 5] for i in range(n_lv)], a[-2], a[-1], 1.5)
 
     def plain(*a):
-        return fused_loss.fused_tsdf_occ_loss_bwd_plain(*a[:5], a[5][3:], a[6], 1.5)
-    return dict(ms=device_ms(kern, sets, names=BWD_STAGES),
+        return [fused_loss.fused_tsdf_occ_loss_bwd_plain(
+            *a[5 * i:5 * i + 5], a[-2][i, 3:5], a[-1][i], 1.5) for i in range(n_lv)]
+    return dict(ms=device_ms(l2_flushed(kern), sets, names=BWD_STAGES),
                 plain_ms=device_ms(plain, sets),
-                bound_ms=loss_bwd_bound_ms(args),
+                bound_ms=sum(loss_bwd_bound_ms(lv) for lv in levels),
                 call_ms=call_ms(kern, sets))
 
 
 def loss_bwd_through_autograd(fused_loss, gen) -> float:
-    """``fused_tsdf_occ_loss`` differentiated by autograd launches each kernel
-    once and gives the direct backward call's bits."""
-    args = loss_inputs(gen, (1, 48, 48, 48))
-    t = args[0].clone().requires_grad_()
-    x = args[1].clone().requires_grad_()
+    """``fused_tsdf_occ_loss_levels`` over the three level sizes,
+    differentiated by autograd as ``loss_fn`` weights them: one forward
+    launch per level, one backward launch, and the direct backward call's
+    bits."""
+    levels = [loss_inputs(gen, (1, d, d, d)) for d in (24, 48, 96)]
+    ins = [(lv[0].clone().requires_grad_(), lv[1].clone().requires_grad_(), *lv[2:])
+           for lv in levels]
+    lw = (1.0, 0.8, 0.64)
     before = (fused_loss.launches, fused_loss.bwd_launches)
-    losses = fused_loss.fused_tsdf_occ_loss(t, x, *args[2:], pos_weight=1.5)
-    got = torch.autograd.grad(losses[0] * 0.8, (t, x))
+    losses = fused_loss.fused_tsdf_occ_loss_levels(ins, pos_weight=1.5)
+    total = sum(w * losses[i, 0] for i, w in enumerate(lw))
+    got = torch.autograd.grad(total, [p for lv in ins for p in lv[:2]])
     torch.cuda.synchronize()
-    check((fused_loss.launches, fused_loss.bwd_launches) == (before[0] + 1, before[1] + 1),
-          "autograd: expected one forward and one backward launch")
-    g = torch.tensor([0.8, 0.0, 0.0], device="cuda")
-    err, direct = compare_loss_bwd(fused_loss, "autograd_48^3", args, g)
-    for a, b in zip(got, direct):
+    check((fused_loss.launches, fused_loss.bwd_launches) == (before[0] + 3, before[1] + 1),
+          "autograd: expected three forward launches and one backward launch, got "
+          f"{fused_loss.launches - before[0]} and {fused_loss.bwd_launches - before[1]}")
+    g = torch.tensor([[w, 0.0, 0.0] for w in lw], device="cuda")
+    err, direct = compare_loss_bwd(fused_loss, "autograd_levels", levels, g)
+    for a, b in zip(got, [d for pair in direct for d in pair]):
         check(torch.equal(a, b), "autograd: the Function's gradient differs from "
               "the direct backward call")
-    print(f"fused_loss_bwd through autograd: 1 forward + 1 backward launch, equal "
-          f"to the direct call bit for bit, abs_err={err:.3g}", flush=True)
+    print(f"fused_loss_bwd through autograd (24^3, 48^3, 96^3): 3 forward + 1 "
+          f"backward launch, equal to the direct call bit for bit, abs_err={err:.3g}",
+          flush=True)
     return err
 
 
@@ -846,9 +924,9 @@ def phase_train_full_width(nr_module, fused_loss, train_mod, stack,
     peak = torch.cuda.max_memory_allocated()
 
     n_steps = TRAIN_WARMUP + 2 * TRAIN_TIMED
-    check(per_step == [(3, 3)] * n_steps,
-          f"loss (forward, backward) launches per step: {per_step}, expected (3, 3)")
-    check(launches == (3 * n_steps, 3 * n_steps), f"loss launches {launches}")
+    check(per_step == [(3, 1)] * n_steps,
+          f"loss (forward, backward) launches per step: {per_step}, expected (3, 1)")
+    check(launches == (3 * n_steps, n_steps), f"loss launches {launches}")
     log = {k: float(v) for k, v in log.items()}
     check(all(np.isfinite(v) for v in log.values()), f"non-finite log {log}")
     for n, p in net.named_parameters():
@@ -879,32 +957,34 @@ def phase_train_full_width(nr_module, fused_loss, train_mod, stack,
     print("host syncs: none in train_step "
           "(torch.cuda.set_sync_debug_mode('error'))", flush=True)
 
-    # the backward kernel against its plain version on this path's inputs
+    # the backward kernel against its plain version on this path's inputs:
+    # the one call of a step, every level in it
     seen = []
     orig = fused_loss.fused_tsdf_occ_loss_bwd_cuda
 
-    def spy(*a, **kw):
-        seen.append(tuple(x.detach().clone() if torch.is_tensor(x) else x for x in a))
-        return orig(*a, **kw)
+    def spy(levels, sums, g, *a, **kw):
+        seen.append(([tuple(x.detach().clone() for x in lv) for lv in levels],
+                     sums.detach().clone(), g.detach().clone()))
+        return orig(levels, sums, g, *a, **kw)
     fused_loss.fused_tsdf_occ_loss_bwd_cuda = spy
     step()
     fused_loss.fused_tsdf_occ_loss_bwd_cuda = orig
-    check(len(seen) == 3, f"{len(seen)} backward calls in one step")
-    err, timed = 0.0, {}
-    for a in seen:       # the backward meets the levels finest first
-        args, out, g = a[:5], a[5], a[6]
-        side = f"{args[0].shape[-1]}^3"
-        e, _ = compare_loss_bwd(fused_loss, f"main_path_{side}", args, g)
-        err = max(err, e)
-        t = time_loss_bwd(fused_loss, args, g)
-        for k, v in t.items():
-            timed[k] = timed.get(k, 0.0) + v
-        print(f"fused_loss_bwd main_path {side}: n={args[0].numel()} dtypes="
-              f"{[str(x.dtype).replace('torch.', '') for x in args]} g={g.tolist()} "
-              f"abs_err={e:.3g} " + " ".join(f"{k}={v:.6f}" for k, v in t.items()),
-              flush=True)
-    print("fused_loss_bwd main path per step (3 levels): " + " ".join(
-        f"{k}={v:.6f}" for k, v in timed.items()), flush=True)
+    check(len(seen) == 1 and len(seen[0][0]) == 3,
+          f"{len(seen)} backward calls in one step, on "
+          f"{[len(c[0]) for c in seen]} levels; expected one call on 3")
+    levels, sums, g = seen[0]
+    check(torch.equal(sums[:, :5], forward_sums(fused_loss, levels)[:, :5]),
+          "main path: the step's forward sums differ from the kernel's on its inputs")
+    err, _ = compare_loss_bwd(fused_loss, "main_path", levels, g)
+    for i, args in enumerate(levels):
+        print(f"fused_loss_bwd main_path level {i}: n={args[0].numel()} "
+              f"dtypes={_dtypes(args)} g={g[i].tolist()} "
+              f"bound_ms={loss_bwd_bound_ms(args):.6f}", flush=True)
+    timed = time_loss_bwd(fused_loss, levels, g)
+    print("fused_loss_bwd main path per step (3 levels, 1 launch): " + " ".join(
+        f"{k}={v:.6f}" for k, v in timed.items())
+          + f" bound_share={timed['bound_ms'] / timed['ms']:.6f} abs_err={err:.3g}",
+          flush=True)
     if profile_dir:
         import deep3dmap_tpu_torch.models.modulars.block_dense3d as bd
         profile("train profile", "step", step, PROFILED_FRAGMENTS,
@@ -1889,10 +1969,10 @@ def phase_cli_full_width(fused_loss, train_mod, card, work, bare_step_ms, tools,
     launches = (fused_loss.launches, fused_loss.bwd_launches)   # ... and ends here
     train_s = time.perf_counter() - t0
     n_steps = len(probe["step_ms"])
-    check(launches == (3 * n_steps, 3 * n_steps), f"fused loss launches {launches}")
+    check(launches == (3 * n_steps, n_steps), f"fused loss launches {launches}")
     check(n_steps == CLI_FRAMES // N_VIEWS, f"{n_steps} train steps, expected "
           f"{CLI_FRAMES // N_VIEWS}")
-    check(probe["launches"] == [(3, 3)] * n_steps,
+    check(probe["launches"] == [(3, 1)] * n_steps,
           f"fused loss (forward, backward) launches per step {probe['launches']}")
     ckpt = checkpoint_mod.latest_checkpoint(wd)
     check(ckpt is not None and ckpt.endswith(f"ckpt_{n_steps}")

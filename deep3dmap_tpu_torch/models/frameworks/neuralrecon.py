@@ -35,7 +35,7 @@ from ...ops.block_sparse import (block_mask_from_voxels, block_voxel_indices,
                                  blocks_to_dense, blocks_to_dense_over,
                                  child_block_mask, dense_to_blocks,
                                  gather_parent_octants, select_blocks)
-from ...ops.fused_loss import fused_tsdf_occ_loss
+from ...ops.fused_loss import fused_tsdf_occ_loss, fused_tsdf_occ_loss_levels
 from ...utils.device import resolve_device
 from ...utils.from_flax import load_flax_params
 from ..backbones.fpn2d import MnasFPN
@@ -497,7 +497,7 @@ class NeuralRecon(BaseFramework):
     def compute_level_loss(self, tsdf, occ, tsdf_target, occ_target, mask):
         """Masked per-level loss (neucon_network.py:216-260): the fused Triton
         kernel for CUDA tensors, its plain version for CPU tensors."""
-        return fused_tsdf_occ_loss(tsdf[..., 0], occ[..., 0], tsdf_target,
+        return fused_tsdf_occ_loss(tsdf.squeeze(-1), occ.squeeze(-1), tsdf_target,
                                    occ_target, mask, self.pos_weight)
 
     def loss_fn(self, params, model_state, batch, rng=None):
@@ -508,17 +508,23 @@ class NeuralRecon(BaseFramework):
         batch = self.batch_to_device(batch)
         params.train()
         out, new_state = self._apply(params, model_state, batch)
+        levels = []
+        for i in range(self.n_layers):
+            scale = self.n_layers - 1 - i
+            mask = out["sparse_mask"][i]
+            if not (self.fusion_on and self.fusion_full):
+                # FULL fusion supervises the whole sparse set
+                mask = mask & out["count_mask"][i]
+            # squeeze, not [..., 0]: the gradient comes back as a view
+            levels.append((out["tsdf"][i].squeeze(-1), out["occ"][i].squeeze(-1),
+                           batch["tsdf_list"][scale], batch["occ_list"][scale],
+                           mask))
+        # every level in one Function: one backward launch on the card
+        losses = fused_tsdf_occ_loss_levels(levels, self.pos_weight)
         total = 0.0
         log_vars = {}
         for i in range(self.n_layers):
-            scale = self.n_layers - 1 - i
-            mask = out["sparse_mask"][i].float()
-            if not (self.fusion_on and self.fusion_full):
-                # FULL fusion supervises the whole sparse set
-                mask = mask * out["count_mask"][i].float()
-            level_loss, _, _ = self.compute_level_loss(
-                out["tsdf"][i], out["occ"][i], batch["tsdf_list"][scale],
-                batch["occ_list"][scale], mask)
+            level_loss = losses[i, 0]
             total = total + self.lw[i] * level_loss
             log_vars[f"tsdf_occ_loss_{i}"] = level_loss
         return total, {"log_vars": log_vars, "model_state": new_state}

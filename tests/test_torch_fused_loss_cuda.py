@@ -132,3 +132,59 @@ def test_bwd_kernel_empty_target_and_zero_mask(cuda_device):
     zero = list(data)
     zero[4] = torch.zeros_like(data[4])
     assert not any(d.any() for d in _bwd_pair(zero, (1.0, 0.5, 0.25)))
+
+
+def _levels_pair(levels, g):
+    """The levels' autograd Function on the card (one backward launch for up
+    to three levels) against ``fused_tsdf_occ_loss_bwd_plain`` on each level,
+    given the plain sums and that level's row of the cotangents ``g``."""
+    ins = [(d[0].clone().requires_grad_(), d[1].clone().requires_grad_(), *d[2:])
+           for d in levels]
+    gv = torch.tensor(g, device=levels[0][0].device)
+    before = (fused_loss.launches, fused_loss.bwd_launches)
+    losses = fused_loss.fused_tsdf_occ_loss_levels(ins, pos_weight=1.5)
+    got = torch.autograd.grad(losses, [p for lv in ins for p in lv[:2]], gv)
+    losses = losses.detach()
+    n_bwd = -(-len(levels) // 3)
+    assert (fused_loss.launches, fused_loss.bwd_launches) == (
+        before[0] + len(levels), before[1] + n_bwd)
+    for i, d in enumerate(levels):
+        want_losses = fused_loss.fused_tsdf_occ_loss_plain(*d, pos_weight=1.5)
+        for a, b in zip(losses[i], want_losses):
+            np.testing.assert_allclose(float(a), float(b), rtol=RTOL)
+        sums = fused_loss.partial_sums_plain(*d)[:2]
+        want = fused_loss.fused_tsdf_occ_loss_bwd_plain(*d, sums, gv[i], pos_weight=1.5)
+        for a, b in zip(got[2 * i:2 * i + 2], want):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            torch.testing.assert_close(a.float(), b.float(), **BWD_TOL[a.dtype])
+    return got
+
+
+def _levels_inputs(device, sizes, pred_dtypes=None):
+    levels = [_inputs(n, device, p) for n, p in
+              zip(sizes, pred_dtypes or [torch.float32] * len(sizes))]
+    # loss_fn's dtypes: float32 predictions and targets, a bool mask
+    return [tuple(t.reshape(-1) for t in lv) for lv in levels]
+
+
+LEVEL_SETS = {
+    "bench_24_48_96": ([24 ** 3, 48 ** 3, 96 ** 3], None),
+    "ragged": ([1000003, 4097, 693], [torch.bfloat16, torch.float32, torch.float32]),
+    "one_level": ([96 ** 3], None),
+    "four_levels": ([512, 24 ** 3, 48 ** 3, 96 ** 3], None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(LEVEL_SETS))
+def test_levels_kernel_matches_plain_on_card(cuda_device, name):
+    """One backward launch for up to three levels (two for four), each
+    level against the plain backward under its own cotangents; two runs
+    give the same bits."""
+    sizes, dtypes = LEVEL_SETS[name]
+    levels = _levels_inputs(cuda_device, sizes, dtypes)
+    g = [[0.7, -0.3, 2.0], [1.0, 0.5, 0.25], [0.0, 1.0, 0.0], [0.64, 0.0, 0.1]]
+    g = g[:len(levels)]
+    got = _levels_pair(levels, g)
+    again = _levels_pair(levels, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
