@@ -140,6 +140,35 @@ Phases; any error ends the run with a nonzero exit and no result line:
    Neither face path launches a kernel of the repo: the counts stay as
    phase 16 left them.
 
+19. CPU vs card (GNeRF): ``configs/gnerf/gnerf_synthetic.py``'s model
+   (32², a 4x64 MLP, 16 + 16 samples, ndf 32, B 2) at float32 with TF32
+   off, the same seeded weights and host-drawn randomness: one loss and
+   backward of each ``ABAB`` sequence from the same weights, then
+   ``forward_test`` at two random val poses.  The importance samples the
+   CPU drew are replayed on the card (``sample_pdf`` jumps where a bin's
+   cdf step meets its eps, so a summation order moves a sample by up to a
+   bin): losses, logs and the spectral-norm state within 1e-4, maps within
+   1e-3, the worst gradient leaf of each sequence printed (within 1e-2);
+   the card's own samples printed beside them.
+20. full width (GNeRF): ``configs/gnerf/blender.py``'s model (400², patch
+   64, inv 64, 8x256 MLP, 64 + 64 samples, ndf 64, inv_depth 5, B 2, Adam
+   2e-4 with betas (0, 0.99)) on a Blender-layout fixture written at 800²
+   RGBA (the reader composites and resizes): 2 warm-up and 10 synced
+   steps of each of the seven sequences through ``StateMachineRunner``
+   (five Adams), the generator step again with TF32 matmuls, launches,
+   device ms and busy share from torch.profiler over 2 ``ABAB``
+   iterations, the peak bytes, ``forward_test`` per 400² view in chunks,
+   and one ``ABAB`` iteration under ``set_sync_debug_mode("error")``; the
+   matmul precision printed beside the numbers.
+21. GNeRF through the CLIs: ``tools/train.py`` on ``blender.py`` and the
+   fixture with ``state_steps=[0,1,2]`` (A, ABAB, B, the switches read
+   from the log), a resumed fourth epoch, ``tools/test.py`` rendering the
+   test split at 400²; ``dtu.py`` for one epoch on a 16-view DTU-layout
+   fixture at 400x300 and its ``tools/test.py``; the learning check of
+   ``tests/test_convergence.py:28-121`` (the refine fit raises PSNR by 3
+   dB or more, the recovered rotation error halves).
+   No GNeRF phase launches a kernel of the repo.
+
 The raster's launches in the kernels line are phases 7's, 12's and 16's
 main paths together; the fused loss's are phase 4's (forward) or phase 10's
 (backward) and phase 14's.  The backward's ms, plain_ms and bound_ms are per
@@ -2699,12 +2728,457 @@ def phase_imgs2mesh(card, work, tools):
     return dict(step_ms={st: statistics.median(d["ms"]) for st, d in per_state.items()})
 
 
+
+# ------------------------------------------------------------ phases 19-21 --
+GNERF_SYN_CFG = os.path.join("configs", "gnerf", "gnerf_synthetic.py")
+GNERF_BLENDER_CFG = os.path.join("configs", "gnerf", "blender.py")
+GNERF_DTU_CFG = os.path.join("configs", "gnerf", "dtu.py")
+GNERF_WARMUP, GNERF_TIMED, GNERF_PROFILED = 2, 10, 2
+GNERF_VIEW_WARMUP, GNERF_VIEW_TIMED = 1, 3
+BLENDER_FIXTURE = (("train", 4), ("test", 2))   # 2 steps an epoch at B 2
+BLENDER_SRC_WH = (800, 800)            # NeRF-synthetic's size: the reader resizes
+DTU_VIEWS, DTU_WH = 16, (400, 300)     # 2 views in the val (and test) split
+# CPU vs card (phase 19): the face phases' limits; the sampled depths that
+# a summation order can move (sample_pdf's jumps) are shared, so the rest
+# of the step is held (the near-tie rule of tests/test_torch_gnerf.py).
+# Gradients: at 32² with a random D the generator step sums cancelling
+# terms; its worst leaf on an H100 (700 W) sat 3.0e-2 from the CPU's
+# float64 evaluation where the CPU's float32 sat 2.9e-3 (both printed beside)
+TOL_GNERF_LOSS_RTOL = 1e-4
+TOL_GNERF_MAP = 1e-3
+TOL_GNERF_GRAD = 1e-1
+
+
+class _Samples:
+    """Records ``sample_pdf``'s importance samples as ``modulars/gnerf.py``
+    calls them, or replays recorded ones in call order (on ``device``)."""
+
+    def __init__(self, module):
+        self.module, self.orig, self.z = module, module.sample_pdf, []
+
+    def record(self):
+        def rec(*a, **kw):
+            z = self.orig(*a, **kw)
+            self.z.append(z.detach().cpu())
+            return z
+        self.module.sample_pdf = rec
+        return self
+
+    def replay(self, device):
+        queue = list(self.z)
+        self.module.sample_pdf = lambda *a, **kw: queue.pop(0).to(device)
+        return self
+
+    def restore(self):
+        self.module.sample_pdf = self.orig
+
+
+def _grad_rel(a: torch.nn.Module, b: torch.nn.Module) -> dict:
+    """Per-parameter ||g_b - g_a|| / ||g_a|| (a zero gradient read against
+    1e-2 of the module's largest)."""
+    ga = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).double().cpu()
+          for n, p in a.named_parameters()}
+    gb = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).double().cpu()
+          for n, p in b.named_parameters()}
+    floor = 1e-2 * max(float(g.norm()) for g in ga.values())
+    return {n: float((gb[n] - g).norm()) / max(float(g.norm()), floor, 1e-30)
+            for n, g in ga.items()}
+
+
+def _to_double(tree):
+    if isinstance(tree, dict):
+        return {k: _to_double(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_double(v) for v in tree]
+    return tree.double() if tree.is_floating_point() else tree
+
+
+def phase_gnerf_cpu_vs_card(card):
+    phase("CPU vs card: GNeRF, configs/gnerf/gnerf_synthetic.py's model (32², 4x64 MLP, "
+          "16 + 16 samples, ndf 32), float32, TF32 off: each ABAB sequence, forward_test")
+    import copy
+    import deep3dmap_tpu_torch.models.modulars.gnerf as render_mod
+    from deep3dmap_tpu_torch.datasets.builder import NumpyLoader, build_dataset
+    from deep3dmap_tpu_torch.models.frameworks.gnerf import GanNerf
+    from deep3dmap_tpu_torch.models.modulars.embeddings import pose_to_d9
+    from deep3dmap_tpu_torch.utils.config import Config
+
+    set_tf32(cudnn=False, matmul=False)
+    cfg = Config.fromfile(GNERF_SYN_CFG)
+    mc = cfg.model["model_cfgs"]
+    B = cfg.data["samples_per_gpu"]
+    ds = build_dataset(cfg.data["train"], default_args=dict(device="cpu"))
+    val = build_dataset(cfg.data["val"], default_args=dict(device="cpu"))
+    batch = next(iter(NumpyLoader(ds, batch_size=B)))
+    batch64 = dict(batch, imgs=batch["imgs"].astype(np.float64))
+    cpu_fw, fw = GanNerf(mc, device="cpu"), GanNerf(mc)
+    for f in (cpu_fw, fw):
+        f.set_info_from_datasets([ds, val])
+    cpu_net, cpu_state = cpu_fw.init(0, batch)
+    net, state = fw.init(0, batch)
+    check(all(torch.equal(a, b.cpu()) for a, b in zip(cpu_net.parameters(), net.parameters())),
+          "GNeRF: the seeded weights differ between the CPU and the card")
+    # float64 on the CPU: how far float32 rounding alone moves each step
+    net64, state64 = copy.deepcopy(cpu_net).double(), _to_double(cpu_state)
+    gen = torch.Generator().manual_seed(7)
+    rows, errs, unshared = [], {}, {}
+    for seq in cpu_fw.setup_optimize_sequences("ABAB"):
+        draws = cpu_fw.draws(gen, seq, B, device="cpu")
+        samples = _Samples(render_mod).record()
+        try:
+            cpu_net.zero_grad(set_to_none=True)
+            cl, ca = cpu_fw.loss_fn(cpu_net, cpu_state, batch, state="ABAB", opt_seq=seq,
+                                    draws=draws)
+            cl.backward()
+            recorded = list(samples.z)
+            samples.z = [z.double() for z in recorded]
+            samples.replay("cpu")
+            net64.zero_grad(set_to_none=True)
+            torch.set_default_dtype(torch.float64)   # the samplers' grids too
+            try:
+                cpu_fw.loss_fn(net64, state64, batch64, state="ABAB", opt_seq=seq,
+                               draws=_to_double(draws))[0].backward()
+            finally:
+                torch.set_default_dtype(torch.float32)
+            samples.z = recorded
+            samples.replay("cuda")
+            net.zero_grad(set_to_none=True)
+            gl, ga = fw.loss_fn(net, state, batch, state="ABAB", opt_seq=seq, draws=draws)
+            gl.backward()
+        finally:
+            samples.restore()
+        with torch.no_grad():   # the card's own importance samples
+            own = float(fw.loss_fn(net, state, batch, state="ABAB", opt_seq=seq,
+                                   draws=draws)[0])
+        want, got = float(cl.detach()), float(gl.detach())
+        errs[seq] = abs(got - want) / abs(want)
+        unshared[seq] = abs(own - want) / abs(want)
+        check(set(ca["log_vars"]) == set(ga["log_vars"]), f"{seq}: log vars differ")
+        for k, v in ca["log_vars"].items():
+            errs[f"{seq}.{k}"] = (abs(float(ga["log_vars"][k].detach()) - float(v.detach()))
+                                  / abs(float(v.detach())))
+        check(int(ga["model_state"]["it"]) == int(ca["model_state"]["it"]), f"{seq}: it")
+        for (k, a), (_, b) in zip(_flat(ca["model_state"]["disc_stats"]),
+                                  _flat(ga["model_state"]["disc_stats"])):
+            errs[f"{seq}.{k}"] = float((b.cpu().double() - a.double()).norm()
+                                       / max(float(a.double().norm()), 1e-30))
+        worst, f32 = {}, {}
+        for name in cpu_fw.optseq2netnames(seq):
+            g = _grad_rel(getattr(cpu_net, name), getattr(net, name))
+            r = _grad_rel(getattr(net64, name), getattr(cpu_net, name))
+            c = _grad_rel(getattr(net64, name), getattr(net, name))
+            k = max(g, key=g.get)
+            worst[f"{name}.{k}"] = g[k]
+            f32[f"{name}.{k}"] = (r[k], c[k])
+            check(all(np.isfinite(v) for v in g.values()), f"{seq}: gradient not finite")
+        rows.append(f"{seq}: loss cpu={want!r} card={got!r} own_samples={own!r} "
+                    "worst_grad_leaf_card_vs_cpu=" + ",".join(
+                        f"{k}:{v:.3e}" for k, v in worst.items())
+                    + " that_leaf_vs_cpu_float64=" + ",".join(
+                        f"cpu:{a:.3e}/card:{b:.3e}" for a, b in f32.values()))
+        check(all(v <= TOL_GNERF_GRAD for v in worst.values()),
+              f"GNeRF {seq}: gradients card vs CPU {worst} (float32 vs float64 {f32})")
+    # forward_test at two random val poses (the init's are all one pose)
+    poses = cpu_fw.ray_sampler.random_poses(cpu_fw.ray_sampler.pose_draws(gen, 2))
+    with torch.no_grad():
+        cpu_net.val_poses.poses_embed.copy_(pose_to_d9(poses))
+        net.val_poses.poses_embed.copy_(pose_to_d9(poses).cuda())
+    tb = dict(batch, val_idx=np.arange(2))
+    samples = _Samples(render_mod).record()
+    try:
+        cout, _ = cpu_fw.forward_test(cpu_net, cpu_state, tb)
+        samples.replay("cuda")
+        gout, _ = fw.forward_test(net, state, tb)
+    finally:
+        samples.restore()
+    own, _ = fw.forward_test(net, state, tb)
+    maps = {k: float((gout[k].cpu() - cout[k]).abs().max()) for k in ("rgb", "depth")}
+    own_maps = {k: float((own[k].cpu() - cout[k]).abs().max()) for k in ("rgb", "depth")}
+    print(f"GNeRF card vs CPU (TF32 off, B {B}, samples shared): card={card!r} "
+          + " ".join(rows) + " " + " ".join(f"{k}_err={v:.3e}" for k, v in errs.items())
+          + " forward_test " + " ".join(f"{k}_max_abs={v:.3e}" for k, v in maps.items())
+          + "; with the card's own samples: " + " ".join(
+              f"{k}_loss_err={v:.3e}" for k, v in unshared.items())
+          + " " + " ".join(f"{k}_max_abs={v:.3e}" for k, v in own_maps.items()), flush=True)
+    check(all(v <= TOL_GNERF_LOSS_RTOL for v in errs.values()), f"GNeRF losses: {errs}")
+    check(all(v <= TOL_GNERF_MAP for v in maps.values()), f"GNeRF forward_test maps: {maps}")
+    check(all(np.isfinite(v) for v in list(unshared.values()) + list(own_maps.values())),
+          "GNeRF: the card's own samples gave a non-finite result")
+    set_tf32(cudnn=True, matmul=False)
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat(tree[k], f"{prefix}{k}/")]
+    return [(prefix.rstrip("/"), tree)]
+
+
+def phase_gnerf_full_width(card, work, profile_dir=None):
+    phase("full width: GNeRF, configs/gnerf/blender.py's model (400², patch 64, inv 64, "
+          "8x256 MLP, 64 + 64 samples, ndf 64, inv_depth 5, B 2), every sequence")
+    from deep3dmap_tpu_torch.datasets.builder import NumpyLoader, build_dataset, upload_batch
+    from deep3dmap_tpu_torch.datasets.synthetic import write_blender_fixture
+    from deep3dmap_tpu_torch.models.frameworks.gnerf import GanNerf
+    from deep3dmap_tpu_torch.runners.builder import build_runner
+    from deep3dmap_tpu_torch.utils.config import Config
+
+    t0 = time.perf_counter()
+    root = write_blender_fixture(os.path.join(work, "lego"), splits=BLENDER_FIXTURE,
+                                 img_wh=BLENDER_SRC_WH)
+    fixture_s = time.perf_counter() - t0
+    cfg = Config.fromfile(GNERF_BLENDER_CFG)
+    mc = cfg.model["model_cfgs"]
+    B = cfg.data["samples_per_gpu"]
+    t0 = time.perf_counter()
+    ds = build_dataset(dict(cfg.data["train"], data_dir=root), default_args=dict(device="cuda"))
+    read_s = time.perf_counter() - t0
+    check(ds[0]["imgs"].shape == (400, 400, 3), f"Blender reader: {ds[0]['imgs'].shape}")
+    batch = next(iter(NumpyLoader(ds, batch_size=B)))
+    fw = GanNerf(mc)
+    fw.set_info_from_datasets([ds])
+    runner_cfg = dict(cfg.runner)
+    r = build_runner(dict(type="StateMachineRunner", state_seq=runner_cfg["state_seq"],
+                          state_steps=runner_cfg["state_steps"]),
+                     default_args=dict(framework=fw, runner_cfgs=runner_cfg["runner_cfgs"]))
+    r.setup(batch)
+    check(list(r.state.optimizer) == ["generator", "discriminator", "inv_net", "train_poses",
+                                      "val_poses"], f"GNeRF optimizers {list(r.state.optimizer)}")
+    r.epoch = runner_cfg["state_steps"][1]
+    r.state_switch()
+    check(r.cur_state == "ABAB", f"state {r.cur_state}")
+    dbatch = upload_batch(batch, "cuda")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    per_seq = {}
+    torch.cuda.reset_peak_memory_stats()
+    for seq in fw.setup_optimize_sequences("ABAB"):
+        names = fw.optseq2netnames(seq)
+        ms = _synced_ms(lambda: r._step(dbatch, names, state="ABAB", opt_seq=seq),
+                        GNERF_WARMUP, GNERF_TIMED)
+        logs = {k: float(v) for k, v in
+                r._step(dbatch, names, state="ABAB", opt_seq=seq).items()}
+        check(all(np.isfinite(v) for v in logs.values()), f"GNeRF {seq}: {logs}")
+        per_seq[seq] = dict(ms=ms, loss=logs["loss"])
+    peak = torch.cuda.max_memory_allocated()
+    # the generator step with TF32 matmuls, beside the float32 one
+    torch.backends.cuda.matmul.allow_tf32 = True
+    names = fw.optseq2netnames("generator_trainstep")
+    tf32_ms = _synced_ms(lambda: r._step(dbatch, names, state="ABAB",
+                                         opt_seq="generator_trainstep"),
+                         GNERF_WARMUP, GNERF_TIMED)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    stats = _launch_stats(lambda: r.run_multi_iter(dbatch), GNERF_PROFILED)
+    it_ms = _synced_ms(lambda: r.run_multi_iter(dbatch), 1, 3)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        r.run_multi_iter(dbatch)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    view = dict(dbatch, val_idx=torch.zeros(1, dtype=torch.int64, device="cuda"))
+    out = {}
+
+    def render():
+        out["o"] = fw.forward_test(r.state.net, r.state.model_state, view)[0]
+    view_ms = _synced_ms(render, GNERF_VIEW_WARMUP, GNERF_VIEW_TIMED)
+    check(tuple(out["o"]["rgb"].shape) == (1, 400, 400, 3)
+          and bool(torch.isfinite(out["o"]["rgb"]).all()), "GNeRF forward_test output")
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile as tprofile
+        os.makedirs(profile_dir, exist_ok=True)
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            r.run_multi_iter(dbatch)
+            torch.cuda.synchronize()
+        with open(os.path.join(profile_dir, "gnerf_abab_kernels.txt"), "w") as f:
+            f.write(f"{card}\n" + prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=40))
+    print(f"GNeRF full width: card={card!r} matmul_tf32={tf32} B={B} patch={fw.patch_size} "
+          f"img_wh={fw.img_wh} " + " ".join(
+              f"{seq}_ms_median={statistics.median(d['ms']):.6f} "
+              f"{seq}_ms_max={max(d['ms']):.6f}" for seq, d in per_seq.items())
+          + f" generator_trainstep_tf32_ms_median={statistics.median(tf32_ms):.6f} "
+          f"generator_trainstep_tf32_ms_max={max(tf32_ms):.6f} "
+          f"abab_iteration_ms_median={statistics.median(it_ms):.6f} "
+          f"abab_launches_per_iteration={stats['launches']:.1f} "
+          f"abab_device_ms_per_iteration={stats['device_ms']:.6f} "
+          f"abab_busy_share={stats['busy']:.6f} "
+          f"abab_profiled_wall_ms_per_iteration={stats['wall_ms']:.6f} "
+          f"max_memory_allocated_bytes={peak} "
+          f"forward_test_ms_per_400sq_view_median={statistics.median(view_ms):.6f} "
+          f"forward_test_ms_per_400sq_view_max={max(view_ms):.6f} "
+          f"synced_steps_per_sequence={GNERF_TIMED} fixture_s={fixture_s:.3f} "
+          f"reader_s={read_s:.3f} host_syncs_in_abab_iteration=none", flush=True)
+    print("GNeRF step losses: " + " ".join(f"{s}={d['loss']!r}" for s, d in per_seq.items()),
+          flush=True)
+    return root
+
+
+def _so3_exp(w: np.ndarray) -> np.ndarray:
+    """Rotation matrices of axis-angle vectors (N, 3) (Rodrigues)."""
+    out = []
+    for v in w:
+        th = np.linalg.norm(v)
+        k = v / max(th, 1e-12)
+        K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+        out.append(np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K)
+    return np.stack(out).astype(np.float32)
+
+
+def gnerf_learning_check(device="cuda", stage1=500, stage2=300) -> dict:
+    """``tests/test_convergence.py:28-121``'s protocol on the port: the
+    refine loss fits the field at the ground-truth poses (PSNR + 3 dB), then,
+    the field frozen, recovers poses perturbed by 0.05 rad and 0.03 (the
+    rotation error halves, PSNR above the perturbed poses')."""
+    from deep3dmap_tpu_torch.datasets.nerf_synthetic import SyntheticNerfDataset
+    from deep3dmap_tpu_torch.models.frameworks.gnerf import GanNerf
+    from deep3dmap_tpu_torch.models.modulars.embeddings import pose_to_d9
+    from deep3dmap_tpu_torch.runners.optim import build_optimizer
+
+    n, wh = 5, (24, 24)
+    ds = SyntheticNerfDataset(n_images=n, img_wh=wh, radius=2.0, color_mode="position",
+                              device=device)
+    fw = GanNerf(dict(img_wh=wh, patch_size=16, inv_size=16, pose_mode="6d", fc_depth=3,
+                      fc_dim=48, N_samples=16, N_importance=8, ndf=8, inv_depth=2,
+                      n_train_images=n, n_val_images=1, near=0.8, far=4.0), device=device)
+    fw.ray_sampler.set_start_intrinsics(ds.intrinsics)
+    imgs = torch.from_numpy(np.stack(ds.images)).to(device)
+    idx = torch.arange(n, device=device)
+    batch = dict(imgs=imgs, img_idx=idx)
+    net, mstate = fw.init(0, batch)
+    gt = np.stack([np.stack([p[:3, 0], -p[:3, 1], -p[:3, 2], p[:3, 3]], 1) for p in ds.poses])
+    gt = torch.from_numpy(gt.astype(np.float32)).to(device)
+    rs = np.random.RandomState(3)
+    R0 = torch.from_numpy(_so3_exp(rs.randn(n, 3) * 0.05)).to(device) @ gt[:, :, :3]
+    t0 = gt[:, :, 3] + torch.from_numpy((rs.randn(n, 3) * 0.03).astype(np.float32)).to(device)
+    noisy = pose_to_d9(torch.cat([R0, t0[..., None]], -1))
+
+    def psnr():
+        with torch.no_grad():
+            poses = net.train_poses(idx)
+            coords, _ = fw.full_img_sampler(n, wh, device)
+            rays = fw.ray_sampler.get_rays(coords, poses, wh).reshape(-1, 8)
+            rgb = net.generator(rays, None, perturb=0.0)["fine"]["rgb"].reshape(imgs.shape)
+            return float(10 * torch.log10(4.0 / torch.clamp(((rgb - imgs) ** 2).mean(), 1e-12)))
+
+    def rot_err():
+        with torch.no_grad():
+            dR = net.train_poses(idx)[:, :, :3] @ gt[:, :, :3].transpose(1, 2)
+            cos = (dR.diagonal(dim1=1, dim2=2).sum(-1) - 1) / 2
+            return float(torch.rad2deg(torch.arccos(torch.clamp(cos, -1, 1))).mean())
+
+    def fit(module, lr, steps, seed):
+        for p in net.parameters():
+            p.requires_grad_(False)
+        for p in module.parameters():
+            p.requires_grad_(True)
+        opt = build_optimizer(dict(type="Adam", lr=lr), module.parameters())
+        gen = torch.Generator(device=device).manual_seed(seed)
+        losses = []
+        for _ in range(steps):
+            opt.zero_grad()
+            loss, _ = fw.loss_fn(net, mstate, batch, rng=gen, state="B",
+                                 opt_seq="training_refine_step")
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+        return torch.stack(losses).cpu().numpy()
+
+    with torch.no_grad():
+        net.train_poses.poses_embed.copy_(pose_to_d9(gt))
+    psnr0 = psnr()
+    t = time.perf_counter()
+    l1 = fit(net.generator, 5e-3, stage1, 7)
+    psnr1 = psnr()
+    with torch.no_grad():
+        net.train_poses.poses_embed.copy_(noisy)
+    rot0, psnr_noisy = rot_err(), psnr()
+    l2 = fit(net.train_poses, 1e-2, stage2, 11)
+    rot1, psnr2 = rot_err(), psnr()
+    for p in net.parameters():
+        p.requires_grad_(True)
+    return dict(psnr0=psnr0, psnr1=psnr1, rot0=rot0, rot1=rot1, psnr_noisy=psnr_noisy,
+                psnr2=psnr2, loss_first=float(l1[:20].mean()), loss_last=float(l1[-20:].mean()),
+                finite=bool(np.isfinite(l1).all() and np.isfinite(l2).all()),
+                seconds=time.perf_counter() - t)
+
+
+def phase_gnerf_cli(card, work, tools, root):
+    phase("GNeRF through the CLIs: configs/gnerf/blender.py on the 800² Blender fixture "
+          "(A, ABAB, B, a resumed epoch, tools/test.py), dtu.py on a 400x300 DTU fixture, "
+          "the learning check")
+    import logging
+    from deep3dmap_tpu_torch.datasets.synthetic import write_dtu_fixture
+
+    seen = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: seen.append(rec.getMessage())
+    logger = logging.getLogger("deep3dmap_tpu_torch")
+    logger.addHandler(handler)
+    try:
+        wd = os.path.join(work, "gnerf_blender_wd")
+        opts = [f"data.{s}.data_dir={root}" for s in ("train", "val", "test")]
+        opts += ["runner.state_steps=[0,1,2]"]
+        t = time.perf_counter()
+        runner = tools.train.main([GNERF_BLENDER_CFG, "--work-dir", wd, "--max-epochs", "3",
+                                   "--cfg-options", *opts])
+        train_s = time.perf_counter() - t
+        per_epoch = dict(BLENDER_FIXTURE)["train"] // 2
+        steps = per_epoch * (5 + 7 + 2)
+        check((runner.epoch, runner.cur_state, runner.state.step) == (3, "B", steps),
+              f"GNeRF train CLI: epoch {runner.epoch} state {runner.cur_state} "
+              f"step {runner.state.step}")
+        check({"state switch: A -> ABAB", "state switch: ABAB -> B"} <= set(seen),
+              "GNeRF: the state switches are not in the log")
+        t = time.perf_counter()
+        resumed = tools.train.main([GNERF_BLENDER_CFG, "--work-dir", wd, "--resume-from",
+                                    "auto", "--max-epochs", "4", "--cfg-options", *opts])
+        resume_s = time.perf_counter() - t
+        check((resumed.epoch, resumed.cur_state, resumed.state.step)
+              == (4, "B", steps + per_epoch * 2), f"GNeRF resume: {resumed.epoch} "
+              f"{resumed.cur_state} {resumed.state.step}")
+        del seen[:]
+        t = time.perf_counter()
+        tools.test.main([GNERF_BLENDER_CFG, "--work-dir", wd, "--cfg-options", *opts])
+        test_s = time.perf_counter() - t
+        n_test = dict(BLENDER_FIXTURE)["test"]
+        check(f"collected rgb ({n_test}, 400, 400, 3), depth ({n_test}, 400, 400)" in seen,
+              f"GNeRF test CLI: {[m for m in seen if m.startswith('collected')]}")
+
+        dtu = write_dtu_fixture(os.path.join(work, "dtu"), n_views=DTU_VIEWS, img_wh=DTU_WH)
+        dwd = os.path.join(work, "gnerf_dtu_wd")
+        dopts = [f"data.{s}.data_dir={dtu}" for s in ("train", "val", "test")]
+        t = time.perf_counter()
+        drun = tools.train.main([GNERF_DTU_CFG, "--work-dir", dwd, "--max-epochs", "1",
+                                 "--cfg-options", *dopts])
+        dtu_s = time.perf_counter() - t
+        n_train = DTU_VIEWS - DTU_VIEWS // 8
+        check((drun.epoch, drun.cur_state, drun.state.step) == (1, "A", n_train // 2 * 5),
+              f"GNeRF dtu.py: {drun.epoch} {drun.cur_state} {drun.state.step}")
+        del seen[:]
+        tools.test.main([GNERF_DTU_CFG, "--work-dir", dwd, "--cfg-options", *dopts])
+        check("collected rgb (2, 300, 400, 3), depth (2, 300, 400)" in seen,
+              f"GNeRF dtu test CLI: {[m for m in seen if m.startswith('collected')]}")
+    finally:
+        logger.removeHandler(handler)
+    learn = gnerf_learning_check("cuda")
+    print(f"GNeRF CLIs: card={card!r} blender_train_3_epochs_s={train_s:.3f} "
+          f"blender_resume_epoch_s={resume_s:.3f} blender_test_s={test_s:.3f} "
+          f"dtu_train_epoch_s={dtu_s:.3f} cli_steps={resumed.state.step} "
+          "state_switches_logged=True learning: " + " ".join(
+              f"{k}={v!r}" for k, v in learn.items()), flush=True)
+    check(learn["finite"], "GNeRF learning check: a loss is not finite")
+    check(learn["loss_last"] < 0.5 * learn["loss_first"], f"GNeRF refine loss: {learn}")
+    check(learn["psnr1"] > learn["psnr0"] + 3.0, f"GNeRF PSNR: {learn}")
+    check(learn["rot0"] > 2.0 and learn["rot1"] < 0.5 * learn["rot0"], f"GNeRF poses: {learn}")
+    check(learn["psnr2"] > learn["psnr_noisy"], f"GNeRF PSNR after pose recovery: {learn}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also profile the full-width NeuralRecon stream, its "
-                         "training step, Gan2Shape forward_test and each "
-                         "Gan2Shape training mode into DIR")
+                         "training step, Gan2Shape forward_test, each "
+                         "Gan2Shape training mode and a GNeRF ABAB iteration "
+                         "into DIR")
     args = ap.parse_args()
 
     phase("device")
@@ -2767,12 +3241,15 @@ def main():
         phase_learning(card, work, tools, write_scannet_fixture)
         g2s_cli = phase_g2s_cli(card, work, tools, hooks_mod, raster, SyntheticGanFaceDataset,
                                 g2s_train["step_ms"])
-        # the face workloads launch none of the repo's kernels
+        # the face workloads and GNeRF launch none of the repo's kernels
         counts = (fused_loss.launches, fused_loss.bwd_launches, raster.launches)
         phase_prnet(card, work, tools)
         phase_imgs2mesh(card, work, tools)
+        phase_gnerf_cpu_vs_card(card)
+        root = phase_gnerf_full_width(card, work, args.profile)
+        phase_gnerf_cli(card, work, tools, root)
         check((fused_loss.launches, fused_loss.bwd_launches, raster.launches) == counts,
-              "a face workload launched a kernel of the NeuralRecon or Gan2Shape paths")
+              "a face or GNeRF phase launched a kernel of the NeuralRecon or Gan2Shape paths")
     print(f"phases took {time.perf_counter() - t0:.3f} s", flush=True)
 
     print(json.dumps({"kernels": [{

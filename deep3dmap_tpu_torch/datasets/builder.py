@@ -28,8 +28,8 @@ _WRAPPERS = ("ConcatDataset", "RepeatDataset", "ClassBalancedDataset",
 
 def build_dataset(cfg, default_args=None):
     """The dataset a ``data.train``/``data.test`` config names."""
-    from . import (face_tuple, face_uv, gan_faces, pipelines, real_files,  # noqa: F401  (register)
-                   scannet, synthetic)
+    from . import (face_tuple, face_uv, gan_faces, nerf_synthetic,  # noqa: F401  (register)
+                   pipelines, real_files, scannet, synthetic)
 
     if isinstance(cfg, (list, tuple)) or cfg["type"] in _WRAPPERS:
         raise NotImplementedError(f"dataset wrappers {_LATER}")

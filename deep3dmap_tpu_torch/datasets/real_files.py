@@ -1,5 +1,6 @@
 """Real-file readers (port of ``deep3dmap_tpu/datasets/real_files.py``):
-Gan2Shape's CelebA (``CelebaDataset``, :36-52 and :165-237: an image list,
+GNeRF's NeRF-synthetic scenes (``BlenderDataset``, :55-102) and DTU scans
+(``DTUDataset``, :105-162), Gan2Shape's CelebA (``CelebaDataset``, :36-52 and :165-237: an image list,
 an image root and one inverted StyleGAN latent per image, ``.npy``/``.npz``
 or a torch ``.pt``) and PRNet's 300W-LP (``ThreeHundredWLPDataset``,
 :240-315: ``*_inp.jpg`` crops with ``.npy`` UV position maps, and NME
@@ -15,20 +16,26 @@ readers' ``cv2.resize`` calls do.
 """
 from __future__ import annotations
 
+import glob
+import json
 import os.path as osp
 from typing import Dict, List, Optional
 
 import numpy as np
 
 from ..core.evaluation.face_eval import eval_nme
-from ..utils.image_io import imread, resize_float
+from ..utils.device import resolve_device
+from ..utils.image_io import imread, resize_float, resize_uint8_area
 from .builder import DATASETS
 
 
 def imread_rgb(path: str) -> np.ndarray:
     """An image file -> float32 RGB (H, W, 3) in [0, 1]; grey is repeated
     and RGBA composited on white, as the JAX reader does."""
-    img = imread(path)
+    return _rgb01(imread(path))
+
+
+def _rgb01(img: np.ndarray) -> np.ndarray:
     if img.ndim == 2:
         img = img[..., None].repeat(3, axis=-1)
     if img.shape[-1] == 4:
@@ -36,6 +43,118 @@ def imread_rgb(path: str) -> np.ndarray:
         img = img[..., :3].astype(np.float32) * a + 255.0 * (1 - a)
     img = img[..., :3][..., ::-1]   # BGR -> RGB
     return np.ascontiguousarray(img, np.float32) / 255.0
+
+
+def _read_resized(path: str, img_wh) -> np.ndarray:
+    """``imread_rgb`` resized to ``img_wh`` (W, H) with ``INTER_AREA``, as
+    the JAX reader's ``cv2.resize``: on float levels for RGBA (composited
+    first), on the ``uint8`` levels, rounded, for grey and RGB."""
+    raw = imread(path)
+    if (raw.shape[1], raw.shape[0]) == tuple(img_wh):
+        return _rgb01(raw)
+    if raw.ndim == 3 and raw.shape[-1] == 4:
+        return resize_float(_rgb01(raw), tuple(img_wh), area=True)
+    rgb = raw[..., None].repeat(3, axis=-1) if raw.ndim == 2 else raw[..., :3][..., ::-1]
+    return np.ascontiguousarray(resize_uint8_area(rgb, tuple(img_wh)), np.float32) / 255.0
+
+
+@DATASETS.register_module(name=["BlenderDataset", "Blender"])
+class BlenderDataset:
+    """A NeRF-synthetic (Blender) scene: ``transforms_<split>.json`` and
+    ``<split>/*.png`` (RGBA composited on white).  The ``val`` split keeps
+    its first 8 images.  Intrinsics from ``camera_angle_x`` with the
+    principal point at the image centre, scaled to ``img_wh``, whose aspect
+    ratio must be the images'.  Items: ``imgs`` (H, W, 3) in [-1, 1] and
+    ``img_idx``, host arrays.  ``device`` is resolved as every entry point's
+    (CUDA unless ``"cpu"``; raises without a GPU), the GNeRF path's rule."""
+
+    name = "blender"
+
+    def __init__(self, data_dir: str, split: str = "train", img_wh=(400, 400),
+                 white_background: bool = True, pipeline=None, sort_key=None, device=None):
+        self.device = resolve_device(device)
+        self.data_dir, self.split = data_dir, split
+        self.img_wh = tuple(img_wh)
+        self.pipeline = pipeline
+        filenames = sorted(glob.glob(f"{data_dir}/{split}/*.png"), key=sort_key)
+        if split == "val":
+            filenames = filenames[:8]
+        if not filenames:
+            raise FileNotFoundError(f"no {split} images under {data_dir}")
+        self.filenames = filenames
+        with open(osp.join(data_dir, f"transforms_{split}.json")) as f:
+            meta = json.load(f)
+        self.poses = np.stack([np.asarray(fr["transform_matrix"], np.float32)[:3, :4]
+                               for fr in meta["frames"]])
+        oh, ow = imread(filenames[0]).shape[:2]
+        if oh * self.img_wh[0] != ow * self.img_wh[1]:
+            raise ValueError(f"img_wh must keep the {ow}x{oh} aspect ratio")
+        focal = 0.5 * ow / np.tan(0.5 * float(meta["camera_angle_x"]))
+        K = np.array([[focal, 0, ow // 2], [0, focal, oh // 2], [0, 0, 1]], np.float32)
+        K[:2] *= np.array([self.img_wh[0] / ow, self.img_wh[1] / oh], np.float32)[:, None]
+        self.intrinsics = K
+        self.images = [_read_resized(p, self.img_wh) * 2.0 - 1.0 for p in filenames]
+
+    def __len__(self):
+        return len(self.filenames)
+
+    def __getitem__(self, idx: int) -> Dict:
+        item = dict(imgs=self.images[idx], img_idx=np.int32(idx))
+        return self.pipeline(item) if self.pipeline else item
+
+
+@DATASETS.register_module(name=["DTUDataset", "DTU"])
+class DTUDataset:
+    """A DTU scan at one light (``*_3_*.png``); every 8th image (from the
+    8th) is the ``val`` split, the rest ``train``.  Cameras from
+    ``<data_dir>/../../Cameras/train/<view-1:08d>_cam.txt``: the pose is
+    the inverse of ``extrinsic`` with its translation over ``trans_scale``;
+    ``intrinsic`` is at a quarter of the image size (x4), averaged over the
+    split and scaled to ``img_wh``.  Items as ``BlenderDataset``'s."""
+
+    name = "dtu"
+
+    def __init__(self, data_dir: str, split: str = "train", img_wh=(400, 300),
+                 pipeline=None, sort_key=None, trans_scale: float = 200.0, device=None):
+        self.device = resolve_device(device)
+        self.data_dir, self.split = data_dir, split
+        self.img_wh = tuple(img_wh)
+        self.pipeline = pipeline
+        filenames = sorted(glob.glob(f"{data_dir}/*_3_*.png"), key=sort_key)
+        if not filenames:
+            raise FileNotFoundError(f"no *_3_*.png images under {data_dir}")
+        val_idx = set(range(7, len(filenames), 8))
+        keep = (val_idx if split == "val"
+                else [i for i in range(len(filenames)) if i not in val_idx])
+        self.filenames = [filenames[i] for i in sorted(keep)]
+        oh, ow = imread(self.filenames[0]).shape[:2]
+        cam_dir = osp.join(osp.dirname(osp.dirname(data_dir.rstrip("/"))), "Cameras", "train")
+        poses, intrinsics = [], []
+        for name in self.filenames:
+            view_id = int(osp.basename(name)[5:8]) - 1
+            with open(osp.join(cam_dir, f"{view_id:08d}_cam.txt")) as f:
+                text = f.read().splitlines()
+            ei, ki = text.index("extrinsic"), text.index("intrinsic")
+            E = np.array([[float(v) for v in row.split()] for row in text[ei + 1:ei + 5]],
+                         np.float32)
+            K = np.array([[float(v) for v in row.split()] for row in text[ki + 1:ki + 4]],
+                         np.float32)
+            K[:2] *= 4.0
+            poses.append(np.linalg.inv(E)[:3, :4])
+            intrinsics.append(K)
+        self.poses = np.stack(poses)
+        self.poses[:, :, 3] /= trans_scale
+        K = np.mean(intrinsics, axis=0)
+        K[:2] *= np.array([self.img_wh[0] / ow, self.img_wh[1] / oh], np.float32)[:, None]
+        self.intrinsics = K.astype(np.float32)
+        self.images = [_read_resized(p, self.img_wh) * 2.0 - 1.0 for p in self.filenames]
+
+    def __len__(self):
+        return len(self.filenames)
+
+    def __getitem__(self, idx: int) -> Dict:
+        item = dict(imgs=self.images[idx], img_idx=np.int32(idx))
+        return self.pipeline(item) if self.pipeline else item
 
 
 def load_latent(path: str) -> np.ndarray:

@@ -8,7 +8,10 @@ intrinsics) plus the world_to_aligned_camera rotation from the middle view.
 The same seed gives the same fragment as the JAX package's generator.
 
 ``write_scannet_fixture`` lays such a scene out in ScanNet's on-disk layout
-for ``ScanNetDataset`` and the data-gen tool.  Its colour frames are PNG
+for ``ScanNetDataset`` and the data-gen tool; ``write_blender_fixture`` and
+``write_dtu_fixture`` lay GNeRF's posed views (``render_nerf_view``) out in
+the NeRF-synthetic and DTU layouts for ``BlenderDataset`` and
+``DTUDataset``.  Its colour frames are PNG
 (lossless, decoded without OpenCV by ``utils/image_io.py``) under ScanNet's
 ``<i>.jpg`` names: readers pick the decoder by content, as ``cv2.imread``
 does.  The JAX package writes JPEG there.
@@ -60,6 +63,116 @@ def sphere_trace_depth(intr: np.ndarray, cam_pose: np.ndarray, H: int, W: int,
     depth = t  # dirs_cam has z == 1, so t parameterizes camera depth directly
     depth = np.where(hit & (depth < max_depth), depth, 0.0)
     return depth.astype(np.float32)
+
+
+NERF_SPHERES = np.array([[0.0, 0.0, 0.25, 0.35], [0.3, 0.2, 0.1, 0.18]], np.float32)
+
+
+def circle_eye(radius: float, elev_deg: float, angle: float) -> np.ndarray:
+    """A camera centre on the circle at ``radius`` and ``elev_deg`` above the
+    xy plane, ``angle`` around z."""
+    elev = np.deg2rad(elev_deg)
+    return np.array([radius * np.cos(angle) * np.cos(elev),
+                     radius * np.sin(angle) * np.cos(elev),
+                     radius * np.sin(elev)], np.float32)
+
+
+def render_nerf_view(K: np.ndarray, pose: np.ndarray, H: int, W: int, spheres: np.ndarray,
+                     radius: float, color_mode: str = "shade"):
+    """One view of the spheres (no floor) for GNeRF's data: (H, W, 3) colour
+    in [0, 1] and (H, W) depth (0 where no surface).  ``"shade"`` colours by
+    camera distance, ``"position"`` by the hit point's world position; the
+    background is black.  The JAX ``SyntheticNerfDataset``'s arithmetic."""
+    depth = sphere_trace_depth(K, pose, H, W, spheres, floor_z=-10.0, max_depth=2 * radius)
+    if color_mode == "position":
+        u, v = np.meshgrid(np.arange(W), np.arange(H))
+        dirs = np.stack([(u - K[0, 2]) / K[0, 0], (v - K[1, 2]) / K[1, 1],
+                         np.ones_like(u, np.float32)], -1)
+        dirs = dirs @ pose[:3, :3].T
+        dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+        pts = pose[:3, 3] + dirs * depth[..., None]
+        img = 0.5 + 0.5 * np.sin(pts * np.array([3.0, 4.0, 5.0]) + np.array([0.0, 1.3, 2.1]))
+        img = np.where(depth[..., None] > 0, img, 0.0).astype(np.float32)
+    else:
+        shade = np.where(depth > 0, 1.0 - depth / (2 * radius), 0.0)
+        img = np.stack([shade, shade * 0.8, shade * 0.6], -1).astype(np.float32)
+    return img, depth
+
+
+def write_blender_fixture(root, splits=(("train", 4), ("val", 2), ("test", 2)),
+                          img_wh=(800, 800), radius: float = 4.0, elev_deg: float = 30.0,
+                          scene_scale: float = 2.0):
+    """GNeRF's sphere scene in the NeRF-synthetic (Blender) layout:
+    ``transforms_<split>.json`` (``camera_angle_x`` and OpenGL camera-to-
+    world ``transform_matrix`` per frame) and ``<split>/r_<i>.png`` RGBA
+    renders (alpha 0 off the surface, colour by position), for
+    ``BlenderDataset``.  Views circle the scene at ``radius``; the spheres
+    are scaled by ``scene_scale``."""
+    import json
+    import os
+    import os.path as osp
+
+    from ..utils.image_io import imwrite_png
+
+    W, H = img_wh
+    K = np.array([[W, 0, W / 2], [0, W, H / 2], [0, 0, 1]], np.float32)
+    spheres = NERF_SPHERES * scene_scale
+    for s_i, (split, n) in enumerate(splits):
+        os.makedirs(osp.join(root, split), exist_ok=True)
+        frames = []
+        for i in range(n):
+            eye = circle_eye(radius, elev_deg, 2 * np.pi * (i + 0.37 * s_i) / n)
+            pose = look_at_pose(eye, np.zeros(3, np.float32))
+            img, depth = render_nerf_view(K, pose, H, W, spheres, radius, "position")
+            rgba = np.concatenate([img[..., ::-1], (depth > 0)[..., None]], -1)
+            imwrite_png(osp.join(root, split, f"r_{i}.png"),
+                        np.rint(rgba * 255).astype(np.uint8))
+            gl = np.eye(4)
+            gl[:3, :4] = np.stack([pose[:3, 0], -pose[:3, 1], -pose[:3, 2], pose[:3, 3]], 1)
+            frames.append(dict(file_path=f"./{split}/r_{i}", transform_matrix=gl.tolist()))
+        with open(osp.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump(dict(camera_angle_x=float(2 * np.arctan(W / (2 * K[0, 0]))),
+                           frames=frames), f)
+    return root
+
+
+def write_dtu_fixture(root, scan: str = "scan1", n_views: int = 9, img_wh=(400, 300),
+                      radius: float = 5.0, elev_deg: float = 70.0, trans_scale: float = 200.0):
+    """GNeRF's sphere scene in DTU's layout for ``DTUDataset``:
+    ``Rectified/<scan>/rect_<i+1:03d>_3_r5000.png`` RGB views and
+    ``Cameras/train/<i:08d>_cam.txt`` (``extrinsic``: world-to-camera 4x4
+    with translation times ``trans_scale``; ``intrinsic``: 3x3 at a quarter
+    of the image size).  Returns the scan directory (the config's
+    ``data_dir``)."""
+    import os
+    import os.path as osp
+
+    from ..utils.image_io import imwrite_png
+
+    W, H = img_wh
+    K = np.array([[W, 0, W / 2], [0, W, H / 2], [0, 0, 1]], np.float32)
+    spheres = NERF_SPHERES * 2.0
+    scan_dir = osp.join(root, "Rectified", scan)
+    cam_dir = osp.join(root, "Cameras", "train")
+    os.makedirs(scan_dir, exist_ok=True)
+    os.makedirs(cam_dir, exist_ok=True)
+    for i in range(n_views):
+        pose = look_at_pose(circle_eye(radius, elev_deg, 2 * np.pi * i / n_views),
+                            np.zeros(3, np.float32))
+        img, _ = render_nerf_view(K, pose, H, W, spheres, radius, "position")
+        imwrite_png(osp.join(scan_dir, f"rect_{i + 1:03d}_3_r5000.png"),
+                    np.rint(img[..., ::-1] * 255).astype(np.uint8))
+        E = np.linalg.inv(pose.astype(np.float64))
+        E[:3, 3] *= trans_scale
+        Kq = K.astype(np.float64).copy()
+        Kq[:2] /= 4.0
+        with open(osp.join(cam_dir, f"{i:08d}_cam.txt"), "w") as f:
+            f.write("extrinsic\n")
+            f.writelines(" ".join(repr(float(v)) for v in row) + "\n" for row in E)
+            f.write("\nintrinsic\n")
+            f.writelines(" ".join(repr(float(v)) for v in row) + "\n" for row in Kq)
+            f.write("\n425.0 2.5\n")
+    return scan_dir
 
 
 def _rodrigues(axis: np.ndarray, theta: float) -> np.ndarray:

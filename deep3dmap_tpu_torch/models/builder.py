@@ -1,7 +1,7 @@
 """The reconstructor and loss registries (port of
 ``deep3dmap_tpu/models/builder.py``'s ``RECONSTRUCTORS``, ``LOSSES`` and
-``build_reconstruction``).  ``NeuralRecon``, ``Gan2Shape``, ``FaceImg2UV``
-and ``Imgs2Mesh`` register themselves; ``models/losses/basic.py`` registers
+``build_reconstruction``).  ``NeuralRecon``, ``Gan2Shape``, ``FaceImg2UV``,
+``Imgs2Mesh`` and ``GanNerf`` register themselves; ``models/losses/basic.py`` registers
 the L1 losses."""
 from __future__ import annotations
 
@@ -15,7 +15,8 @@ def build_reconstruction(cfg, train_cfg=None, test_cfg=None, device=None):
     """The framework a ``model`` config names, e.g. ``dict(type="NeuralRecon",
     model_cfgs=...)``.  ``device`` (CUDA when None) goes to its constructor;
     a config that names a device keeps it."""
-    from .frameworks import gan2shape, imgs2mesh, neuralrecon, prnet  # noqa: F401  (register)
+    from .frameworks import (gan2shape, gnerf, imgs2mesh, neuralrecon,  # noqa: F401  (register)
+                             prnet)
 
     cfg = dict(cfg)
     if train_cfg is not None:

@@ -1,5 +1,7 @@
 """flax.linen layer semantics in PyTorch: ``Conv``, ``ConvTranspose``,
-``Dense``, ``GroupNorm``.
+``Dense``, ``DenseGeneral``, ``GroupNorm``, ``LayerNorm``,
+``MultiHeadDotProductAttention``, ``spectral_normalize`` (``SpectralNorm``)
+and the tanh ``gelu``.
 
 The JAX package builds every network from ``flax.linen`` layers.  These
 modules reproduce their numerics, so weights carried over by
@@ -72,11 +74,12 @@ class Conv(nn.Module):
                                                *self.kernel))
         self.bias = nn.Parameter(torch.empty(out_ch)) if use_bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``weight`` replaces ``self.weight`` (a spectral-normalised one)."""
         nd = len(self.kernel)
         dt = _compute_dtype(x, self.weight, self.dtype)
         x = x.to(dt)
-        w = self.weight.to(dt)
+        w = (self.weight if weight is None else weight).to(dt)
         b = None if self.bias is None else self.bias.to(dt)
         if self.padding == "VALID":
             pads = [(0, 0)] * nd
@@ -181,6 +184,105 @@ class GroupNorm(nn.Module):
                                                          self.weight.dtype))
 
 
+class LayerNorm(nn.Module):
+    """``flax.linen.LayerNorm`` over the last axis.
+
+    TRAP: flax's epsilon is 1e-6, not torch's 1e-5, and its variance is the
+    fast E[x^2] - E[x]^2 clipped at 0, as ``GroupNorm``'s."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean = x.mean(-1, keepdim=True)
+        var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean, min=0.0)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
+class DenseGeneral(nn.Module):
+    """``flax.linen.DenseGeneral`` from the trailing ``in_shape`` axes to
+    ``out_shape``.  ``kernel`` (*in_shape, *out_shape) and ``bias``
+    (*out_shape) are stored in flax's layout (no torch layout exists for
+    them) and carried across as they are."""
+
+    FLAX_LEAVES = {"kernel": ("kernel", "plain"), "bias": ("bias", "plain")}
+
+    def __init__(self, in_shape: Sequence[int], out_shape: Sequence[int]):
+        super().__init__()
+        self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
+        self.kernel = nn.Parameter(torch.empty(*self.in_shape, *self.out_shape))
+        self.bias = nn.Parameter(torch.empty(*self.out_shape))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:x.dim() - len(self.in_shape)]
+        k = self.kernel.reshape(math.prod(self.in_shape), -1)
+        y = x.reshape(*lead, k.shape[0]) @ k + self.bias.reshape(-1)
+        return y.reshape(*lead, *self.out_shape)
+
+
+class MultiHeadDotProductAttention(nn.Module):
+    """``flax.linen.MultiHeadDotProductAttention`` for self-attention with
+    the defaults the inversion net uses: ``query``/``key``/``value`` are
+    ``DenseGeneral`` (dim -> (heads, dim // heads)), ``out`` is
+    ((heads, head_dim) -> dim), the query is scaled by head_dim^-1/2, then a
+    plain matmul and softmax (no mask, no dropout)."""
+
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        self.heads, self.head_dim = num_heads, dim // num_heads
+        shape = (num_heads, self.head_dim)
+        self.query = DenseGeneral((dim,), shape)
+        self.key = DenseGeneral((dim,), shape)
+        self.value = DenseGeneral((dim,), shape)
+        self.out = DenseGeneral(shape, (dim,))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, L, dim) -> (B, L, dim)."""
+        q = self.query(x) / math.sqrt(self.head_dim)
+        k, v = self.key(x), self.value(x)
+        w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+        return self.out(torch.einsum("bhqk,bkhd->bqhd", w, v))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``flax.linen.gelu``: the tanh approximation (torch's default is the
+    exact erf form)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def _l2_normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
+    return x * torch.rsqrt((x * x).sum() + eps)
+
+
+def spectral_normalize(weight: torch.Tensor, stats: dict, update_stats: bool,
+                       n_steps: int = 1, eps: float = 1e-12):
+    """``flax.linen.SpectralNorm`` of a ``Conv`` or ``Dense`` weight (torch
+    layout (O, I, *k) or (O, I)).  Returns (weight / sigma, new stats).
+
+    ``stats`` holds ``u`` (1, O) and ``sigma`` () as flax's ``batch_stats``
+    do.  ``n_steps`` power steps from the stored ``u`` give ``u`` and ``v``
+    (no gradient) and sigma = v^T W u, through which the gradient reaches
+    the weight; the weight is divided by it (by 1 where it is 0) in both
+    modes.  ``update_stats`` returns the new ``u`` and ``sigma`` (flax's
+    ``update_stats=True``), else the stored ones.  flax flattens the kernel
+    to (k*k*I, O); here it is (O, I*k*k), the same matrix transposed with
+    its rows permuted, which gives the same ``u`` and sigma."""
+    m = weight.reshape(weight.shape[0], -1)
+    with torch.no_grad():
+        u = stats["u"]
+        md = m.detach()
+        for _ in range(n_steps):
+            v = _l2_normalize(u @ md, eps)
+            u = _l2_normalize(v @ md.t(), eps)
+    sigma = ((u @ m) @ v.t())[0, 0]
+    w = weight / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
+    new = {"u": u, "sigma": sigma.detach()} if update_stats else dict(stats)
+    return w, new
+
+
 def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator):
     std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
     with torch.no_grad():
@@ -204,7 +306,11 @@ def init_flax_defaults(module: nn.Module, gen: torch.Generator) -> None:
             if m.bias is not None:
                 with torch.no_grad():
                     m.bias.zero_()
-        elif isinstance(m, GroupNorm):
+        elif isinstance(m, DenseGeneral):
+            _lecun_normal_(m.kernel, math.prod(m.in_shape), gen)
+            with torch.no_grad():
+                m.bias.zero_()
+        elif isinstance(m, (GroupNorm, LayerNorm)):
             with torch.no_grad():
                 m.weight.fill_(1.0)
                 m.bias.zero_()

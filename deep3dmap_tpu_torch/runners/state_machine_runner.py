@@ -8,11 +8,16 @@ optimizer per parameter collection (port of
   state; on a change it logs ``state switch: A -> B`` and calls the
   framework's ``on_state_switch``.  JAX re-jits the step there; here
   ``loss_fn`` reads the framework's state at each step.
-- The collections are JAX's top-level param collections: the framework's
-  ``network_names`` (children of the net) where it has them, else one,
-  ``"params"``, the whole net (a flax module's one collection).  Each has
-  its own optimizer (``runners/optim.py``, the config's clip and lr
-  schedule), as JAX keeps ``opt_state[name]`` (:128).
+- The collections are JAX's top-level param collections (the keys of its
+  params dict, :128): a framework with ``network_names`` holds them as the
+  children of its net, every child a collection (GNeRF's five, of which
+  ``network_names`` lists three), else there is one, ``"params"``, the
+  whole net (a flax module's one collection).  Each has its own optimizer
+  (``runners/optim.py``, the config's clip and lr schedule), as JAX keeps
+  ``opt_state[name]``.
+- ``state.rng`` is a ``torch.Generator`` on the framework's device, seeded
+  with the runner's seed (JAX's ``TrainState.rng``); every step hands it to
+  ``loss_fn`` as ``rng`` for the draws the framework makes.
 - A framework with ``is_multi_opt_iters`` runs ``run_multi_iter``: for
   each optimize sequence of ``setup_optimize_sequences(state)`` one step of
   ``loss_fn(state=, opt_seq=)`` that updates only the collections
@@ -66,20 +71,23 @@ class StateMachineRunner(BaseRunner):
     # -- setup -----------------------------------------------------------------
     def collections(self, net) -> Dict[str, torch.nn.Module]:
         """Collection name -> the module whose parameters it holds."""
-        names = getattr(self.framework, "network_names", None) or ["params"]
-        return {n: param_collection(net, n) for n in names}
+        if getattr(self.framework, "network_names", None):
+            return dict(net.named_children())
+        return {"params": param_collection(net, "params")}
 
     def setup(self, sample_batch, optimizer: Optional[dict] = None,
               lr_config: Optional[dict] = None, optimizer_config: Optional[dict] = None,
               iters_per_epoch: int = 1) -> TrainState:
-        """Seeded weights (``framework.init``) and one optimizer per
-        collection; training is made bitwise repeatable on the card."""
+        """Seeded weights (``framework.init``), one optimizer per collection
+        and the step generator; training is made bitwise repeatable on the
+        card."""
         make_deterministic()
         make_optimizer = self._optimizer_factory(optimizer, lr_config, optimizer_config,
                                                  iters_per_epoch, dict(type="Adam", lr=1e-3))
         net, model_state = self.framework.init(self.seed, sample_batch)
         self.state = TrainState(net=net, model_state=model_state, optimizer={
-            name: make_optimizer(m.parameters()) for name, m in self.collections(net).items()})
+            name: make_optimizer(m.parameters()) for name, m in self.collections(net).items()},
+            rng=torch.Generator(device=self.framework.device).manual_seed(self.seed))
         self._log_init(net)
         return self.state
 
@@ -92,7 +100,7 @@ class StateMachineRunner(BaseRunner):
         for opt in opts.values():
             opt.zero_grad()
         loss, aux = self.framework.loss_fn(self.state.net, self.state.model_state, batch,
-                                           **loss_kw)
+                                           rng=self.state.rng, **loss_kw)
         loss.backward()
         for name in (names if names is not None else opts):
             for p in opts[name].params:

@@ -18,6 +18,17 @@ per-view outputs are collected as (V, B, ...) arrays; no ``evaluate``).  Without
 evaluates the seeded initial weights.  It runs on the card (``--device cuda``, the
 default) and raises on a machine without one unless ``--device cpu`` is
 given.
+
+GNeRF (``configs/gnerf/``, ``GanNerf`` on ``SyntheticNerfDataset``,
+``BlenderDataset`` or ``DTUDataset``) renders the test split at the learned
+val poses (``forward_test``, the test items' indices into them) and
+collects ``rgb`` and ``depth``; no ``evaluate``.  Its nets are sized by the
+training datasets (``need_info_from_datasets``: the intrinsics and the
+numbers of train and val poses), so the CLI builds the datasets
+``tools/train.py`` builds from the same config and hands them to
+``set_info_from_datasets`` before the checkpoint loads.  (JAX's
+``tools/test.py`` does not, and its GNeRF cannot render without
+intrinsics.)
 """
 import argparse
 import os.path as osp
@@ -57,6 +68,15 @@ def _to_host(v):
     return v
 
 
+def _stacked_shape(batches):
+    """The shape of per-batch arrays stacked along their first axis, or None
+    where they are not arrays of one trailing shape."""
+    if not all(isinstance(x, np.ndarray) and x.ndim for x in batches) \
+            or len({x.shape[1:] for x in batches}) != 1:
+        return None
+    return (sum(len(x) for x in batches),) + batches[0].shape[1:]
+
+
 def split_meta(batch):
     """Numeric entries go to the device; strings and objects stay on the
     host."""
@@ -75,6 +95,7 @@ def main(argv=None):
     from ..models.builder import build_reconstruction
     from ..runners.checkpoint import (latest_checkpoint, load_checkpoint_raw,
                                       tree_leaves, tree_unflatten)
+    from .train import training_datasets
     from ..utils.config import Config
     from ..utils.device import resolve_device
     from ..utils.logging import get_root_logger
@@ -91,6 +112,8 @@ def main(argv=None):
                               workers_per_gpu=cfg.data.get("workers_per_gpu", 0),
                               shuffle=False)
     framework = build_reconstruction(cfg.model, device=device)
+    if cfg.get("need_info_from_datasets") and hasattr(framework, "set_info_from_datasets"):
+        framework.set_info_from_datasets(training_datasets(cfg, device))
 
     batch0, _ = split_meta(next(iter(loader)))
     net, mstate = framework.init(0, batch0)
@@ -133,6 +156,9 @@ def main(argv=None):
         outputs["scene_name"] = scene_names
         outputs["mesh_path"] = paths
 
+    logger.info("collected " + ", ".join(
+        f"{k} {shape}" for k, shape in ((k, _stacked_shape(v)) for k, v in outputs.items())
+        if shape is not None))
     results = None
     if args.eval and hasattr(dataset, "evaluate"):
         results = dataset.evaluate(outputs, metric=args.eval[0])

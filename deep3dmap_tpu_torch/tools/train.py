@@ -14,7 +14,10 @@ PRNet's ``FaceImg2UV`` on ``SyntheticFaceUVDataset`` or
 (``configs/gan2shape/``: one instance an epoch, its mask from the parsing
 model when ``use_mask`` is set) or ``StateMachineRunner`` (imgs2mesh,
 ``configs/pt3d_demos/``: ``Imgs2Mesh`` on ``SyntheticFaceTupleDataset`` or
-``MultiPIEFaceTupleDataset``, the state switching by epoch).  A config's
+``MultiPIEFaceTupleDataset``, the state switching by epoch; GNeRF,
+``configs/gnerf/``: ``GanNerf`` on ``SyntheticNerfDataset``,
+``BlenderDataset`` or ``DTUDataset`` through the states ``A``, ``ABAB``,
+``B``, sized by ``need_info_from_datasets``).  A config's
 ``evaluation`` is ignored, as the JAX CLI ignores it.  One card: there is no
 ``--launcher jax`` (multi-GPU is ROADMAP.md Queue 1).
 """
@@ -41,11 +44,22 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
+def training_datasets(cfg, device, validate: bool = True):
+    """The train split, and the val split when the workflow has more than
+    one entry (JAX's ``tools/train.py``)."""
+    from ..datasets.builder import build_dataset
+
+    datasets = [build_dataset(cfg.data["train"], default_args=dict(device=device))]
+    if len(cfg.get("workflow", [("train", 1)])) > 1 and "val" in cfg.data and validate:
+        datasets.append(build_dataset(cfg.data["val"], default_args=dict(device=device)))
+    return datasets
+
+
 def main(argv=None):
     """Runs the training and returns the runner."""
     args = parse_args(argv)
 
-    from ..datasets.builder import build_dataloader, build_dataset
+    from ..datasets.builder import build_dataloader
     from ..models.builder import build_reconstruction
     from ..runners.builder import build_runner
     from ..utils.config import Config
@@ -63,10 +77,8 @@ def main(argv=None):
     logger = get_root_logger(log_file=osp.join(work_dir, "train.log"))
     logger.info(f"Config: {args.config}  device={device}")
 
-    datasets = [build_dataset(cfg.data["train"], default_args=dict(device=device))]
+    datasets = training_datasets(cfg, device, validate=not args.no_validate)
     workflow = [tuple(w) for w in cfg.get("workflow", [("train", 1)])]
-    if len(workflow) > 1 and "val" in cfg.data and not args.no_validate:
-        datasets.append(build_dataset(cfg.data["val"], default_args=dict(device=device)))
     loaders = [build_dataloader(ds, samples_per_gpu=cfg.data.get("samples_per_gpu", 1),
                                 workers_per_gpu=cfg.data.get("workers_per_gpu", 0),
                                 shuffle=True, seed=args.seed) for ds in datasets]

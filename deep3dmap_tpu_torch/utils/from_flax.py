@@ -11,7 +11,9 @@ state dicts into flax trees), kept as the port's own copy:
   flax ConvTranspose kernel (kh, kw, I, O) -> torch weight (I, O, kh, kw),
     flipped in both spatial axes (flax's ``transpose_kernel=False`` does not
     flip it; ``torch.conv_transpose2d`` does)
-  GroupNorm / BlockGN scale     -> weight; every bias -> bias
+  GroupNorm / BlockGN / LayerNorm scale -> weight; every bias -> bias
+  DenseGeneral kernel and bias (the attention's query/key/value/out), raw
+    leaves (``cls``, ``pos_embed``, ``poses_embed``): as they are
 
 The port names its submodules after flax's auto-names (``Conv_0``,
 ``GroupNorm_0``, ``BlockConvBlock3D_1``, ``unet2``, ``gru1.convzr``, ...), so
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..models.layers import Conv, ConvTranspose, Dense, GroupNorm
+from ..models.layers import Conv, ConvTranspose, Dense, GroupNorm, LayerNorm
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -56,7 +58,7 @@ def _leaf_map(module: nn.Module):
             names = {"weight": ("kernel", "kernel"), "bias": ("bias", "plain")}
         elif isinstance(m, ConvTranspose):
             names = {"weight": ("kernel", "kernel_t"), "bias": ("bias", "plain")}
-        elif isinstance(m, GroupNorm):
+        elif isinstance(m, (GroupNorm, LayerNorm)):
             names = {"weight": ("scale", "plain"), "bias": ("bias", "plain")}
         elif hasattr(type(m), "FLAX_LEAVES"):
             names = type(m).FLAX_LEAVES
@@ -167,7 +169,9 @@ def load_jax_checkpoint(raw: Mapping, state):
     structure than the port's (clip or schedule on one side only) raises
     ``ValueError``.  Modules in the port's model state (Gan2Shape's frozen
     generator and discriminator) take JAX's trees of the same key; the
-    tensors take the remaining leaves in tree order.  The step generator, if
+    tensors take the remaining leaves in tree order (GNeRF's ``it`` and its
+    spectral-norm ``u``/``sigma``, kept in JAX's ``batch_stats`` layout).
+    GNeRF's checkpoint holds five Adam chains, one per collection.  The step generator, if
     any, is the port's own: JAX's key does not carry across."""
     import dataclasses
 
@@ -257,6 +261,17 @@ def to_flax_params(module: nn.Module) -> Dict:
     """The module's parameters as a nested flax-layout dict of numpy arrays
     (the inverse of ``load_flax_params``)."""
     return _to_flax_tree(module, dict(module.named_parameters()))
+
+
+def to_flax_state(model_state):
+    """A model state's tensors as numpy arrays in the same tree (GNeRF's
+    ``it`` and spectral-norm ``disc_stats``, which the port keeps in JAX's
+    layout): the inverse of ``load_jax_checkpoint``'s model-state load."""
+    if isinstance(model_state, Mapping):
+        return {k: to_flax_state(v) for k, v in model_state.items()}
+    if isinstance(model_state, (list, tuple)):
+        return [to_flax_state(v) for v in model_state]
+    return model_state.detach().cpu().numpy()
 
 
 def to_flax_grads(module: nn.Module) -> Dict:

@@ -11,7 +11,9 @@ raises, naming the file.  Resizing a ``uint8`` frame to another size needs
 ``cv2`` (its fixed-point ``INTER_LINEAR`` arithmetic is what the JAX
 pipeline gives); a resize to the same size is a copy, as it is in ``cv2``.
 ``resize_float`` resizes float images with ``cv2``'s ``INTER_AREA`` and
-``INTER_LINEAR`` weights and no ``cv2`` (Gan2Shape's CelebA reader).
+``INTER_LINEAR`` weights and no ``cv2`` (Gan2Shape's CelebA reader);
+``resize_uint8_area`` rounds them as ``cv2`` does on a ``uint8`` frame
+(GNeRF's DTU reader).
 
 The encoder writes filter type 0 (none) on every row, so the fixture frames
 the port writes decode without a loop over rows.  Rows that another encoder
@@ -254,3 +256,21 @@ def resize_float(img: np.ndarray, size, area: bool = True) -> np.ndarray:
     out = np.tensordot(weights(w, w_out), img, axes=([1], [1]))    # (W', H[, C])
     out = np.tensordot(weights(h, h_out), out, axes=([1], [1]))    # (H', W'[, C])
     return np.ascontiguousarray(out, np.float32)
+
+
+def resize_uint8_area(img: np.ndarray, size) -> np.ndarray:
+    """``cv2.resize(img, size, interpolation=INTER_AREA)`` of a ``uint8``
+    (H, W[, C]) frame, ``size = (W, H)``, as float32 levels: the area means
+    of ``resize_float``, rounded as ``cv2`` rounds them.  A 2x shrink on both
+    axes takes ``cv2``'s (sum + 2) >> 2 (half up), other integer factors its
+    ``cvRound`` (half to even), both exact; at a ratio that is not an
+    integer ``cv2`` accumulates its weights in another order, and a level
+    can differ by one where a mean sits at a half."""
+    img = np.asarray(img)
+    h, w = img.shape[:2]
+    out = resize_float(img.astype(np.float32), size, area=True)
+    if (w, h) == tuple(size):
+        return out
+    if (w, h) == (2 * size[0], 2 * size[1]):
+        return np.floor(out + 0.5)
+    return np.rint(out)

@@ -6,9 +6,10 @@
 - entry points (the frameworks, the renderer, the perceptual loss, the
   StyleGAN2 generator and discriminator, the Gan2Shape runner, the parsers,
   the data path's GT fusion, the fixture writer, the data-gen, the face
-  frameworks and the UV sampler's tables) default to CUDA and raise on a
-  machine without a GPU unless the caller asks for ``device="cpu"`` (the
-  CLIs on a NeuralRecon config: ``tests/test_torch_cli.py``; on a Gan2Shape
+  frameworks and the UV sampler's tables, GNeRF's framework and ray
+  sampler and readers) default to CUDA and raise on a machine without a
+  GPU unless the caller asks for ``device="cpu"`` (the CLIs on a
+  NeuralRecon config: ``tests/test_torch_cli.py``; on a Gan2Shape or GNeRF
   config: here; on the face configs: ``tests/test_torch_face_cli.py``);
 - the evaluation's worker processes import no torch.
 """
@@ -243,3 +244,49 @@ def test_gan2shape_entry_points_raise_without_gpu():
     for cli in (train_cli, test_cli):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli.main([cfg])
+
+
+def test_gnerf_entry_points_raise_without_gpu(tmp_path):
+    """``GanNerf``, ``RaySampler`` and GNeRF's readers
+    (``SyntheticNerfDataset``, ``BlenderDataset``, ``DTUDataset``) default to
+    CUDA; with ``device="cpu"`` the readers give numpy items; both CLIs on
+    ``configs/gnerf/gnerf_synthetic.py`` raise without ``--device cpu``."""
+    _no_gpu()
+    from deep3dmap_tpu_torch.core.renderer.samples.ray_sampler import RaySampler
+    from deep3dmap_tpu_torch.datasets.nerf_synthetic import SyntheticNerfDataset
+    from deep3dmap_tpu_torch.datasets.real_files import BlenderDataset, DTUDataset
+    from deep3dmap_tpu_torch.datasets.synthetic import (write_blender_fixture,
+                                                        write_dtu_fixture)
+    from deep3dmap_tpu_torch.models.frameworks.gnerf import GanNerf
+    from deep3dmap_tpu_torch.tools import test as test_cli
+    from deep3dmap_tpu_torch.tools import train as train_cli
+
+    cfg = dict(img_wh=(16, 16), fc_depth=2, fc_dim=16, N_samples=4, N_importance=4, ndf=8,
+               inv_depth=1)
+    ray = dict(near=0.5, far=4.0, azim_range=(0, 360), elev_range=(0, 60), radius=(1, 2))
+    for make in (lambda: GanNerf(cfg), lambda: GanNerf(cfg, device="cuda"),
+                 lambda: RaySampler(**ray)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    fw = GanNerf(cfg, device="cpu")
+    assert fw.ray_sampler.device == torch.device("cpu")
+    batch = {"imgs": np.zeros((2, 16, 16, 3), np.float32), "img_idx": np.arange(2)}
+    net, state = fw.init(0, batch)
+    assert {p.device.type for p in net.parameters()} == {"cpu"}
+    assert state["it"].device == torch.device("cpu")
+    blender = write_blender_fixture(str(tmp_path / "lego"), splits=(("train", 2),),
+                                    img_wh=(8, 8))
+    dtu = write_dtu_fixture(str(tmp_path / "dtu"), n_views=2, img_wh=(8, 6))
+    readers = (lambda **kw: SyntheticNerfDataset(n_images=1, img_wh=(8, 8), **kw),
+               lambda **kw: BlenderDataset(blender, img_wh=(8, 8), **kw),
+               lambda **kw: DTUDataset(dtu, img_wh=(8, 6), **kw))
+    for make in readers:
+        for kw in ({}, {"device": "cuda"}):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make(**kw)
+        ds = make(device="cpu")
+        assert all(isinstance(v, np.ndarray) or np.isscalar(v) for v in ds[0].values())
+    config = os.path.join(ROOT, "configs", "gnerf", "gnerf_synthetic.py")
+    for cli in (train_cli, test_cli):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main([config, "--work-dir", str(tmp_path / "wd")])
