@@ -167,7 +167,42 @@ Phases; any error ends the run with a nonzero exit and no result line:
    fixture at 400x300 and its ``tools/test.py``; the learning check of
    ``tests/test_convergence.py:28-121`` (the refine fit raises PSNR by 3
    dB or more, the recovered rotation error halves).
-   No GNeRF phase launches a kernel of the repo.
+   No GNeRF phase launches a kernel of the repo.  Phase 19 also runs the
+   generator step in float64 on the card against the CPU's float64 (a rule
+   that differs would show there; rounding alone stays at float64's).
+
+22. CPU vs card (LERF): ``configs/lerf/lerf_synthetic.py``'s model (the
+   MLP RGB field) and the small hash-grid config of
+   ``tests/test_lerf.py:113-133``, float32 with TF32 off, the same seeded
+   weights and host-drawn uniforms: one ``loss_fn`` and backward (the MLP
+   path's importance samples replayed from the CPU, as phase 19 does),
+   then ``forward_test`` with two positives on weights where a later scale
+   wins; losses within 1e-4, maps within 1e-3, best scales equal, the
+   worst gradient leaf printed beside the CPU's float32 and the card's
+   against the CPU's float64.
+23. full width (LERF): ``configs/lerf/lerf.py``'s model and data as
+   published but the paths (hash-grid RGB field 12 x 2^19 x 4, 96 + 48
+   samples, 24 LERF samples, 30 scales, CLIP 512, DINO 384, 4,096 rays,
+   Adam 1e-2 after the clip with the cosine schedule) on phase 20's
+   Blender fixture at 400² (7 tile scales, 881 crops per image), with
+   seeded ViT-B/16 and ViT-S/8 checkpoints written in their published
+   layouts and converted by the port's importers: the pyramid and DINO
+   precompute per image, 2 warm-up and 10 synced steps through
+   ``IterBasedRunner.run_iter``, launches, device ms, busy share, the top
+   device kernels and the hash grids' shares from torch.profiler over 2
+   steps (each kernel counted once, by the range or autograd node that
+   launched it), the peak bytes, ``forward_test`` with two positives per 4,096
+   rays, one step and one ``forward_test`` under
+   ``set_sync_debug_mode("error")``; ``--profile DIR`` adds
+   ``lerf_train_kernels.txt``.
+24. LERF through the CLIs: ``tools/train.py`` on ``lerf_synthetic.py``
+   (16 iterations, checkpoints at 8 and 16, the cosine lr read from the
+   JSON log), ``--resume-from auto`` to 24, ``tools/test.py``; ``lerf.py``
+   for 200 iterations on the fixture with the seeded ``.npz`` files (the
+   learning check: its RGB and CLIP losses fall) and ``tools/test.py`` on
+   a test split given by ``--cfg-options`` (``lerf.py`` deletes
+   ``data.test``).  Phase 13 trains LERF's small hash-grid config twice
+   too.  No LERF phase launches a kernel of the repo.
 
 The raster's launches in the kernels line are phases 7's, 12's and 16's
 main paths together; the fused loss's are phase 4's (forward) or phase 10's
@@ -1822,7 +1857,8 @@ def _nondeterministic_ops(step):
 def phase_determinism(nr_module, train_mod, g2s_module, runner_mod, stack, make_sample,
                       dataset_cls, make_deterministic):
     phase(f"determinism: two identical {DET_STEPS}-step trainings on the card, bitwise "
-          "(NeuralRecon small block config; each Gan2Shape mode, hard raster)")
+          "(NeuralRecon small block config; each Gan2Shape mode, hard raster; LERF's small "
+          "hash-grid config)")
     set_tf32(cudnn=True, matmul=False)   # PyTorch's defaults, as a user runs
     make_deterministic()                 # as the runners and the CLIs do
     frags = []
@@ -1864,9 +1900,29 @@ def phase_determinism(nr_module, train_mod, g2s_module, runner_mod, stack, make_
         undo()
         return out, ops
 
+    def lerf_run(probe=False):
+        from deep3dmap_tpu_torch.datasets.builder import upload_batch
+        from deep3dmap_tpu_torch.datasets.lerf_rays import LERFRayDataset
+        from deep3dmap_tpu_torch.models.frameworks.lerf import LERFModel
+        from deep3dmap_tpu_torch.runners.iter_based_runner import IterBasedRunner
+
+        fw = LERFModel(LERF_HASH_SMALL)
+        ds = LERFRayDataset(rays_per_batch=256, n_batches=1, clip_n_dims=64, dino_n_dims=32,
+                            image_encoder=fw.image_encoder)
+        batch = upload_batch(next(iter(ds)), "cuda")
+        r = IterBasedRunner(fw, runner_cfgs=dict(optimizer=dict(type="Adam", lr=1e-2),
+                                                 max_iters=DET_STEPS))
+        r.setup(batch, lr_config=dict(policy="cosineannealing", min_lr=1e-5),
+                optimizer_config=dict(grad_clip=dict(max_norm=1.0)))
+        for _ in range(DET_STEPS):
+            r.run_iter(batch)
+        out = {n: p.detach().clone() for n, p in r.state.net.named_parameters()}
+        return out, (_nondeterministic_ops(lambda: r.run_iter(batch)) if probe else None)
+
     results, probes = {}, {}
     for name, run in [("neuralrecon", nr_run)] + [
-            (f"gan2shape_{m}", lambda probe=False, m=m: g2s_run(m, probe)) for m in G2S_MODES]:
+            (f"gan2shape_{m}", lambda probe=False, m=m: g2s_run(m, probe))
+            for m in G2S_MODES] + [("lerf_hashgrid", lerf_run)]:
         a, probes[name] = run(probe=True)
         b, _ = run()
         differ = [k for k in a if not torch.equal(a[k], b[k])]
@@ -2743,10 +2799,16 @@ DTU_VIEWS, DTU_WH = 16, (400, 300)     # 2 views in the val (and test) split
 # of the step is held (the near-tie rule of tests/test_torch_gnerf.py).
 # Gradients: at 32² with a random D the generator step sums cancelling
 # terms; its worst leaf on an H100 (700 W) sat 3.0e-2 from the CPU's
-# float64 evaluation where the CPU's float32 sat 2.9e-3 (both printed beside)
+# float64 evaluation where the CPU's float32 sat 2.9e-3 (both printed
+# beside).  The same step in float64 on the card sits 5.1e-14 from the
+# CPU's float64, so no rule differs: the float32 gap is rounding of the
+# cancelling sums in cuBLAS's order.  TOL_GNERF_GRAD is 3.3x that measured
+# card gap; TOL_GNERF_GRAD64 holds the float64 pair to where a differing
+# rule would show.
 TOL_GNERF_LOSS_RTOL = 1e-4
 TOL_GNERF_MAP = 1e-3
 TOL_GNERF_GRAD = 1e-1
+TOL_GNERF_GRAD64 = 1e-6      # the generator step in float64, card vs CPU
 
 
 class _Samples:
@@ -2847,6 +2909,27 @@ def phase_gnerf_cpu_vs_card(card):
             gl.backward()
         finally:
             samples.restore()
+        if seq == "generator_trainstep":
+            # the same step in float64 on the card: splits the card's float32
+            # gap into rounding and a rule that differs from the CPU's
+            net64c = copy.deepcopy(net64).cuda()
+            net64c.zero_grad(set_to_none=True)
+            samples.z = [z.double() for z in recorded]
+            samples.replay("cuda")
+            torch.set_default_dtype(torch.float64)
+            try:
+                fw.loss_fn(net64c, _to_double(state), batch64, state="ABAB", opt_seq=seq,
+                           draws=_to_double(draws))[0].backward()
+            finally:
+                torch.set_default_dtype(torch.float32)
+                samples.restore()
+            gen64 = {n: _grad_rel(getattr(net64, n), getattr(net64c, n))
+                     for n in cpu_fw.optseq2netnames(seq)}
+            gen64 = {f"{n}.{k}": v for n, d in gen64.items() for k, v in d.items()}
+            k64 = max(gen64, key=gen64.get)
+            rows.append(f"{seq}: card_float64_vs_cpu_float64_worst_leaf={k64}:{gen64[k64]:.3e}")
+            check(gen64[k64] <= TOL_GNERF_GRAD64,
+                  f"GNeRF {seq}: the card's float64 gradient is not the CPU's: {k64}")
         with torch.no_grad():   # the card's own importance samples
             own = float(fw.loss_fn(net, state, batch, state="ABAB", opt_seq=seq,
                                    draws=draws)[0])
@@ -3172,13 +3255,466 @@ def phase_gnerf_cli(card, work, tools, root):
     check(learn["psnr2"] > learn["psnr_noisy"], f"GNeRF PSNR after pose recovery: {learn}")
 
 
+# ---------------------------------------------------------------- phase 22 --
+LERF_SYN_CFG = os.path.join("configs", "lerf", "lerf_synthetic.py")
+LERF_PUB_CFG = os.path.join("configs", "lerf", "lerf.py")
+# the small hash-grid config of tests/test_lerf.py:113-133
+LERF_HASH_SMALL = dict(clip_n_dims=64, dino_n_dims=32, N_samples=8, N_importance=16,
+                       num_lerf_samples=4, fc_depth=2, fc_dim=32, grid_layers=(2, 2),
+                       grid_sizes=(10, 10), grid_resolutions=((4, 16), (16, 32)), hidden=32,
+                       rgb_field_type="hashgrid", N_proposal=16, rgb_grid_levels=4,
+                       rgb_grid_log2=10, rgb_grid_end=64, rgb_hidden=32)
+LERF_PHRASES = ("a chair", "a red sphere")
+LERF_WARMUP, LERF_TIMED, LERF_PROFILED = 2, 10, 2
+LERF_VIEW_WARMUP, LERF_VIEW_TIMED = 1, 5
+LERF_FIT_ITERS = 200
+LERF_SCALE_SEED = 1
+# CPU vs card (phase 22): losses and maps as phase 19's limits.  Gradients:
+# the worst leaf on an H100 (700 W) sat 3.5e-7 (MLP, samples shared) and
+# 7.1e-6 (hash grid) from the CPU's float32, where both sit up to 2.2e-4 /
+# 2.3e-3 from the CPU's float64 on their worst leaves alike (printed
+# beside); TOL_LERF_GRAD is 14x the larger
+TOL_LERF_LOSS_RTOL = 1e-4
+TOL_LERF_MAP = 1e-3
+TOL_LERF_GRAD = 1e-4
+
+
+def _lerf_relevancy_inputs(fws, nets, seed=LERF_SCALE_SEED):
+    """The same seeded relevancy inputs on every (framework, net): CLIP-head
+    biases N(0, 0.1), language-grid tables U[-1, 1), and unit positive and
+    negative text embeddings (the phrases' own come from Python's salted
+    ``hash()``, so they change from process to process).  With the seeded
+    init (zero biases, tables near 0) the CLIP head is positively
+    homogeneous in the scale, every scale above 0 ties and the first wins;
+    with these, on both phase-22 configs, a later scale wins for a phrase
+    (the phase checks it and prints the margin of each best scale)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for n, p in nets[0].lerf_field.named_parameters():
+            if n.startswith("clip_") and n.endswith("bias"):
+                v = torch.randn(p.shape, generator=gen) * 0.1
+            elif n.endswith("tables"):
+                v = torch.rand(p.shape, generator=gen) * 2 - 1
+            else:
+                continue
+            for net in nets:
+                net.lerf_field.get_parameter(n).copy_(v)
+        enc = fws[0].image_encoder
+        for attr, k in (("pos_embeds", len(enc.positives)), ("neg_embeds", len(enc.negatives))):
+            v = torch.randn(k, enc.neg_embeds.shape[-1], generator=gen)
+            v = v / v.norm(dim=-1, keepdim=True)
+            for fw in fws:
+                setattr(fw.image_encoder, attr, v.to(getattr(fw.image_encoder, attr).device))
+
+
+def phase_lerf_cpu_vs_card(card):
+    phase("CPU vs card: LERF, configs/lerf/lerf_synthetic.py's model (mlp) and the small "
+          "hash-grid config, float32, TF32 off: loss_fn and backward, forward_test")
+    import copy
+    import deep3dmap_tpu_torch.models.frameworks.lerf as lerf_mod
+    from deep3dmap_tpu_torch.datasets.builder import build_dataset
+    from deep3dmap_tpu_torch.utils.config import Config
+
+    set_tf32(cudnn=False, matmul=False)
+    cfg = Config.fromfile(LERF_SYN_CFG)
+    rows, errs = [], {}
+    for name, mc in (("mlp", dict(cfg.model["model_cfgs"])), ("hashgrid", LERF_HASH_SMALL)):
+        cpu_fw, fw = lerf_mod.LERFModel(mc, device="cpu"), lerf_mod.LERFModel(mc)
+        ds = build_dataset(dict(cfg.data["train"], clip_n_dims=mc["clip_n_dims"],
+                                dino_n_dims=mc["dino_n_dims"]),
+                           default_args=dict(device="cpu", image_encoder=cpu_fw.image_encoder))
+        batch = next(iter(ds))
+        batch64 = {k: v.astype(np.float64) for k, v in batch.items()}
+        cpu_net, _ = cpu_fw.init(0, batch)
+        net, _ = fw.init(0, batch)
+        check(all(torch.equal(a, b.cpu()) for a, b in zip(cpu_net.parameters(),
+                                                          net.parameters())),
+              f"LERF {name}: the seeded weights differ between the CPU and the card")
+        net64 = copy.deepcopy(cpu_net).double()
+        draws = cpu_fw.draws(torch.Generator().manual_seed(7), len(batch["rays_o"]),
+                             device="cpu")
+        samples = _Samples(lerf_mod)
+        if name == "mlp":
+            samples.record()
+        try:
+            cl, ca = cpu_fw.loss_fn(cpu_net, {}, batch, draws=draws)
+            cl.backward()
+            recorded = list(samples.z)
+            if name == "mlp":
+                samples.z = [z.double() for z in recorded]
+                samples.replay("cpu")
+            torch.set_default_dtype(torch.float64)
+            try:
+                cpu_fw.loss_fn(net64, {}, batch64,
+                               draws={k: v.double() for k, v in draws.items()})[0].backward()
+            finally:
+                torch.set_default_dtype(torch.float32)
+            if name == "mlp":
+                samples.z = recorded
+                samples.replay("cuda")
+            gl, ga = fw.loss_fn(net, {}, batch, draws={k: v.cuda() for k, v in draws.items()})
+            gl.backward()
+        finally:
+            samples.restore()
+        cl, gl = float(cl.detach()), float(gl.detach())
+        for k, v in ca["log_vars"].items():
+            errs[f"{name}.{k}"] = (abs(float(ga["log_vars"][k].detach()) - float(v.detach()))
+                                   / max(abs(float(v.detach())), 1e-12))
+        errs[f"{name}.loss"] = abs(gl - cl) / abs(cl)
+        g = _grad_rel(cpu_net, net)
+        r = _grad_rel(net64, cpu_net)
+        c = _grad_rel(net64, net)
+        k = max(g, key=g.get)
+        check(all(np.isfinite(v) for v in g.values()), f"LERF {name}: a gradient is not finite")
+        rows.append(f"{name}: loss cpu={cl!r} card={gl!r} worst_grad_leaf="
+                    f"{k}:{g[k]:.3e} that_leaf_vs_cpu_float64=cpu:{r[k]:.3e}/card:{c[k]:.3e} "
+                    f"worst_card_vs_float64={max(c.values()):.3e} "
+                    f"worst_cpu_vs_float64={max(r.values()):.3e}")
+        check(g[k] <= TOL_LERF_GRAD, f"LERF {name}: gradients card vs CPU {k}={g[k]} "
+              f"(float64: cpu {r[k]}, card {c[k]})")
+        # forward_test with two positives, on inputs where the scale choice
+        # is made (see _lerf_relevancy_inputs)
+        for f in (cpu_fw, fw):
+            f.image_encoder.set_positives(LERF_PHRASES)
+        _lerf_relevancy_inputs((cpu_fw, fw), (cpu_net, net))
+        samples = _Samples(lerf_mod)
+        if name == "mlp":
+            samples.record()
+        peaks, relevancy = [], cpu_fw.image_encoder.get_relevancy
+
+        def peak(emb, i):
+            r = relevancy(emb, i)
+            peaks.append(float(r[..., 0].max()))
+            return r
+        cpu_fw.image_encoder.get_relevancy = peak
+        try:
+            cout, _ = cpu_fw.forward_test(cpu_net, {}, batch)
+            if name == "mlp":
+                samples.replay("cuda")
+            gout, _ = fw.forward_test(net, {}, batch)
+        finally:
+            samples.restore()
+            del cpu_fw.image_encoder.get_relevancy
+        # per phrase, the best scale's peak relevancy over the runner-up's
+        top2 = np.sort(np.array(peaks).reshape(-1, len(LERF_PHRASES)).T, 1)[:, -2:]
+        margin = float((top2[:, 1] - top2[:, 0]).min())
+        maps = {f"{name}.{k}": float((gout[k].cpu() - cout[k]).abs().max())
+                for k in ("rgb", "depth", "raw_relevancy")}
+        rows.append(f"{name}: best_scales cpu={cout['best_scales'].tolist()} "
+                    f"card={gout['best_scales'].cpu().tolist()} "
+                    f"cpu_best_scale_margin={margin:.3e} " + " ".join(
+                        f"{k}_max_abs={v:.3e}" for k, v in maps.items()))
+        check(all(v <= TOL_LERF_MAP for v in maps.values()), f"LERF maps: {maps}")
+        check(torch.equal(gout["best_scales"].cpu(), cout["best_scales"]),
+              f"LERF {name}: best scales card {gout['best_scales'].tolist()} "
+              f"vs CPU {cout['best_scales'].tolist()}")
+        check(bool((cout["best_scales"] > 0).any()),
+              f"LERF {name}: every phrase peaked at the first scale, no choice was made")
+    print(f"LERF card vs CPU (TF32 off): card={card!r} " + " ".join(rows) + " "
+          + " ".join(f"{k}_err={v:.3e}" for k, v in errs.items()), flush=True)
+    check(all(v <= TOL_LERF_LOSS_RTOL for v in errs.values()), f"LERF losses: {errs}")
+    set_tf32(cudnn=True, matmul=False)
+
+
+# ---------------------------------------------------------------- phase 23 --
+def seeded_lerf_checkpoints(work) -> dict:
+    """Seeded ViT-B/16 CLIP and ViT-S/8 DINO state dicts in their published
+    layouts, converted by the port's importers into ``work`` (the paths
+    and the seconds each took)."""
+    from deep3dmap_tpu_torch.datasets.synthetic import (seeded_clip_state_dict,
+                                                        seeded_dino_state_dict)
+    from deep3dmap_tpu_torch.utils.torch_import import import_npz_entries
+
+    out = {}
+    for kind, make, name in (("clip", seeded_clip_state_dict, "clip_vitb16.npz"),
+                             ("dino", seeded_dino_state_dict, "dino_vits8.npz")):
+        path = os.path.join(work, name)
+        t = time.perf_counter()
+        if not os.path.exists(path):
+            np.savez(path, **import_npz_entries(kind, make(0)))
+        out[kind], out[f"{kind}_s"] = path, time.perf_counter() - t
+    return out
+
+
+def _lerf_pub_options(root, ckpts):
+    return [f"data.train.image_dataset.data_dir={root}",
+            f"data.train.clip_npz={ckpts['clip']}", f"data.train.dino_npz={ckpts['dino']}",
+            f"model.model_cfgs.clip_weights={ckpts['clip']}"]
+
+
+def _hash_spans():
+    """Wrap every ``HashGridEncoding.forward`` in a ``span:hashgrid``
+    profiler range; returns the undo."""
+    from deep3dmap_tpu_torch.models.modulars import hashgrid
+
+    orig = hashgrid.HashGridEncoding.forward
+
+    def fwd(self, x):
+        with torch.profiler.record_function("span:hashgrid"):
+            return orig(self, x)
+    hashgrid.HashGridEncoding.forward = fwd
+    return lambda: setattr(hashgrid.HashGridEncoding, "forward", orig)
+
+
+def _hash_attribution(prof) -> dict:
+    """Each device kernel's µs once, by the op that launched it: inside a
+    ``span:hashgrid`` range (the hash grids' forward), under an autograd
+    node of an op from such a range (their backward; ``scatter`` is its
+    ``IndexBackward0``, the sorted ``index_put_`` of the table rows), or
+    elsewhere.  A backward node is matched to its forward op by sequence
+    number; the nearest range or node decides.  ``total`` is every kernel
+    counted this way."""
+    events = prof.events()
+
+    def chain(e):
+        while e is not None:
+            yield e
+            e = e.cpu_parent
+    in_span = {e.sequence_nr for e in events if e.sequence_nr >= 0
+               and any(a.name == "span:hashgrid" for a in chain(e))}
+    out = dict(total=0.0, forward=0.0, backward=0.0, scatter=0.0)
+    node = "autograd::engine::evaluate_function: "
+    for e in events:
+        for k in e.kernels:
+            if k.name.startswith(("span:", "Optimizer.")):
+                continue
+            out["total"] += k.duration
+            for a in chain(e):
+                if a.name == "span:hashgrid":
+                    out["forward"] += k.duration
+                    break
+                if a.name.startswith(node):
+                    if a.sequence_nr in in_span:
+                        out["backward"] += k.duration
+                        if a.name == node + "IndexBackward0":
+                            out["scatter"] += k.duration
+                    break
+    return out
+
+
+def _lerf_profile(step, n):
+    """torch.profiler over ``n`` steps: launches, device ms and busy share
+    per step, the top device kernels, and the hash grids' forward,
+    backward and backward-scatter shares of the device time
+    (``_hash_attribution``: no kernel counts twice, so the shares add up
+    to at most the attributed total, which is checked against the busy
+    time)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+    undo = _hash_spans()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        undo()
+    kernels = device_kernels(prof)
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    att = _hash_attribution(prof)
+    shares = {k: att[k] / max(busy_us, 1e-9) for k in ("total", "forward", "backward",
+                                                        "scatter")}
+    # the attributed kernels are the busy time's, summed another way
+    check(abs(shares["total"] - 1.0) <= 1e-3
+          and shares["forward"] + shares["backward"] <= shares["total"] + 1e-9
+          and shares["scatter"] <= shares["backward"] + 1e-9,
+          f"LERF profile: the kernels' attribution does not add up: {shares}")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    return dict(launches=sum(e.count for e in kernels) / n, device_ms=busy_us / 1e3 / n,
+                busy=busy_us / 1e3 / wall_ms, wall_ms=wall_ms / n, shares=shares,
+                top=[(e.key[:60], e.self_device_time_total / max(busy_us, 1e-9), e.count / n)
+                     for e in top], prof=prof)
+
+
+def phase_lerf_full_width(card, work, root, profile_dir=None):
+    phase("full width: LERF, configs/lerf/lerf.py's model and data (hash grid 12 x 2^19 x 4, "
+          "96 + 48 samples, 4096 rays, ViT-B/16 CLIP, ViT-S/8 DINO, 400² Blender fixture)")
+    from deep3dmap_tpu_torch.datasets.builder import build_dataset, upload_batch
+    from deep3dmap_tpu_torch.models.frameworks.lerf import LERFModel
+    from deep3dmap_tpu_torch.runners.builder import build_runner
+    from deep3dmap_tpu_torch.utils.config import Config
+
+    ckpts = seeded_lerf_checkpoints(work)
+    cfg = Config.fromfile(LERF_PUB_CFG)
+    cfg.merge_from_dict(dict(o.split("=", 1) for o in _lerf_pub_options(root, ckpts)))
+    mc = cfg.model["model_cfgs"]
+    check((mc["rgb_field_type"], mc["rgb_grid_levels"], mc["rgb_grid_log2"], mc["N_proposal"],
+           mc["N_importance"], mc["num_lerf_samples"], mc["n_scales"])
+          == ("hashgrid", 12, 19, 96, 48, 24, 30), f"lerf.py model: {mc}")
+    ds = build_dataset(cfg.data["train"], default_args=dict(device="cuda"))
+    imgs = ds.images01()
+    n_img = len(imgs)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ds.build_pyramid(imgs)
+    torch.cuda.synchronize()
+    pyramid_s = time.perf_counter() - t
+    t = time.perf_counter()
+    ds.build_dino(imgs)
+    dino_s = time.perf_counter() - t
+    crops = sum(lv.n_crops for lv in ds._pyramid.levels)
+    check(imgs[0].shape == (400, 400, 3) and crops == 881 and ds.dino_pretrained
+          and ds._dino_maps.shape == (n_img, 50, 50, 384),
+          f"LERF data: {imgs[0].shape} {crops} crops, dino {ds._dino_maps.shape}")
+    batches = iter(ds)
+    batch = next(batches)
+    fw = LERFModel(mc)
+    check(fw.image_encoder._vit is not None, "LERF: clip_weights did not load the ViT")
+    runner_cfg = dict(cfg.runner["runner_cfgs"])
+    r = build_runner(dict(type="IterBasedRunner"),
+                     default_args=dict(framework=fw, runner_cfgs=runner_cfg))
+    r.setup(batch, optimizer=runner_cfg["optimizer"], lr_config=cfg.lr_config,
+            optimizer_config=cfg.optimizer_config, iters_per_epoch=len(ds))
+    tables = 12 * 2 ** 19 * 4 * 4
+    check(r.state.net.rgb_field.grid.tables.numel() * 4 == tables, "LERF: RGB tables' size")
+    dbatch = upload_batch(batch, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    logs = {}
+
+    def step():
+        logs["v"] = r.run_iter(dbatch)
+    step_ms = _synced_ms(step, LERF_WARMUP, LERF_TIMED)
+    peak = torch.cuda.max_memory_allocated()
+    vals = {k: float(v) for k, v in logs["v"].items()}
+    check(all(np.isfinite(v) for v in vals.values()), f"LERF step logs: {vals}")
+    stats = _lerf_profile(step, LERF_PROFILED)
+    fw.image_encoder.set_positives(LERF_PHRASES)
+    out = {}
+
+    def query():
+        out["o"] = fw.forward_test(r.state.net, {}, dbatch)[0]
+    view_ms = _synced_ms(query, LERF_VIEW_WARMUP, LERF_VIEW_TIMED)
+    o = out["o"]
+    check(tuple(o["raw_relevancy"].shape) == (2, 4096) and tuple(o["best_scales"].shape) == (2,)
+          and bool(torch.isfinite(o["raw_relevancy"]).all())
+          and bool(torch.isfinite(o["rgb"]).all()), "LERF forward_test output")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+        fw.forward_test(r.state.net, {}, dbatch)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        with open(os.path.join(profile_dir, "lerf_train_kernels.txt"), "w") as f:
+            f.write(f"{card}\n" + stats["prof"].key_averages().table(
+                sort_by="self_device_time_total", row_limit=40))
+    print(f"LERF full width: card={card!r} matmul_tf32={torch.backends.cuda.matmul.allow_tf32} "
+          f"rays={len(batch['rays_o'])} images={n_img} crops_per_image={crops} "
+          f"clip_import_s={ckpts['clip_s']:.3f} dino_import_s={ckpts['dino_s']:.3f} "
+          f"pyramid_s_per_image={pyramid_s / n_img:.6f} dino_s_per_image={dino_s / n_img:.6f} "
+          f"step_ms_median={statistics.median(step_ms):.6f} step_ms_max={max(step_ms):.6f} "
+          f"launches_per_step={stats['launches']:.1f} device_ms_per_step={stats['device_ms']:.6f} "
+          f"busy_share={stats['busy']:.6f} profiled_wall_ms_per_step={stats['wall_ms']:.6f} "
+          f"attributed_share={stats['shares']['total']:.6f} "
+          f"hash_forward_share={stats['shares']['forward']:.6f} "
+          f"hash_backward_share={stats['shares']['backward']:.6f} "
+          f"hash_backward_scatter_share={stats['shares']['scatter']:.6f} "
+          f"max_memory_allocated_bytes={peak} rgb_tables_bytes={tables} "
+          f"forward_test_ms_per_4096_rays_median={statistics.median(view_ms):.6f} "
+          f"forward_test_ms_per_4096_rays_max={max(view_ms):.6f} "
+          f"best_scales={o['best_scales'].tolist()} host_syncs_in_step_and_forward_test=none "
+          f"synced_steps={LERF_TIMED}", flush=True)
+    print("LERF top device kernels per step (share of device time, launches): " + "; ".join(
+        f"{k}={s:.4f}/{c:.0f}" for k, s, c in stats["top"]), flush=True)
+    print("LERF step logs: " + " ".join(f"{k}={v!r}" for k, v in vals.items()), flush=True)
+    return ckpts
+
+
+# ---------------------------------------------------------------- phase 24 --
+def _json_log(wd):
+    recs = []
+    for name in sorted(os.listdir(wd)):
+        if name.endswith(".log.json"):
+            with open(os.path.join(wd, name)) as f:
+                recs += [json.loads(line) for line in f]
+    return recs
+
+
+def phase_lerf_cli(card, work, tools, root, ckpts):
+    phase("LERF through the CLIs: lerf_synthetic.py (16 iterations, resume to 24, "
+          "tools/test.py), lerf.py on the 400² fixture with the seeded ViTs, the learning check")
+    import logging
+    from deep3dmap_tpu_torch.runners.optim import build_lr_schedule
+
+    seen = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: seen.append(rec.getMessage())
+    logger = logging.getLogger("deep3dmap_tpu_torch")
+    logger.addHandler(handler)
+    try:
+        wd = os.path.join(work, "lerf_syn_wd")
+        t = time.perf_counter()
+        runner = tools.train.main([LERF_SYN_CFG, "--work-dir", wd])
+        syn_s = time.perf_counter() - t
+        ck = set(os.listdir(os.path.join(wd, "checkpoints")))
+        check(runner.state.step == 16 and {"ckpt_8", "ckpt_16"} <= ck,
+              f"LERF synthetic CLI: step {runner.state.step}, {sorted(ck)}")
+        sched = build_lr_schedule("cosineannealing", 1e-3, 16, min_lr=1e-5)
+        recs = _json_log(wd)
+        check([x["lr"] for x in recs] == [sched(k) for k in (4, 8, 12, 16)],
+              f"LERF: the logged lr is not the cosine schedule's: {[x['lr'] for x in recs]}")
+        t = time.perf_counter()
+        resumed = tools.train.main([LERF_SYN_CFG, "--work-dir", wd, "--resume-from", "auto",
+                                    "--cfg-options", "runner.runner_cfgs.max_iters=24"])
+        resume_s = time.perf_counter() - t
+        check(resumed.state.step == 24, f"LERF resume: step {resumed.state.step}")
+        del seen[:]
+        tools.test.main([LERF_SYN_CFG, "--work-dir", wd, "--checkpoint", "auto"])
+        check("collected rgb (512, 3), depth (512,)" in seen,
+              f"LERF test CLI: {[m for m in seen if m.startswith('collected')]}")
+
+        pwd = os.path.join(work, "lerf_pub_wd")
+        opts = _lerf_pub_options(root, ckpts) + [
+            f"runner.runner_cfgs.max_iters={LERF_FIT_ITERS}", "log_config.interval=10",
+            "checkpoint_config.interval=100"]
+        t = time.perf_counter()
+        pub = tools.train.main([LERF_PUB_CFG, "--work-dir", pwd, "--cfg-options", *opts])
+        pub_s = time.perf_counter() - t
+        check(pub.state.step == LERF_FIT_ITERS and pub.framework.rgb_field_type == "hashgrid",
+              f"LERF lerf.py CLI: step {pub.state.step}")
+        fit = _json_log(pwd)
+        first, last = fit[:3], fit[-3:]
+        learn = {k: (float(np.mean([x[k] for x in first])), float(np.mean([x[k] for x in last])))
+                 for k in ("rgb_loss", "clip_loss", "dino_loss", "prop_loss", "loss")}
+        test_opts = [o.replace("data.train", "data.test") for o in opts if o.startswith("data.")]
+        test_opts += ["data.test.type=LERFRayDataset", "data.test.image_dataset.type="
+                      "BlenderDataset", "data.test.image_dataset.split=test",
+                      "data.test.image_dataset.img_wh=(400,400)", "data.test.rays_per_batch=4096",
+                      "data.test.n_batches=2", "data.test.clip_n_dims=512",
+                      "data.test.dino_n_dims=384", "data.test.tile_size_range=(0.05,0.5)",
+                      "data.test.tile_size_res=7", "data.test.seed=9"]
+        del seen[:]
+        t = time.perf_counter()
+        tools.test.main([LERF_PUB_CFG, "--work-dir", pwd, "--checkpoint", "auto",
+                         "--cfg-options", *[o for o in opts if not o.startswith("data.")],
+                         *test_opts])
+        test_s = time.perf_counter() - t
+        check("collected rgb (8192, 3), depth (8192,)" in seen,
+              f"LERF lerf.py test CLI: {[m for m in seen if m.startswith('collected')]}")
+    finally:
+        logger.removeHandler(handler)
+    print(f"LERF CLIs: card={card!r} synthetic_16_iters_s={syn_s:.3f} "
+          f"synthetic_resume_to_24_s={resume_s:.3f} lerf_py_{LERF_FIT_ITERS}_iters_s={pub_s:.3f} "
+          f"lerf_py_test_s={test_s:.3f} learning (first 3 logs -> last 3 logs, 10 iterations "
+          "each): " + " ".join(f"{k}={a!r}->{b!r}" for k, (a, b) in learn.items()), flush=True)
+    check(all(np.isfinite(v) for ab in learn.values() for v in ab), f"LERF fit: {learn}")
+    check(learn["rgb_loss"][1] < learn["rgb_loss"][0]
+          and learn["clip_loss"][1] < learn["clip_loss"][0], f"LERF learning check: {learn}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also profile the full-width NeuralRecon stream, its "
                          "training step, Gan2Shape forward_test, each "
-                         "Gan2Shape training mode and a GNeRF ABAB iteration "
-                         "into DIR")
+                         "Gan2Shape training mode, a GNeRF ABAB iteration "
+                         "and LERF's training steps into DIR")
     args = ap.parse_args()
 
     phase("device")
@@ -3241,15 +3777,19 @@ def main():
         phase_learning(card, work, tools, write_scannet_fixture)
         g2s_cli = phase_g2s_cli(card, work, tools, hooks_mod, raster, SyntheticGanFaceDataset,
                                 g2s_train["step_ms"])
-        # the face workloads and GNeRF launch none of the repo's kernels
+        # the face workloads, GNeRF and LERF launch none of the repo's kernels
         counts = (fused_loss.launches, fused_loss.bwd_launches, raster.launches)
         phase_prnet(card, work, tools)
         phase_imgs2mesh(card, work, tools)
         phase_gnerf_cpu_vs_card(card)
         root = phase_gnerf_full_width(card, work, args.profile)
         phase_gnerf_cli(card, work, tools, root)
+        phase_lerf_cpu_vs_card(card)
+        ckpts = phase_lerf_full_width(card, work, root, args.profile)
+        phase_lerf_cli(card, work, tools, root, ckpts)
         check((fused_loss.launches, fused_loss.bwd_launches, raster.launches) == counts,
-              "a face or GNeRF phase launched a kernel of the NeuralRecon or Gan2Shape paths")
+              "a face, GNeRF or LERF phase launched a kernel of the NeuralRecon or "
+              "Gan2Shape paths")
     print(f"phases took {time.perf_counter() - t0:.3f} s", flush=True)
 
     print(json.dumps({"kernels": [{

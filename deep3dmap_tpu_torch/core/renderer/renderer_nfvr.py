@@ -3,6 +3,8 @@
 
 Plain PyTorch ops over one static ray batch: ``searchsorted``, ``cumsum``,
 ``cumprod`` and gathers.  The random numbers come in as tensors.
+``sample_pdf`` runs without autograd (GNeRF's and LERF's MLP path stop its
+gradient); ``sample_pdf_differentiable`` keeps it (LERF's hash-grid path).
 
 The transmittance's ``cumprod`` has its own backward (``_CumprodNonzero``):
 autograd's asks the device whether an input is zero before it picks its
@@ -24,23 +26,46 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor,
 
     bins (N, M+1) bin edges, weights (N, M), u (N, K) in [0, 1): uniform
     draws, or ``linspace(0, 1, K)`` for the deterministic samples.  The
-    result carries no gradient (JAX stops it where it is used), so the
+    result carries no gradient (JAX stops it where GNeRF uses it), so the
     function runs without autograd."""
     with torch.no_grad():
-        weights = weights.detach() + eps
-        pdf = weights / weights.sum(-1, keepdim=True)
-        cdf = torch.cumsum(pdf, -1)
-        cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], -1).contiguous()
-        m = weights.shape[1]
-        inds = torch.searchsorted(cdf, u.contiguous(), right=True)
-        below = torch.clamp(inds - 1, min=0)
-        above = torch.clamp(inds, max=m)
-        cdf_g0, cdf_g1 = torch.gather(cdf, 1, below), torch.gather(cdf, 1, above)
-        bins = bins.detach()
-        bins_g0, bins_g1 = torch.gather(bins, 1, below), torch.gather(bins, 1, above)
-        denom = cdf_g1 - cdf_g0
-        denom = torch.where(denom < eps, torch.ones_like(denom), denom)
-        return bins_g0 + (u - cdf_g0) / denom * (bins_g1 - bins_g0)
+        return _sample_pdf(bins.detach(), weights.detach(), u, eps,
+                           lambda x, i: torch.gather(x, 1, i))
+
+
+def sample_pdf_differentiable(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor,
+                              eps: float = 1e-5) -> torch.Tensor:
+    """``sample_pdf`` with the gradient JAX's keeps where its caller does
+    not stop it (LERF's proposal sampling): through the cdf and the bins to
+    the weights, the cdf stopped only for ``searchsorted``.  The gathers are
+    flat-row indexing, whose backward accumulates in a fixed order."""
+    return _sample_pdf(bins, weights, u, eps, take_along_rows)
+
+
+def _sample_pdf(bins, weights, u, eps, take):
+    weights = weights + eps
+    pdf = weights / weights.sum(-1, keepdim=True)
+    cdf = torch.cumsum(pdf, -1)
+    cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], -1)
+    m = weights.shape[1]
+    inds = torch.searchsorted(cdf.detach().contiguous(), u.contiguous(), right=True)
+    below = torch.clamp(inds - 1, min=0)
+    above = torch.clamp(inds, max=m)
+    cdf_g0, cdf_g1 = take(cdf, below), take(cdf, above)
+    bins_g0, bins_g1 = take(bins, below), take(bins, above)
+    denom = cdf_g1 - cdf_g0
+    denom = torch.where(denom < eps, torch.ones_like(denom), denom)
+    return bins_g0 + (u - cdf_g0) / denom * (bins_g1 - bins_g0)
+
+
+def take_along_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``take_along_axis(x, idx, axis=-1)`` for (N, M) ``x`` and in-range
+    (N, K) ``idx``, as one flat-row gather: its backward is a sorted
+    accumulation (a fixed order on the card), ``torch.gather``'s uses
+    atomics."""
+    n, m = x.shape
+    base = torch.arange(n, device=x.device)[:, None] * m
+    return x.reshape(-1)[base + idx]
 
 
 class _CumprodNonzero(torch.autograd.Function):

@@ -28,8 +28,8 @@ _WRAPPERS = ("ConcatDataset", "RepeatDataset", "ClassBalancedDataset",
 
 def build_dataset(cfg, default_args=None):
     """The dataset a ``data.train``/``data.test`` config names."""
-    from . import (face_tuple, face_uv, gan_faces, nerf_synthetic,  # noqa: F401  (register)
-                   pipelines, real_files, scannet, synthetic)
+    from . import (face_tuple, face_uv, gan_faces, lerf_rays,  # noqa: F401  (register)
+                   nerf_synthetic, pipelines, real_files, scannet, synthetic)
 
     if isinstance(cfg, (list, tuple)) or cfg["type"] in _WRAPPERS:
         raise NotImplementedError(f"dataset wrappers {_LATER}")
@@ -203,7 +203,11 @@ def build_dataloader(dataset, samples_per_gpu: int = 1, workers_per_gpu: int = 0
                      num_gpus: int = 1, dist: bool = False, shuffle: bool = True,
                      seed: Optional[int] = None, **kwargs) -> NumpyLoader:
     """The JAX ``build_dataloader`` on one card: ``samples_per_gpu *
-    num_gpus`` samples per batch, ``workers_per_gpu`` loader threads."""
+    num_gpus`` samples per batch, ``workers_per_gpu`` loader threads.  A
+    dataset that yields its own batches (iterable, no ``__getitem__``: the
+    LERF ray datamanager) passes through as it is."""
+    if not hasattr(dataset, "__getitem__") and hasattr(dataset, "__iter__"):
+        return dataset
     if dist or (shuffle and hasattr(dataset, "flag")):
         raise NotImplementedError(f"distributed and grouped samplers {_LATER}")
     return NumpyLoader(dataset, batch_size=samples_per_gpu * num_gpus,

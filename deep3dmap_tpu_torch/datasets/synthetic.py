@@ -362,3 +362,77 @@ def write_scannet_fixture(root, scene: str = "scene0707_00", n_frames: int = 10,
             raise RuntimeError("write_scannet_fixture: the GT TSDF holds no surface")
         write_ply(osp.join(d, f"{scene}_vh_clean_2.ply"), verts, faces)
     return s
+
+
+def seeded_clip_state_dict(seed: int = 0, width: int = 768, layers: int = 12, patch: int = 16,
+                           image: int = 224, text_width: int = 512, text_layers: int = 12,
+                           embed: int = 512, vocab: int = 49408, ctx: int = 77
+                           ) -> Dict[str, np.ndarray]:
+    """A seeded state dict in the published OpenAI CLIP ViT key layout
+    (ViT-B/16 by default), float32 numpy, for ``import_clip``: LayerNorm
+    scales near 1, projections scaled by 1/sqrt(fan-in)."""
+    rs = np.random.RandomState(seed)
+    sd: Dict[str, np.ndarray] = {}
+
+    def lin(o, i):
+        return (rs.randn(o, i) / np.sqrt(i)).astype(np.float32)
+
+    def vec(n, s=0.02):
+        return (rs.randn(n) * s).astype(np.float32)
+
+    def blocks(prefix, d, n):
+        for i in range(n):
+            p = f"{prefix}transformer.resblocks.{i}"
+            sd[f"{p}.ln_1.weight"], sd[f"{p}.ln_1.bias"] = 1 + vec(d), vec(d)
+            sd[f"{p}.attn.in_proj_weight"], sd[f"{p}.attn.in_proj_bias"] = lin(3 * d, d), vec(3 * d)
+            sd[f"{p}.attn.out_proj.weight"], sd[f"{p}.attn.out_proj.bias"] = lin(d, d), vec(d)
+            sd[f"{p}.ln_2.weight"], sd[f"{p}.ln_2.bias"] = 1 + vec(d), vec(d)
+            sd[f"{p}.mlp.c_fc.weight"], sd[f"{p}.mlp.c_fc.bias"] = lin(4 * d, d), vec(4 * d)
+            sd[f"{p}.mlp.c_proj.weight"], sd[f"{p}.mlp.c_proj.bias"] = lin(d, 4 * d), vec(d)
+
+    sd["visual.conv1.weight"] = (rs.randn(width, 3, patch, patch)
+                                 / np.sqrt(3 * patch * patch)).astype(np.float32)
+    sd["visual.class_embedding"] = vec(width)
+    sd["visual.positional_embedding"] = (rs.randn((image // patch) ** 2 + 1, width)
+                                         * 0.02).astype(np.float32)
+    sd["visual.ln_pre.weight"], sd["visual.ln_pre.bias"] = 1 + vec(width), vec(width)
+    blocks("visual.", width, layers)
+    sd["visual.ln_post.weight"], sd["visual.ln_post.bias"] = 1 + vec(width), vec(width)
+    sd["visual.proj"] = lin(embed, width).T.copy()
+    sd["token_embedding.weight"] = (rs.randn(vocab, text_width) * 0.02).astype(np.float32)
+    sd["positional_embedding"] = (rs.randn(ctx, text_width) * 0.01).astype(np.float32)
+    blocks("", text_width, text_layers)
+    sd["ln_final.weight"], sd["ln_final.bias"] = 1 + vec(text_width), vec(text_width)
+    sd["text_projection"] = lin(embed, text_width).T.copy()
+    sd["logit_scale"] = np.array(np.log(100.0), np.float32)
+    return sd
+
+
+def seeded_dino_state_dict(seed: int = 0, dim: int = 384, depth: int = 12, patch: int = 8,
+                           grid: int = 28) -> Dict[str, np.ndarray]:
+    """A seeded state dict in facebookresearch/dino's ViT key layout (ViT-S/8
+    by default), float32 numpy, for ``import_dino``."""
+    rs = np.random.RandomState(seed)
+    sd: Dict[str, np.ndarray] = {}
+
+    def lin(o, i):
+        return (rs.randn(o, i) / np.sqrt(i)).astype(np.float32)
+
+    def vec(n, s=0.02):
+        return (rs.randn(n) * s).astype(np.float32)
+
+    sd["cls_token"] = (rs.randn(1, 1, dim) * 0.02).astype(np.float32)
+    sd["pos_embed"] = (rs.randn(1, grid * grid + 1, dim) * 0.02).astype(np.float32)
+    sd["patch_embed.proj.weight"] = (rs.randn(dim, 3, patch, patch)
+                                     / np.sqrt(3 * patch * patch)).astype(np.float32)
+    sd["patch_embed.proj.bias"] = vec(dim)
+    for i in range(depth):
+        p = f"blocks.{i}"
+        sd[f"{p}.norm1.weight"], sd[f"{p}.norm1.bias"] = 1 + vec(dim), vec(dim)
+        sd[f"{p}.attn.qkv.weight"], sd[f"{p}.attn.qkv.bias"] = lin(3 * dim, dim), vec(3 * dim)
+        sd[f"{p}.attn.proj.weight"], sd[f"{p}.attn.proj.bias"] = lin(dim, dim), vec(dim)
+        sd[f"{p}.norm2.weight"], sd[f"{p}.norm2.bias"] = 1 + vec(dim), vec(dim)
+        sd[f"{p}.mlp.fc1.weight"], sd[f"{p}.mlp.fc1.bias"] = lin(4 * dim, dim), vec(4 * dim)
+        sd[f"{p}.mlp.fc2.weight"], sd[f"{p}.mlp.fc2.bias"] = lin(dim, 4 * dim), vec(dim)
+    sd["norm.weight"], sd["norm.bias"] = 1 + vec(dim), vec(dim)
+    return sd

@@ -202,6 +202,26 @@ class LayerNorm(nn.Module):
         return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
 
 
+class Embed(nn.Module):
+    """``flax.linen.Embed``: ``embedding`` (vocab, dim), its flax leaf of the
+    same name carried as it is; rows gathered by advanced indexing."""
+
+    FLAX_LEAVES = {"embedding": ("embedding", "plain")}
+
+    def __init__(self, num_embeddings: int, features: int):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.empty(num_embeddings, features))
+
+    def init_raw(self, gen: torch.Generator) -> None:
+        """flax's default: normal with variance 1 / features."""
+        with torch.no_grad():
+            self.embedding.copy_(torch.randn(self.embedding.shape, generator=gen)
+                                 / math.sqrt(self.embedding.shape[1]))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.embedding[ids.long()]
+
+
 class DenseGeneral(nn.Module):
     """``flax.linen.DenseGeneral`` from the trailing ``in_shape`` axes to
     ``out_shape``.  ``kernel`` (*in_shape, *out_shape) and ``bias``
@@ -294,8 +314,10 @@ def init_flax_defaults(module: nn.Module, gen: torch.Generator) -> None:
     """Initialise every layer below ``module`` as flax would by default.
 
     The draws differ from flax's (another generator); the distributions are
-    the same: lecun-normal kernels, zero biases, norm scale 1 and bias 0.
-    Layers are visited in registration order, so a seed fixes the weights.
+    the same: lecun-normal kernels, zero biases, norm scale 1 and bias 0,
+    and a module's raw leaves by its own ``init_raw(gen)`` (hash tables,
+    embeddings, tokens).  Layers are visited in registration order, so a
+    seed fixes the weights.
     """
     for m in module.modules():
         if isinstance(m, (Conv, ConvTranspose, Dense)):
@@ -314,3 +336,5 @@ def init_flax_defaults(module: nn.Module, gen: torch.Generator) -> None:
             with torch.no_grad():
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+        if hasattr(m, "init_raw"):
+            m.init_raw(gen)

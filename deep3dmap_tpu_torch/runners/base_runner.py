@@ -137,9 +137,18 @@ class BaseRunner:
                                                  iters_per_epoch, dict(type="Adam", lr=1e-3))
         net, model_state = self.framework.init(self.seed, sample_batch)
         self.state = TrainState(net=net, model_state=model_state,
-                                optimizer=make_optimizer(net.parameters()))
+                                optimizer=make_optimizer(net.parameters()),
+                                rng=self.step_generator()
+                                if hasattr(self.framework, "draws") else None)
         self._log_init(net)
         return self.state
+
+    def step_generator(self) -> torch.Generator:
+        """The generator of the steps' random draws (JAX's
+        ``TrainState.rng``): on the framework's device, seeded with the
+        runner's seed.  ``setup`` makes one for a framework that draws in
+        its step (it has ``draws``)."""
+        return torch.Generator(device=self.framework.device).manual_seed(self.seed)
 
     def _optimizer_factory(self, optimizer: Optional[dict], lr_config: Optional[dict],
                            optimizer_config: Optional[dict], iters_per_epoch: int,

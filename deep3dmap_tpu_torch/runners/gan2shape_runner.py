@@ -93,7 +93,7 @@ class Gan2ShapeRunner(BaseRunner):
             net=net, model_state=model_state,
             optimizer={name: make_optimizer(getattr(net, name).parameters())
                        for name in fw.network_names},
-            rng=torch.Generator(device=fw.device).manual_seed(self.seed))
+            rng=self.step_generator())
         self._init_params = {n: p.detach().clone() for n, p in net.named_parameters()}
         self._log_init(net)
         return net, model_state

@@ -1,13 +1,13 @@
-"""The optimizer NeuralRecon's configs use: Adam after a global-norm clip,
-with the ``step`` lr policy.
+"""The optimizer the ported configs use: Adam after a global-norm clip,
+with the ``step`` or the ``cosineannealing`` lr policy.
 
 The subset of ``deep3dmap_tpu/runners/optim.py::build_optimizer`` (:270-316)
 that ``configs/neural_recon/`` asks for: ``dict(type="Adam", lr, betas, eps,
 weight_decay=0)`` with ``grad_clip=dict(max_norm)``, i.e.
 ``optax.chain(optax.clip_by_global_norm(max_norm), optax.adam(lr, b1, b2,
-eps))``, and ``build_lr_schedule`` (:49-78) for ``policy="step"``.  Every
-other optimizer, option, policy or paramwise setting raises
-``NotImplementedError``.
+eps))``, and ``build_lr_schedule`` (:49-100) for ``policy="step"`` and
+``"cosineannealing"`` (alias ``"cosine"``).  Every other optimizer, option,
+policy or paramwise setting raises ``NotImplementedError``.
 
 TRAP: ``torch.nn.utils.clip_grad_norm_`` scales by ``max_norm / (norm +
 1e-6)`` whenever it is called; optax scales by ``max_norm / norm`` only when
@@ -43,7 +43,8 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor], norm: torch.Tensor,
     torch._foreach_mul_(list(grads), torch.where(keep, one, one * max_norm))
 
 
-# the JAX package's policies (runners/optim.py:49-160); only "step" is ported
+# the JAX package's policies (runners/optim.py:49-160); "step" and the cosine
+# ones are ported
 _POLICIES = ("fixed", "step", "exp", "poly", "inv", "cosineannealing", "cosine",
              "flatcosineannealing", "cosinerestart", "cyclic", "onecycle")
 
@@ -54,17 +55,23 @@ def build_lr_schedule(policy: str, base_lr: float, total_iters: int,
                       warmup_ratio: float = 0.1, **kwargs) -> Callable[[int], float]:
     """An iteration -> lr schedule, JAX's ``build_lr_schedule`` for
     ``policy="step"``: ``base_lr * gamma ** (number of bounds <= step)``,
-    floored at ``min_lr``, with the bounds in epochs when ``by_epoch``.
-    ``step`` is a list of bounds or an int period.  Computed in float32 as
-    JAX computes it, so the values are JAX's bit for bit."""
+    floored at ``min_lr``, with the bounds in epochs when ``by_epoch``;
+    ``step`` is a list of bounds or an int period.  ``"cosineannealing"``
+    (or ``"cosine"``): ``tgt + (base_lr - tgt) * (1 + cos(pi * frac)) / 2``
+    with ``frac = min(step / total_iters, 1)`` and ``tgt`` = ``min_lr``
+    (default 0) or ``base_lr * min_lr_ratio``.  Computed in float32 as JAX
+    computes it: the step policy's values are JAX's bit for bit, the cosine's
+    within an ulp of its cosine (XLA's float32 ``cos`` is its own)."""
     del warmup_ratio
     policy = policy.lower()
     if policy not in _POLICIES:
         raise ValueError(f"Unknown lr policy: {policy}")
-    if policy != "step":
+    if policy not in ("step", "cosineannealing", "cosine"):
         raise NotImplementedError(f"lr policy {policy!r} {_LATER}")
     if warmup is not None and warmup_iters > 0:
         raise NotImplementedError(f"lr warmup {warmup!r} {_LATER}")
+    if policy != "step":
+        return _cosine(base_lr, total_iters, **kwargs)
     e = iters_per_epoch if by_epoch else 1
     steps = kwargs.pop("step")
     gamma = np.float32(kwargs.pop("gamma", 0.1))
@@ -83,6 +90,18 @@ def build_lr_schedule(policy: str, base_lr: float, total_iters: int,
         if min_lr is not None:
             lr = np.maximum(lr, np.float32(min_lr))
         return float(lr)
+    return sched
+
+
+def _cosine(base_lr: float, total_iters: int, min_lr: float = 0.0,
+            min_lr_ratio: Optional[float] = None) -> Callable[[int], float]:
+    f = np.float32
+    tgt = f(base_lr * min_lr_ratio if min_lr_ratio is not None else min_lr)
+    half = f(0.5) * (f(base_lr) - tgt)
+
+    def sched(step: int) -> float:
+        frac = np.minimum(f(step) / f(total_iters), f(1.0))
+        return float(tgt + half * (f(1.0) + np.cos(f(np.pi) * frac)))
     return sched
 
 

@@ -87,7 +87,7 @@ class StateMachineRunner(BaseRunner):
         net, model_state = self.framework.init(self.seed, sample_batch)
         self.state = TrainState(net=net, model_state=model_state, optimizer={
             name: make_optimizer(m.parameters()) for name, m in self.collections(net).items()},
-            rng=torch.Generator(device=self.framework.device).manual_seed(self.seed))
+            rng=self.step_generator())
         self._log_init(net)
         return self.state
 

@@ -43,10 +43,12 @@ def init_train_state(framework, seed: int, batch, optimizer_cfg: dict,
 def train_step(framework, state: TrainState, batch
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One step.  Returns the new state and the log: the per-level losses,
-    ``loss`` and ``grad_norm`` (before clipping), as device tensors."""
+    ``loss`` and ``grad_norm`` (before clipping), as device tensors.  A state
+    with a generator hands it to ``loss_fn`` as ``rng``."""
     opt = state.optimizer
     opt.zero_grad()
-    loss, aux = framework.loss_fn(state.net, state.model_state, batch)
+    kw = {} if state.rng is None else {"rng": state.rng}
+    loss, aux = framework.loss_fn(state.net, state.model_state, batch, **kw)
     loss.backward()
     grad_norm = opt.step()
     log_vars = {k: v.detach() for k, v in aux["log_vars"].items()}

@@ -17,7 +17,9 @@ model when ``use_mask`` is set) or ``StateMachineRunner`` (imgs2mesh,
 ``MultiPIEFaceTupleDataset``, the state switching by epoch; GNeRF,
 ``configs/gnerf/``: ``GanNerf`` on ``SyntheticNerfDataset``,
 ``BlenderDataset`` or ``DTUDataset`` through the states ``A``, ``ABAB``,
-``B``, sized by ``need_info_from_datasets``).  A config's
+``B``, sized by ``need_info_from_datasets``) or ``IterBasedRunner`` (LERF,
+``configs/lerf/``: ``LERFModel`` on ``LERFRayDataset``, a fixed
+``runner_cfgs.max_iters``, raised with ``--cfg-options`` to resume further).  A config's
 ``evaluation`` is ignored, as the JAX CLI ignores it.  One card: there is no
 ``--launcher jax`` (multi-GPU is ROADMAP.md Queue 1).
 """

@@ -13,7 +13,9 @@ state dicts into flax trees), kept as the port's own copy:
     flip it; ``torch.conv_transpose2d`` does)
   GroupNorm / BlockGN / LayerNorm scale -> weight; every bias -> bias
   DenseGeneral kernel and bias (the attention's query/key/value/out), raw
-    leaves (``cls``, ``pos_embed``, ``poses_embed``): as they are
+    leaves (``cls``, ``pos_embed``, ``poses_embed``, the hash grids'
+    ``tables``, ``Embed``'s ``embedding``, CLIP's and DINO's class and
+    position embeddings and projections): as they are
 
 The port names its submodules after flax's auto-names (``Conv_0``,
 ``GroupNorm_0``, ``BlockConvBlock3D_1``, ``unet2``, ``gru1.convzr``, ...), so
@@ -171,7 +173,8 @@ def load_jax_checkpoint(raw: Mapping, state):
     generator and discriminator) take JAX's trees of the same key; the
     tensors take the remaining leaves in tree order (GNeRF's ``it`` and its
     spectral-norm ``u``/``sigma``, kept in JAX's ``batch_stats`` layout).
-    GNeRF's checkpoint holds five Adam chains, one per collection.  The step generator, if
+    GNeRF's checkpoint holds five Adam chains, one per collection; LERF's one
+    (clip, Adam and the cosine schedule) over its three collections.  The step generator, if
     any, is the port's own: JAX's key does not carry across."""
     import dataclasses
 

@@ -1,0 +1,188 @@
+"""Torch checkpoints -> the flax ``.npz`` layouts LERF's encoders read (port
+of ``deep3dmap_tpu/utils/torch_import.py:284-436``): ``import_clip`` for
+OpenAI/OpenCLIP ViT CLIP and ``import_dino`` for DINO ViTs, with the
+shape-sniffing that recovers their configs.  A user imports weights with no
+JAX installed (``tools/import_weights.py clip|dino``), and the files are the
+JAX tool's key for key.
+
+Conventions (as the JAX importers'):
+
+  torch conv weight   (O, I, kH, kW) -> flax (kH, kW, I, O)
+  torch linear weight (O, I)         -> flax (I, O)
+
+Each tree is checked against the port's module of the recovered config (on
+the ``meta`` device, no memory): a leaf missing, extra or of another shape
+raises, as the JAX importers' ``fill_like`` does.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+
+def to_numpy(t) -> np.ndarray:
+    """A torch tensor or array-like -> float32 numpy."""
+    if hasattr(t, "detach"):
+        t = t.detach().cpu().numpy()
+    return np.asarray(t, np.float32)
+
+
+def conv_kernel(t) -> np.ndarray:
+    """(O, I, kH, kW) -> (kH, kW, I, O)."""
+    return np.transpose(to_numpy(t), (2, 3, 1, 0))
+
+
+def linear_kernel(t) -> np.ndarray:
+    """(O, I) -> (I, O)."""
+    return to_numpy(t).T
+
+
+def _strip_module(sd: Mapping) -> Dict:
+    return {(k[7:] if k.startswith("module.") else k): v for k, v in sd.items()}
+
+
+def _nest(flat: Dict[str, np.ndarray]) -> Dict:
+    """{'a/b/c': x} -> {'params': {'a': {'b': {'c': x}}}}, float32 arrays."""
+    tree: Dict = {}
+    for key, v in flat.items():
+        node = tree
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = np.ascontiguousarray(v, np.float32)
+    return {"params": tree}
+
+
+def _checked(module_cls, cfg: dict, tree: Dict) -> Dict:
+    from .from_flax import _torch_layout
+
+    with torch.device("meta"):
+        module = module_cls(**cfg)
+    _torch_layout(module, tree)     # raises on a missing, extra or misshapen leaf
+    return tree
+
+
+def clip_cfg_from_state_dict(sd: Mapping) -> Tuple[dict, dict]:
+    """(vision_cfg, text_cfg) of a CLIP ViT state dict, sniffed from its
+    shapes as the reference's ``build_model`` does."""
+    vw = sd["visual.conv1.weight"].shape
+    vision_width, patch = int(vw[0]), int(vw[-1])
+    vision_layers = len({k.split(".")[3] for k in sd
+                         if k.startswith("visual.transformer.resblocks.")})
+    grid = int(round(math.sqrt(sd["visual.positional_embedding"].shape[0] - 1)))
+    embed_dim = int(sd["text_projection"].shape[1])
+    text_width = int(sd["ln_final.weight"].shape[0])
+    text_layers = len({k.split(".")[2] for k in sd if k.startswith("transformer.resblocks.")})
+    vision_cfg = dict(patch=patch, width=vision_width, layers=vision_layers,
+                      heads=max(vision_width // 64, 1), embed_dim=embed_dim,
+                      image_size=patch * grid)
+    text_cfg = dict(vocab_size=int(sd["token_embedding.weight"].shape[0]),
+                    ctx_len=int(sd["positional_embedding"].shape[0]),
+                    width=text_width, layers=text_layers,
+                    heads=max(text_width // 64, 1), embed_dim=embed_dim)
+    return vision_cfg, text_cfg
+
+
+def _clip_blocks(sd: Mapping, prefix: str, layers: int, out: Dict[str, np.ndarray]) -> None:
+    for i in range(layers):
+        src, dst = f"{prefix}transformer.resblocks.{i}", f"resblock{i}"
+        out[f"{dst}/ln_1/scale"] = to_numpy(sd[f"{src}.ln_1.weight"])
+        out[f"{dst}/ln_1/bias"] = to_numpy(sd[f"{src}.ln_1.bias"])
+        out[f"{dst}/attn/in_proj/kernel"] = linear_kernel(sd[f"{src}.attn.in_proj_weight"])
+        out[f"{dst}/attn/in_proj/bias"] = to_numpy(sd[f"{src}.attn.in_proj_bias"])
+        out[f"{dst}/attn/out_proj/kernel"] = linear_kernel(sd[f"{src}.attn.out_proj.weight"])
+        out[f"{dst}/attn/out_proj/bias"] = to_numpy(sd[f"{src}.attn.out_proj.bias"])
+        out[f"{dst}/ln_2/scale"] = to_numpy(sd[f"{src}.ln_2.weight"])
+        out[f"{dst}/ln_2/bias"] = to_numpy(sd[f"{src}.ln_2.bias"])
+        out[f"{dst}/mlp_c_fc/kernel"] = linear_kernel(sd[f"{src}.mlp.c_fc.weight"])
+        out[f"{dst}/mlp_c_fc/bias"] = to_numpy(sd[f"{src}.mlp.c_fc.bias"])
+        out[f"{dst}/mlp_c_proj/kernel"] = linear_kernel(sd[f"{src}.mlp.c_proj.weight"])
+        out[f"{dst}/mlp_c_proj/bias"] = to_numpy(sd[f"{src}.mlp.c_proj.bias"])
+
+
+def import_clip(sd: Mapping):
+    """OpenAI/OpenCLIP ViT CLIP state dict -> (vision_cfg, text_cfg,
+    vision_params, text_params, logit_scale) for ``CLIPViT``."""
+    from ..models.modulars.clip_vit import TextTransformer, VisionTransformer
+
+    sd = _strip_module(sd)
+    vision_cfg, text_cfg = clip_cfg_from_state_dict(sd)
+    v: Dict[str, np.ndarray] = {
+        "class_embedding": to_numpy(sd["visual.class_embedding"]),
+        "positional_embedding": to_numpy(sd["visual.positional_embedding"]),
+        "conv1/kernel": conv_kernel(sd["visual.conv1.weight"]),
+        "ln_pre/scale": to_numpy(sd["visual.ln_pre.weight"]),
+        "ln_pre/bias": to_numpy(sd["visual.ln_pre.bias"])}
+    _clip_blocks(sd, "visual.", vision_cfg["layers"], v)
+    v["ln_post/scale"] = to_numpy(sd["visual.ln_post.weight"])
+    v["ln_post/bias"] = to_numpy(sd["visual.ln_post.bias"])
+    v["proj"] = to_numpy(sd["visual.proj"])      # stored (width, embed) already
+    t: Dict[str, np.ndarray] = {
+        "token_embedding/embedding": to_numpy(sd["token_embedding.weight"]),
+        "positional_embedding": to_numpy(sd["positional_embedding"])}
+    _clip_blocks(sd, "", text_cfg["layers"], t)
+    t["ln_final/scale"] = to_numpy(sd["ln_final.weight"])
+    t["ln_final/bias"] = to_numpy(sd["ln_final.bias"])
+    t["text_projection"] = to_numpy(sd["text_projection"])
+    vision = _checked(VisionTransformer, vision_cfg, _nest(v))
+    text = _checked(TextTransformer, text_cfg, _nest(t))
+    logit_scale = (float(np.exp(to_numpy(sd["logit_scale"]))) if "logit_scale" in sd
+                   else 100.0)
+    return vision_cfg, text_cfg, vision, text, logit_scale
+
+
+def dino_cfg_from_state_dict(sd: Mapping) -> Dict[str, int]:
+    """(patch_size, dim, depth, heads, mlp_ratio, base_grid) of a DINO ViT
+    state dict (facebookresearch/dino's layout)."""
+    w = np.asarray(sd["patch_embed.proj.weight"].shape)     # (D, 3, p, p)
+    dim, patch = int(w[0]), int(w[2])
+    depth = 1 + max(int(k.split(".")[1]) for k in sd if k.startswith("blocks."))
+    n_pos = int(sd["pos_embed"].shape[1]) - 1
+    heads = {384: 6, 768: 12, 192: 3, 1024: 16}[dim]
+    return dict(patch_size=patch, dim=dim, depth=depth, heads=heads, mlp_ratio=4,
+                base_grid=int(round(n_pos ** 0.5)))
+
+
+def import_dino(sd: Mapping):
+    """DINO ViT checkpoint (dino_vits8/vits16/vitb8/vitb16) -> (cfg, params)
+    for ``DinoViT``; head weights are dropped (the extractor reads backbone
+    facets only)."""
+    from ..models.modulars.dino_vit import DinoViT
+
+    sd = {k: v for k, v in _strip_module(sd).items() if not k.startswith("head.")}
+    cfg = dino_cfg_from_state_dict(sd)
+    flat: Dict[str, np.ndarray] = {
+        "cls_token": to_numpy(sd["cls_token"]), "pos_embed": to_numpy(sd["pos_embed"]),
+        "patch_embed/kernel": conv_kernel(sd["patch_embed.proj.weight"]),
+        "patch_embed/bias": to_numpy(sd["patch_embed.proj.bias"])}
+    for i in range(cfg["depth"]):
+        src, dst = f"blocks.{i}", f"block{i}"
+        for a, b in (("norm1", "norm1"), ("norm2", "norm2")):
+            flat[f"{dst}/{b}/scale"] = to_numpy(sd[f"{src}.{a}.weight"])
+            flat[f"{dst}/{b}/bias"] = to_numpy(sd[f"{src}.{a}.bias"])
+        for a, b in (("attn.qkv", "qkv"), ("attn.proj", "proj"), ("mlp.fc1", "fc1"),
+                     ("mlp.fc2", "fc2")):
+            flat[f"{dst}/{b}/kernel"] = linear_kernel(sd[f"{src}.{a}.weight"])
+            flat[f"{dst}/{b}/bias"] = to_numpy(sd[f"{src}.{a}.bias"])
+    flat["norm/scale"] = to_numpy(sd["norm.weight"])
+    flat["norm/bias"] = to_numpy(sd["norm.bias"])
+    return cfg, _checked(DinoViT, cfg, _nest(flat))
+
+
+def import_npz_entries(kind: str, sd: Mapping) -> Dict[str, np.ndarray]:
+    """The ``.npz`` entries of ``tools/import_weights.py`` for ``kind``:
+    ``clip`` -> ``vision``, ``text`` (flax trees) and ``meta`` (the configs,
+    the logit scale); ``dino`` -> ``params`` and ``meta`` (the config)."""
+    sd = {k: to_numpy(v) for k, v in sd.items() if hasattr(v, "shape")}
+    if kind == "clip":
+        vision_cfg, text_cfg, vision, text, logit_scale = import_clip(sd)
+        return {"vision": np.array(vision, dtype=object), "text": np.array(text, dtype=object),
+                "meta": np.array(dict(vision_cfg=vision_cfg, text_cfg=text_cfg,
+                                      logit_scale=logit_scale), dtype=object)}
+    if kind == "dino":
+        cfg, params = import_dino(sd)
+        return {"params": np.array(params, dtype=object), "meta": np.array(cfg, dtype=object)}
+    raise ValueError(f"unknown import kind {kind!r} (clip, dino)")

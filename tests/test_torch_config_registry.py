@@ -104,7 +104,7 @@ def test_lr_policies_raise():
     with pytest.raises(ValueError, match="Unknown lr policy"):
         jax_build_lr_schedule("bogus", 1e-3, 10)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_lr_schedule("cosine", 1e-3, 10)
+        build_lr_schedule("poly", 1e-3, 10)
 
 
 def test_registries_build_by_name(tmp_path):

@@ -290,3 +290,49 @@ def test_gnerf_entry_points_raise_without_gpu(tmp_path):
     for cli in (train_cli, test_cli):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli.main([config, "--work-dir", str(tmp_path / "wd")])
+
+
+def test_lerf_entry_points_raise_without_gpu(tmp_path):
+    """``LERFModel``, ``LERFRayDataset``, ``CLIPEncoder``, ``CLIPViT`` and
+    ``DinoExtractor`` default to CUDA; with ``device="cpu"`` their tensors
+    stay on the CPU; ``IterBasedRunner`` through both CLIs on
+    ``configs/lerf/lerf_synthetic.py`` raises without ``--device cpu``.  The
+    import rule above walks these modules too."""
+    _no_gpu()
+    from deep3dmap_tpu_torch.datasets.lerf_rays import LERFRayDataset
+    from deep3dmap_tpu_torch.models.frameworks.lerf import LERFModel
+    from deep3dmap_tpu_torch.models.modulars.clip_encoder import CLIPEncoder
+    from deep3dmap_tpu_torch.models.modulars.clip_vit import CLIPViT
+    from deep3dmap_tpu_torch.models.modulars.dino_vit import DinoExtractor
+    from deep3dmap_tpu_torch.tools import test as test_cli
+    from deep3dmap_tpu_torch.tools import train as train_cli
+
+    new = {os.path.relpath(f, ROOT) for f in _port_files()}
+    assert {os.path.join("deep3dmap_tpu_torch", p) for p in (
+        "models/frameworks/lerf.py", "datasets/lerf_rays.py", "runners/iter_based_runner.py",
+        "models/modulars/hashgrid.py", "models/modulars/dino_vit.py",
+        "utils/torch_import.py", "tools/import_weights.py")} <= new
+    cfg = dict(clip_n_dims=16, dino_n_dims=8, N_samples=4, N_importance=4, num_lerf_samples=2,
+               fc_depth=1, fc_dim=8, grid_layers=(1, 1), grid_sizes=(6, 6), hidden=8)
+    vision = dict(patch=8, width=16, layers=1, heads=1, embed_dim=8, image_size=16)
+    text = dict(vocab_size=32, ctx_len=8, width=16, layers=1, heads=1, embed_dim=8)
+    rays = dict(rays_per_batch=8, n_batches=1, clip_n_dims=16, dino_n_dims=8,
+                image_dataset=dict(type="SyntheticNerfDataset", n_images=1, img_wh=(16, 16)))
+    for make in (lambda **kw: LERFModel(cfg, **kw), lambda **kw: CLIPEncoder(16, **kw),
+                 lambda **kw: CLIPViT(vision, text, **kw),
+                 lambda **kw: DinoExtractor(cfg=dict(dim=8, heads=1, depth=1), **kw),
+                 lambda **kw: LERFRayDataset(**rays, **kw)):
+        for kw in ({}, {"device": "cuda"}):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make(**kw)
+    fw = LERFModel(cfg, device="cpu")
+    assert fw.image_encoder.neg_embeds.device == torch.device("cpu")
+    ds = LERFRayDataset(**rays, image_encoder=fw.image_encoder, device="cpu")
+    batch = next(iter(ds))
+    assert all(isinstance(v, np.ndarray) for v in batch.values())
+    net, _ = fw.init(0, batch)
+    assert {p.device.type for p in net.parameters()} == {"cpu"}
+    config = os.path.join(ROOT, "configs", "lerf", "lerf_synthetic.py")
+    for cli in (train_cli, test_cli):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main([config, "--work-dir", str(tmp_path / "wd")])
