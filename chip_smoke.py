@@ -99,9 +99,14 @@ Phases; any error ends the run with a nonzero exit and no result line:
    sample, 3 + 1 loss launches per step, peak memory, no host sync in a
    step that does not log, the checkpoint), then ``tools/test.py`` on that
    checkpoint with ``evaluate`` (the host C++ op built and used).
-15. learning check: ``tools/quality_regression.py``'s config and fixture
-   through both CLIs at its 120 epochs; the trained model must beat the
-   untrained one by its condition (F-score + 0.05, AbsRel lower).
+15. learning check: the port's quality twin
+   (``deep3dmap_tpu_torch/tools/quality_regression.py``: the JAX tool's
+   template, fixture and both arms, FUSION_ON True and False) at 80
+   epochs each (the tool's default 120); the trained fusion model must beat
+   the untrained one by its
+   condition (F-score + 0.05, AbsRel lower, an untrained NaN AbsRel
+   worse than any finite one); ``fusion_delta_fscore`` beside
+   ``QUALITY_r05.json``'s 0.466.
 16. Gan2Shape through the CLIs at full width: seeded ``stylegan2``,
    ``bisenet`` and PSPNet ``.npz`` files in ``tools/import_weights.py``'s
    layouts and 4 synthetic 128² faces in CelebA's layout (PNG, ``.npy``
@@ -204,9 +209,36 @@ Phases; any error ends the run with a nonzero exit and no result line:
    ``data.test``).  Phase 13 trains LERF's small hash-grid config twice
    too.  No LERF phase launches a kernel of the repo.
 
+25. the training runtime at full width under the supervisor: the
+   ``bench.py`` model with ``BACKBONE2D.CKPT`` pointing at a ``.npz`` that
+   ``tools/import_weights.py mnasnet`` wrote from a seeded torchvision-layout
+   trunk (``NORM="none"``, ``TORCH_PAD``), on phase 14's fixture through
+   ``tools/run_elastic.py``: ``RepeatDataset(times=2)``, a val split with
+   ``workflow=[("train", 1), ("val", 1)]``, AdamW with ``paramwise_cfg``
+   (norm and bias decay 0), ``poly`` with a linear warmup, the clip and
+   ``cumulative_iters=2``, ``EMAHook``, ``EvalHook(save_best="loss")`` and a
+   ``ClosureHook`` that raises once in the middle of epoch 2; 3 epochs.
+   Exit 0 after exactly one restart, "Resumed from" in the log, the
+   heartbeat at epoch 3, ``best/`` written, the grafted trunk equal to the
+   ``.npz`` before the first step, 3 + 1 loss launches per micro-step,
+   every loss finite; the runner's micro-step (median, max), the restart's
+   wall time and the peak bytes.  A probe hook in the config writes each
+   child's numbers to a JSON-lines file (its launch counters are its own
+   process's).
+26. the streaming demo at full width: two training steps of the demo's
+   own model (the JAX demo's dense config at 96³; phase 25's checkpoint
+   has the import-mode trunk and does not load into it, the reason is
+   printed), then ``demos/demo_neucon.py --scannet`` on phase 14's fixture
+   (9 views at 640x480, preview every fragment) and on synthetic
+   fragments without the preview, from that checkpoint: meshes and PNGs
+   written and non-empty, ``forward_test`` under
+   ``set_sync_debug_mode("error")`` (the per-fragment host copy outside
+   it), keyframes/s of both runs.
+
 The raster's launches in the kernels line are phases 7's, 12's and 16's
 main paths together; the fused loss's are phase 4's (forward) or phase 10's
-(backward) and phase 14's.  The backward's ms, plain_ms and bound_ms are per
+(backward), phase 14's, phase 25's (both attempts, train and val) and
+phase 26's two training steps.  The backward's ms, plain_ms and bound_ms are per
 train step on phase 10's own inputs: its one launch over the three levels.
 Before the last line it prints one
 ``{"kernels": [...]}`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -2113,52 +2145,40 @@ def phase_cli_full_width(fused_loss, train_mod, card, work, bare_step_ms, tools,
 
 
 # ---------------------------------------------------------------- phase 15 --
-# tools/quality_regression.py:40-94's model and pipeline, its fixture scene
-# (write_scannet_fixture, 10 frames at 48x64, 5-view fragments) and its
-# condition (:171-172); the port's fixture stores the colour frames as PNG
-QUALITY_CFGS = dict(N_LAYER=3, N_VOX=[24, 24, 24], VOXEL_SIZE=0.08,
-                    TRAIN_NUM_SAMPLE=[512, 2048, 8192],
-                    BACKBONE2D=dict(ARC="fpn-mnas-0.5", INFER_MODE="batch"),
-                    FUSION=dict(FUSION_ON=True, FULL=True), LW=[1.0, 0.8, 0.64],
-                    THRESHOLDS=[0, 0, 0], POS_WEIGHT=1.5)
-QUALITY_EPOCHS = 120
+# the port's quality twin (tools/quality_regression.py's template, fixture
+# and pass rule): both arms, FUSION_ON True and False, in this process, at 80
+# epochs each (the JAX tool's default is 120: both arms at 120 took 111.1 s,
+# more than twice the one arm's 40.8-47.3 s this phase took before)
+QUALITY_EPOCHS = 80
 
 
-def phase_learning(card, work, tools, write_fixture):
-    phase(f"learning check: tools/quality_regression.py's config through the CLIs, "
+def phase_learning(card, work, quality_mod):
+    phase(f"learning check: the quality twin (tools/quality_regression.py), both arms, "
           f"{QUALITY_EPOCHS} epochs")
     set_tf32(cudnn=True, matmul=False)
-    root, wd = os.path.join(work, "qdata"), os.path.join(work, "qtrain")
-    _fixture(write_fixture, tools.data_gen_scannet, root, 5, n_frames=10)
-    cfg = os.path.join(work, "cfg_quality.py")
-    with open(cfg, "w") as f:
-        f.write(_cli_config(root, wd, QUALITY_CFGS, 5, (48, 64), 24, 0.08,
-                            epochs=QUALITY_EPOCHS, checkpoint_interval=40, log_interval=20,
-                            lr_config=dict(policy="step", gamma=0.5, step=[60, 90])))
     t0 = time.perf_counter()
-    un = tools.test.main([cfg, "--out", os.path.join(work, "qmeshes_untrained"),
-                          "--eval", "depth_mesh"])
-    runner = tools.train.main([cfg])
-    tr = tools.test.main([cfg, "--out", os.path.join(work, "qmeshes_trained"),
-                          "--eval", "depth_mesh", "--checkpoint", "auto"])
+    try:
+        res = quality_mod.main(["--out", os.path.join(work, "quality.json"),
+                                "--epochs", str(QUALITY_EPOCHS),
+                                "--workdir", os.path.join(work, "quality")])
+    except SystemExit as e:
+        fail(f"the quality twin exited with {e.code}: the trained model does not beat "
+             f"the untrained one")
     took = time.perf_counter() - t0
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "QUALITY_r05.json")) as f:
         ref = json.load(f)
-    # an untrained mesh that covers no GT pixel has no depth metrics (NaN):
-    # it counts as worse than any defined AbsRel
-    absrel_lower = tr["AbsRel"] < un["AbsRel"] or (
-        bool(np.isnan(un["AbsRel"])) and bool(np.isfinite(tr["AbsRel"])))
-    ok = tr["fscore"] > un["fscore"] + 0.05 and absrel_lower
     keys = ("fscore", "prec", "recal", "AbsRel", "complete")
-    print(f"learning: card={card!r} epochs={runner.epoch} steps={runner.state.step} "
-          f"phase_s={took:.3f} "
-          + " ".join(f"trained_{k}={tr[k]!r} untrained_{k}={un[k]!r}" for k in keys)
-          + " | QUALITY_r05.json (the JAX package on the CPU, quality numbers): "
-          + " ".join(f"trained_{k}={ref['trained_fusion'][k]!r} "
-                     f"untrained_{k}={ref['untrained_fusion'][k]!r}" for k in keys)
-          + f" | learns_reconstruction={ok}", flush=True)
-    check(ok, f"the trained model does not beat the untrained one: {tr} vs {un}")
+    arms = ("trained_fusion", "untrained_fusion", "trained_nofusion", "untrained_nofusion")
+    print(f"learning: card={card!r} epochs={res['epochs']} arms=2 phase_s={took:.3f} "
+          + " ".join(f"{arm}_{k}={res[arm][k]!r}" for arm in arms for k in keys)
+          + f" fusion_delta_fscore={res['fusion_delta_fscore']!r} (QUALITY_r05.json: "
+          f"{ref['fusion_delta_fscore']!r}, the JAX package on the CPU) "
+          f"fscore_gain_vs_untrained={res['fscore_gain_vs_untrained']!r} "
+          f"absrel_drop_vs_untrained={res['absrel_drop_vs_untrained']!r} | QUALITY_r05.json: "
+          + " ".join(f"{arm}_{k}={ref[arm][k]!r}" for arm in arms for k in keys)
+          + f" | learns_reconstruction={res['learns_reconstruction']}", flush=True)
+    check(res["learns_reconstruction"], "the trained model does not beat the untrained one")
 
 
 # ---------------------------------------------------------------- phase 16 --
@@ -3708,6 +3728,280 @@ def phase_lerf_cli(card, work, tools, root, ckpts):
           and learn["clip_loss"][1] < learn["clip_loss"][0], f"LERF learning check: {learn}")
 
 
+# ---------------------------------------------------------------- phase 25 --
+# the training runtime at full width under the elastic supervisor: the
+# bench.py model with the grafted MNASNet trunk, phase 14's fixture,
+# RepeatDataset(times=2), AdamW + paramwise, poly with a linear warmup,
+# MultiSteps(2), EMAHook, EvalHook(save_best), one injected crash
+RUNTIME_EPOCHS, RUNTIME_REPEAT, RUNTIME_K = 3, 2, 2
+RUNTIME_CRASH = (1, 3)        # (epoch index, inner iteration): the middle of epoch 2
+
+
+def _runtime_config(root, wd, npz, probe, marker):
+    """The phase's config file: a probe hook and the crash as a ClosureHook
+    are defined in it (the child registers them when it loads the file)."""
+    model_cfgs = dict(BENCH_CFGS, BACKBONE2D=dict(BENCH_CFGS["BACKBONE2D"], NORM="none",
+                                                  TORCH_PAD=True, CKPT=npz))
+    return _cli_config(root, wd, model_cfgs, N_VIEWS, IMG_HW, N_VOX, 0.04,
+                       epochs=RUNTIME_EPOCHS, checkpoint_interval=1,
+                       log_interval=CLI_LOG_INTERVAL) + f"""
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from deep3dmap_tpu_torch.ops import fused_loss
+from deep3dmap_tpu_torch.runners.hooks import HOOKS, Hook
+from deep3dmap_tpu_torch.utils.from_flax import to_flax_params
+
+PROBE, MARKER, NPZ = {probe!r}, {marker!r}, {npz!r}
+FPN_HEAD = ("Conv_3", "Conv_4", "Conv_5", "Conv_6", "Conv_7")
+
+
+def _record(**kw):
+    with open(PROBE, "a") as f:
+        f.write(json.dumps(kw) + "\\n")
+
+
+def _flat(tree, prefix=""):
+    out = {{}}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, prefix + k + "/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+@HOOKS.register_module(force=True)
+class RuntimeProbe(Hook):
+    \"\"\"Per micro-step: synced wall time, fused-loss launches, the loss,
+    the peak bytes; the grafted trunk against the npz before the first
+    step.\"\"\"
+    PRIORITY = 1
+
+    def before_run(self, runner):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec = dict(kind="start", time=time.time(), iter=runner.iter, epoch=runner.epoch)
+        if runner.iter == 0:
+            with np.load(NPZ, allow_pickle=True) as d:
+                want = _flat(d["params"].item()["params"])
+            got = _flat(to_flax_params(runner.state.net.backbone2d.fpn))
+            trunk = [k for k in want if k.split("/")[0] not in FPN_HEAD]
+            rec["graft_leaves"] = len(trunk)
+            rec["graft_max_abs"] = max(float(np.abs(got[k] - want[k]).max()) for k in trunk)
+        _record(**rec)
+
+    def before_train_iter(self, runner):
+        torch.cuda.synchronize()
+        self.t = time.perf_counter()
+        self.l0 = (fused_loss.launches, fused_loss.bwd_launches)
+
+    def after_train_iter(self, runner):
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - self.t) * 1e3
+        _record(kind="step", iter=runner.iter, epoch=runner.epoch, ms=ms,
+                launches=[fused_loss.launches - self.l0[0],
+                          fused_loss.bwd_launches - self.l0[1]],
+                totals=[fused_loss.launches, fused_loss.bwd_launches],
+                loss=float(runner.log_buffer.val_history["loss"][-1]),
+                lr=runner.current_lr(), peak=torch.cuda.max_memory_allocated(),
+                time=time.time())
+
+    def after_val_epoch(self, runner):
+        _record(kind="val", epoch=runner.epoch,
+                totals=[fused_loss.launches, fused_loss.bwd_launches])
+
+
+def _crash_once(runner):
+    if (runner.epoch, runner.inner_iter) == {RUNTIME_CRASH!r} and not os.path.exists(MARKER):
+        open(MARKER, "w").write("x")
+        _record(kind="crash", time=time.time(), iter=runner.iter)
+        raise RuntimeError("injected crash (chip_smoke phase 25)")
+
+
+data["train"] = dict(type="RepeatDataset", times={RUNTIME_REPEAT}, dataset=data["train"])
+data["val"] = dict(data["test"])
+workflow = [("train", 1), ("val", 1)]
+optimizer_config = dict(grad_clip=dict(max_norm=1.0), cumulative_iters={RUNTIME_K})
+lr_config = dict(policy="poly", power=0.9, min_lr=1e-5, by_epoch=False,
+                 warmup="linear", warmup_iters=2, warmup_ratio=0.1)
+runner = dict(type="EpochBasedRunner", runner_cfgs=dict(
+    optimizer=dict(type="AdamW", lr=1e-3, weight_decay=1e-2,
+                   paramwise_cfg=dict(norm_decay_mult=0.0, bias_decay_mult=0.0)),
+    max_epochs={RUNTIME_EPOCHS}))
+custom_hooks = [dict(type="RuntimeProbe"), dict(type="EMAHook", momentum=0.01, warm_up=4),
+                dict(type="EvalHook", interval=1, save_best="loss", rule="less"),
+                dict(type="ClosureHook", fn_name="after_train_iter", fn=_crash_once)]
+"""
+
+
+def phase_runtime(card, work, run_elastic, import_weights, seeded_mnasnet, checkpoint_mod):
+    phase("the training runtime at full width under the supervisor: bench.py model with "
+          "a grafted MNASNet trunk, RepeatDataset, AdamW + paramwise, poly + warmup, "
+          "MultiSteps(2), EMA, EvalHook, one injected crash")
+    set_tf32(cudnn=True, matmul=False)
+    import contextlib
+    import io
+
+    root, wd = os.path.join(work, "data"), os.path.join(work, "runtime")
+    os.makedirs(wd, exist_ok=True)
+    pth, npz = os.path.join(wd, "mnasnet.pth"), os.path.join(wd, "mnasnet_fpn.npz")
+    torch.save({k: torch.from_numpy(np.asarray(v)) for k, v in seeded_mnasnet(seed=0).items()},
+               pth)
+    import_weights.main(["mnasnet", pth, npz])
+    probe, marker, hb = (os.path.join(wd, n) for n in ("probe.jsonl", "crashed", "hb.json"))
+    cfg = os.path.join(wd, "cfg_runtime.py")
+    with open(cfg, "w") as f:
+        f.write(_runtime_config(root, os.path.join(wd, "train"), npz, probe, marker))
+    os.environ["D3M_HEARTBEAT_INTERVAL"] = "2"
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = run_elastic.main(["--max-restarts", "2", "--stall-timeout", "600", "--poll", "0.5",
+                               "--backoff", "0", "--heartbeat-file", hb, "--", cfg])
+    wall = time.perf_counter() - t0
+    sup = out.getvalue()
+    print(sup, end="", flush=True)
+    check(rc == 0, f"run_elastic exited {rc}")
+    check("restart 1/2" in sup and "restart 2/2" not in sup,
+          "the supervisor did not restart exactly once")
+    with open(os.path.join(wd, "train", "train.log")) as f:
+        log = f.read()
+    check("Resumed from" in log, "the restarted trainer did not resume")
+    with open(hb) as f:
+        beat = json.load(f)
+    check(beat["epoch"] == RUNTIME_EPOCHS, f"heartbeat {beat}")
+    best = checkpoint_mod.latest_checkpoint(os.path.join(wd, "train", "best"))
+    check(best is not None, "EvalHook wrote no best/ checkpoint")
+    with open(probe) as f:
+        recs = [json.loads(line) for line in f]
+    starts = [r for r in recs if r["kind"] == "start"]
+    steps = [r for r in recs if r["kind"] == "step"]
+    crash = [r for r in recs if r["kind"] == "crash"]
+    check(len(starts) == 2 and len(crash) == 1, f"{len(starts)} starts, {len(crash)} crashes")
+    check(starts[0].get("graft_max_abs") == 0.0 and starts[0]["graft_leaves"] > 0,
+          f"the grafted trunk differs from the npz: {starts[0]}")
+    per_epoch = RUNTIME_REPEAT * (CLI_FRAMES // N_VIEWS)
+    crash_iter = crash[0]["iter"]
+    # the crashed attempt ran to the crash; the resumed one from epoch 2's start
+    check(len(steps) == crash_iter + 1 + (RUNTIME_EPOCHS - 1) * per_epoch,
+          f"{len(steps)} micro-steps recorded")
+    check(all(r["launches"] == [3, 1] for r in steps),
+          f"fused loss launches per micro-step {[r['launches'] for r in steps]}")
+    check(all(np.isfinite(r["loss"]) for r in steps), "a loss is not finite")
+    resumed = next(i for i, r in enumerate(steps) if i > 0 and r["iter"] <= steps[i - 1]["iter"])
+    ends, attempt = {}, 0
+    for r in recs:      # each attempt's counters are its own process's
+        attempt += r["kind"] == "start"
+        if "totals" in r:
+            ends[attempt] = r["totals"]
+    launches = tuple(sum(t[j] for t in ends.values()) for j in range(2))
+    ms = [r["ms"] for r in steps]
+    print(f"runtime: card={card!r} supervisor_wall_s={wall:.3f} restarts=1 "
+          f"micro_steps={len(steps)} updates_per_epoch={per_epoch // RUNTIME_K} "
+          f"runner_micro_step_ms_median={statistics.median(ms):.6f} "
+          f"runner_micro_step_ms_max={max(ms):.6f} "
+          f"restart_wall_s_crash_to_resumed_start={starts[1]['time'] - crash[0]['time']:.3f} "
+          f"restart_wall_s_crash_to_first_resumed_step="
+          f"{steps[resumed]['time'] - crash[0]['time']:.3f} "
+          f"max_memory_allocated_bytes={max(r['peak'] for r in steps)} "
+          f"fused_loss_launches_per_micro_step={steps[0]['launches']} "
+          f"fused_loss_launches_both_attempts={list(launches)} "
+          f"graft_leaves={starts[0]['graft_leaves']} graft_max_abs=0.0 "
+          f"lr_first={steps[0]['lr']!r} lr_last={steps[-1]['lr']!r} "
+          f"loss_first={steps[0]['loss']:.6f} loss_last={steps[-1]['loss']:.6f} "
+          f"heartbeat_epoch={beat['epoch']} best={os.path.basename(best)}", flush=True)
+    return dict(launches=launches, train_dir=os.path.join(wd, "train"))
+
+
+# ---------------------------------------------------------------- phase 26 --
+# the streaming demo at full width: phase 14's fixture through --scannet
+# (9 views at 640x480, 96^3, the JAX demo's dense model), then synthetic
+# fragments without the preview
+DEMO_SYN_FRAGMENTS = 4
+
+
+def phase_demo(card, work, demo_mod, nr_module, fused_loss, train_mod, runtime_dir):
+    phase("the streaming demo at full width: --scannet on phase 14's fixture (9 x 640x480, "
+          "96^3, dense), preview every fragment; synthetic fragments, no preview")
+    set_tf32(cudnn=True, matmul=False)
+    from deep3dmap_tpu_torch.datasets.builder import _stack_samples
+    from deep3dmap_tpu_torch.datasets.scannet import ScanNetDataset
+    from deep3dmap_tpu_torch.runners.checkpoint import (latest_checkpoint, load_checkpoint_raw,
+                                                        save_checkpoint)
+    from deep3dmap_tpu_torch.runners.train_state import init_train_state
+
+    root = os.path.join(work, "data")
+    cfgs = demo_mod.model_cfgs(N_VOX, 0.04)
+    fw = nr_module.NeuralRecon(cfgs, device="cuda")
+    ds = ScanNetDataset(root, mode="train", nviews=N_VIEWS, n_vox=N_VOX, voxel_size=0.04,
+                        pipeline=demo_mod.scannet_pipeline(N_VOX, 0.04, N_VIEWS),
+                        device="cuda")
+    batch = _stack_samples([ds[0]])
+    # phase 25's checkpoint against the demo's model: its trunk is the
+    # grafted import mode (bias convs, no GroupNorm)
+    want = {k: tuple(v.shape) for k, v in fw.net.state_dict().items()}
+    got = {k: tuple(v.shape) for k, v in
+           load_checkpoint_raw(latest_checkpoint(runtime_dir), "cpu")["net"].items()}
+    missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
+    shapes = [k for k in set(want) & set(got) if want[k] != got[k]]
+    why = (f"{len(missing)} keys missing (e.g. {missing[:2]}), {len(extra)} unexpected "
+           f"(e.g. {extra[:2]}), {len(shapes)} of another shape"
+           if missing or extra or shapes else None)
+    print(f"demo: phase 25's checkpoint into the demo's model: "
+          f"{'loads' if why is None else 'refused: ' + why}", flush=True)
+    # two training steps of the demo's own config, their checkpoint loaded
+    l0 = (fused_loss.launches, fused_loss.bwd_launches)
+    state = init_train_state(fw, 0, batch, ADAM, CLIP)
+    for i in range(2):
+        state, log = train_mod.train_step(fw, state, _stack_samples([ds[i]]))
+    check(bool(torch.isfinite(log["loss"])), "the demo config's training loss is not finite")
+    launches = (fused_loss.launches - l0[0], fused_loss.bwd_launches - l0[1])
+    check(launches == (6, 2), f"fused loss launches {launches} in 2 steps")
+    ckpt = save_checkpoint(os.path.join(work, "demo_train"), state)
+
+    # the demo's forward_test under sync debug mode "error"; the per-fragment
+    # host copy stays outside it
+    orig = nr_module.NeuralRecon.forward_test
+
+    def no_sync(self, *a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return orig(self, *a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    nr_module.NeuralRecon.forward_test = no_sync
+    try:
+        sc = demo_mod.main(["--scannet", root, "--n-views", str(N_VIEWS), "--n-vox", str(N_VOX),
+                            "--n-fragments", "8", "--checkpoint", ckpt,
+                            "--out", os.path.join(work, "demo_scannet"), "--preview-every", "1"])
+        syn = demo_mod.main(["--n-fragments", str(DEMO_SYN_FRAGMENTS), "--n-views",
+                             str(N_VIEWS), "--n-vox", str(N_VOX), "--checkpoint", ckpt,
+                             "--out", os.path.join(work, "demo_syn"), "--preview-every", "0"])
+    finally:
+        nr_module.NeuralRecon.forward_test = orig
+    for run in (sc, syn):
+        check(run["meshes"] and all(os.path.getsize(p) > 0 for p in run["meshes"]),
+              f"demo meshes {run['meshes']}")
+    n_frag = sc["keyframes"] // N_VIEWS
+    check(len(sc["previews"]) == n_frag and all(os.path.getsize(p) > 0 for p in sc["previews"]),
+          f"{len(sc['previews'])} previews for {n_frag} fragments")
+    print(f"demo: card={card!r} scannet_fragments={n_frag} "
+          f"scannet_keyframes_per_s={sc['keyframes_per_s']:.6f} "
+          f"scannet_seconds={sc['seconds']:.6f} previews={len(sc['previews'])} "
+          f"synthetic_fragments={DEMO_SYN_FRAGMENTS} "
+          f"synthetic_keyframes_per_s={syn['keyframes_per_s']:.6f} "
+          f"synthetic_seconds={syn['seconds']:.6f} meshes={len(sc['meshes'])}+"
+          f"{len(syn['meshes'])} train_launches={list(launches)}", flush=True)
+    print("host syncs: none in the demo's forward_test (set_sync_debug_mode('error'))",
+          flush=True)
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -3750,6 +4044,10 @@ def main():
     from deep3dmap_tpu_torch.ops import native
     from deep3dmap_tpu_torch.utils.device import make_deterministic
 
+    from deep3dmap_tpu_torch.datasets.synthetic import seeded_mnasnet_state_dict
+    from deep3dmap_tpu_torch.demos import demo_neucon
+    from deep3dmap_tpu_torch.tools import import_weights, quality_regression, run_elastic
+
     t0 = time.perf_counter()
     loss = phase_kernel_vs_plain(fused_loss)
     loss_bwd = phase_loss_bwd(fused_loss)
@@ -3774,7 +4072,7 @@ def main():
         cli_launches = phase_cli_full_width(
             fused_loss, train_mod, card, work, bwd["step_ms_median"], tools, hooks_mod,
             scannet_mod, native, write_scannet_fixture, checkpoint_mod)
-        phase_learning(card, work, tools, write_scannet_fixture)
+        phase_learning(card, work, quality_regression)
         g2s_cli = phase_g2s_cli(card, work, tools, hooks_mod, raster, SyntheticGanFaceDataset,
                                 g2s_train["step_ms"])
         # the face workloads, GNeRF and LERF launch none of the repo's kernels
@@ -3790,6 +4088,15 @@ def main():
         check((fused_loss.launches, fused_loss.bwd_launches, raster.launches) == counts,
               "a face, GNeRF or LERF phase launched a kernel of the NeuralRecon or "
               "Gan2Shape paths")
+        # phase 25 trains in the supervisor's child processes: their own
+        # counters, reported by the probe hook and summed here
+        runtime = phase_runtime(card, work, run_elastic, import_weights,
+                                seeded_mnasnet_state_dict, checkpoint_mod)
+        fused_loss.launches = fused_loss.bwd_launches = 0
+        demo_launches = phase_demo(card, work, demo_neucon, nr_module, fused_loss, train_mod,
+                                   runtime["train_dir"])
+        check((fused_loss.launches, fused_loss.bwd_launches) == demo_launches,
+              "the demo's streaming launched a loss kernel")
     print(f"phases took {time.perf_counter() - t0:.3f} s", flush=True)
 
     print(json.dumps({"kernels": [{
@@ -3797,7 +4104,7 @@ def main():
         "route": "triton",
         "source": "deep3dmap_tpu_torch/ops/fused_loss.py",
         "replaces": "deep3dmap_tpu/ops/pallas_loss.py:32",
-        "launches": launches + cli_launches[0],
+        "launches": launches + cli_launches[0] + runtime["launches"][0] + demo_launches[0],
         "max_abs_err": loss["max_abs_err"],
         "ms": loss["ms"],
         "plain_ms": loss["plain_ms"],
@@ -3809,7 +4116,8 @@ def main():
         "route": "triton",
         "source": "deep3dmap_tpu_torch/ops/fused_loss.py",
         "replaces": "deep3dmap_tpu/ops/pallas_loss.py:112",
-        "launches": bwd["launches"] + cli_launches[1],
+        "launches": (bwd["launches"] + cli_launches[1] + runtime["launches"][1]
+                     + demo_launches[1]),
         "max_abs_err": max(loss_bwd["max_abs_err"], bwd["max_abs_err"]),
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],

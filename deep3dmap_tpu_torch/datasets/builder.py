@@ -1,11 +1,11 @@
 """Dataset/pipeline registries, the host loader and the device prefetch
 (port of ``deep3dmap_tpu/datasets/builder.py:17-227``).
 
-The loader is a host iterator of numpy batch dicts; ``prefetch_to_device``
+The loader is a host iterator of numpy batch dicts, its indices from a
+sampler when it has one (``datasets/samplers.py``); ``prefetch_to_device``
 uploads batch N+1 from pinned host memory on a side CUDA stream while the
-step of batch N runs.  Not ported: the dataset wrappers (``ConcatDataset``,
-``RepeatDataset``, ...) and the samplers (distributed or grouped); asking for
-them raises ``NotImplementedError``.
+step of batch N runs.  ``build_dataset`` builds the wrappers
+(``datasets/wrappers.py``) around the datasets they name.
 """
 from __future__ import annotations
 
@@ -21,18 +21,31 @@ from ..utils.registry import Registry
 DATASETS = Registry("dataset")
 PIPELINES = Registry("pipeline")
 
-_LATER = "is not ported yet (ROADMAP.md Queue 1, the runtime's leftovers)"
-_WRAPPERS = ("ConcatDataset", "RepeatDataset", "ClassBalancedDataset",
-             "MultiImageMixDataset")
-
-
 def build_dataset(cfg, default_args=None):
-    """The dataset a ``data.train``/``data.test`` config names."""
-    from . import (face_tuple, face_uv, gan_faces, lerf_rays,  # noqa: F401  (register)
-                   nerf_synthetic, pipelines, real_files, scannet, synthetic)
+    """The dataset a ``data.train``/``data.test`` config names; a list of
+    configs, or a wrapper type, builds the wrapper around the datasets it
+    names (JAX's ``build_dataset``)."""
+    import copy
 
-    if isinstance(cfg, (list, tuple)) or cfg["type"] in _WRAPPERS:
-        raise NotImplementedError(f"dataset wrappers {_LATER}")
+    from . import (face_tuple, face_uv, gan_faces, lerf_rays,  # noqa: F401  (register)
+                   nerf_synthetic, pipelines, real_files, scannet, synthetic, wrappers)
+
+    if isinstance(cfg, (list, tuple)):
+        return wrappers.ConcatDataset([build_dataset(c, default_args) for c in cfg])
+    if cfg["type"] == "ConcatDataset":
+        return wrappers.ConcatDataset(
+            [build_dataset(c, default_args) for c in cfg["datasets"]],
+            cfg.get("separate_eval", True))
+    if cfg["type"] == "RepeatDataset":
+        return wrappers.RepeatDataset(build_dataset(cfg["dataset"], default_args), cfg["times"])
+    if cfg["type"] == "ClassBalancedDataset":
+        return wrappers.ClassBalancedDataset(build_dataset(cfg["dataset"], default_args),
+                                             cfg["oversample_thr"])
+    if cfg["type"] == "MultiImageMixDataset":
+        cp_cfg = copy.deepcopy(dict(cfg))
+        cp_cfg["dataset"] = build_dataset(cp_cfg["dataset"], default_args)
+        cp_cfg.pop("type")
+        return wrappers.MultiImageMixDataset(**cp_cfg)
     return DATASETS.build(dict(cfg), **(default_args or {}))
 
 
@@ -54,34 +67,44 @@ def _stack_samples(samples):
 
 class NumpyLoader:
     """Batches a map-style dataset of dict samples into stacked numpy arrays,
-    in the JAX loader's order: ``np.random.RandomState(seed + epoch)``
-    shuffles ``arange(len)`` each epoch.  With ``num_workers > 0`` a thread
-    pool builds up to ``num_workers * prefetch_factor`` batches ahead,
-    yielded in order."""
+    in the JAX loader's order: the sampler's indices (its epoch set first)
+    when it has one, else ``np.random.RandomState(seed + epoch)`` shuffles
+    ``arange(len)`` each epoch.  With ``num_workers > 0`` a thread pool
+    builds up to ``num_workers * prefetch_factor`` batches ahead, yielded in
+    order."""
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
-                 seed: int = 0, drop_last: bool = True, num_workers: int = 0,
-                 prefetch_factor: int = 2):
+                 seed: int = 0, drop_last: bool = True, sampler=None,
+                 num_workers: int = 0, prefetch_factor: int = 2):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
+        self.sampler = sampler
         self.num_workers = num_workers
         self.prefetch_factor = max(1, prefetch_factor)
         self.epoch = 0
 
+    def _num_indices(self):
+        return len(self.sampler) if self.sampler is not None else len(self.dataset)
+
     def __len__(self):
-        n = len(self.dataset) // self.batch_size
-        if not self.drop_last and len(self.dataset) % self.batch_size:
+        n = self._num_indices() // self.batch_size
+        if not self.drop_last and self._num_indices() % self.batch_size:
             n += 1
         return n
 
     def _epoch_indices(self):
-        idx = np.arange(len(self.dataset))
-        if self.shuffle:
-            rs = np.random.RandomState(self.seed + self.epoch)
-            rs.shuffle(idx)
+        if self.sampler is not None:
+            if hasattr(self.sampler, "set_epoch"):
+                self.sampler.set_epoch(self.epoch)
+            idx = np.fromiter(iter(self.sampler), dtype=np.int64)
+        else:
+            idx = np.arange(len(self.dataset))
+            if self.shuffle:
+                rs = np.random.RandomState(self.seed + self.epoch)
+                rs.shuffle(idx)
         self.epoch += 1
         return idx
 
@@ -202,15 +225,27 @@ def prefetch_to_device(iterable, device, depth: int = 2, host_check=None):
 def build_dataloader(dataset, samples_per_gpu: int = 1, workers_per_gpu: int = 0,
                      num_gpus: int = 1, dist: bool = False, shuffle: bool = True,
                      seed: Optional[int] = None, **kwargs) -> NumpyLoader:
-    """The JAX ``build_dataloader`` on one card: ``samples_per_gpu *
-    num_gpus`` samples per batch, ``workers_per_gpu`` loader threads.  A
-    dataset that yields its own batches (iterable, no ``__getitem__``: the
-    LERF ray datamanager) passes through as it is."""
+    """The JAX ``build_dataloader``: ``samples_per_gpu * num_gpus`` samples
+    per batch (``samples_per_gpu`` with ``dist``), ``workers_per_gpu``
+    loader threads.  With ``dist`` the rank's slice of the index stream
+    (``DistributedGroupSampler`` when shuffling a dataset with aspect-group
+    ``flag``s, else ``DistributedSampler``, rank and world from
+    ``torch.distributed``); without it a flagged dataset shuffles through
+    ``GroupSampler``.  A dataset that yields its own batches (iterable, no
+    ``__getitem__``: the LERF ray datamanager) passes through as it is."""
     if not hasattr(dataset, "__getitem__") and hasattr(dataset, "__iter__"):
         return dataset
-    if dist or (shuffle and hasattr(dataset, "flag")):
-        raise NotImplementedError(f"distributed and grouped samplers {_LATER}")
-    return NumpyLoader(dataset, batch_size=samples_per_gpu * num_gpus,
-                       shuffle=shuffle, seed=seed or 0,
-                       num_workers=workers_per_gpu,
+    from .samplers import DistributedGroupSampler, DistributedSampler, GroupSampler
+
+    sampler = None
+    if dist:
+        if shuffle and hasattr(dataset, "flag"):
+            sampler = DistributedGroupSampler(dataset, samples_per_gpu, seed=seed or 0)
+        else:
+            sampler = DistributedSampler(dataset, shuffle=shuffle, seed=seed or 0)
+    elif shuffle and hasattr(dataset, "flag"):
+        sampler = GroupSampler(dataset, samples_per_gpu, seed=seed or 0)
+    batch = samples_per_gpu * (1 if dist else num_gpus)
+    return NumpyLoader(dataset, batch_size=batch, shuffle=shuffle and sampler is None,
+                       seed=seed or 0, sampler=sampler, num_workers=workers_per_gpu,
                        prefetch_factor=kwargs.get("prefetch_factor", 2))

@@ -364,6 +364,49 @@ def write_scannet_fixture(root, scene: str = "scene0707_00", n_frames: int = 10,
     return s
 
 
+def seeded_mnasnet_state_dict(seed: int = 0, alpha: float = 1.0) -> Dict[str, np.ndarray]:
+    """A seeded state dict in torchvision's MNASNet key layout (``layers.0``
+    to ``layers.10``: the stem and the three stages NeuralRecon keeps),
+    float32 numpy, for ``import_mnasnet_trunk``: convs scaled by
+    1/sqrt(fan-in), BatchNorm scales near 1 and running variances in
+    [0.5, 2], so the folded trunk keeps activations of order one."""
+    from ..models.backbones.fpn2d import _depths
+
+    rs = np.random.RandomState(seed)
+    d = _depths(alpha)
+    sd: Dict[str, np.ndarray] = {}
+
+    def conv(key, o, i, k, groups=1):
+        sd[f"{key}.weight"] = (rs.randn(o, i // groups, k, k)
+                               / np.sqrt(i // groups * k * k)).astype(np.float32)
+
+    def bn(key, n):
+        sd[f"{key}.weight"] = (1 + 0.1 * rs.randn(n)).astype(np.float32)
+        sd[f"{key}.bias"] = (0.1 * rs.randn(n)).astype(np.float32)
+        sd[f"{key}.running_mean"] = (0.1 * rs.randn(n)).astype(np.float32)
+        sd[f"{key}.running_var"] = rs.uniform(0.5, 2.0, n).astype(np.float32)
+        sd[f"{key}.num_batches_tracked"] = np.zeros((), np.int64)
+
+    conv("layers.0", d[0], 3, 3)
+    bn("layers.1", d[0])
+    conv("layers.3", d[0], d[0], 3, groups=d[0])
+    bn("layers.4", d[0])
+    conv("layers.6", d[1], d[0], 1)
+    bn("layers.7", d[1])
+    for layer, (cin, cout, k, exp) in zip((8, 9, 10), ((d[1], d[2], 3, 3), (d[2], d[3], 5, 3),
+                                                       (d[3], d[4], 5, 6))):
+        for block in range(3):
+            c_in = cin if block == 0 else cout
+            mid, p = c_in * exp, f"layers.{layer}.{block}.layers"
+            conv(f"{p}.0", mid, c_in, 1)
+            bn(f"{p}.1", mid)
+            conv(f"{p}.3", mid, mid, k, groups=mid)
+            bn(f"{p}.4", mid)
+            conv(f"{p}.6", cout, mid, 1)
+            bn(f"{p}.7", cout)
+    return sd
+
+
 def seeded_clip_state_dict(seed: int = 0, width: int = 768, layers: int = 12, patch: int = 16,
                            image: int = 224, text_width: int = 512, text_layers: int = 12,
                            embed: int = 512, vocab: int = 49408, ctx: int = 77

@@ -11,9 +11,11 @@ compute only on a fixed-capacity set of active 8³ blocks,
 Ported: streaming inference (``forward_test``), validation (``val_fn``)
 and the training loss (``loss_fn``, differentiable by autograd; its
 per-level loss runs the fused-loss kernels, forward and backward, on CUDA).
-Not ported yet: ``set_mesh``/spatial GRU sharding, ``_graft_backbone``
-(BACKBONE2D.CKPT), ``BP_GRAD_FRAC`` (a backward-only option) and the scanned
-and rematerialised trunk (the batched-views trunk gives the same numbers).
+``BACKBONE2D.CKPT`` (or ``pretrained``) grafts an imported MNASNet trunk
+(``tools/import_weights.py mnasnet``) at ``init``.  Not ported yet:
+``set_mesh``/spatial GRU sharding, ``BP_GRAD_FRAC`` (a backward-only option)
+and the scanned and rematerialised trunk (the batched-views trunk gives the
+same numbers).
 
 Batch layout as in the JAX package: imgs (B, V, H, W, 3) NHWC, volumes
 NDHWC, dict keys unchanged.
@@ -327,10 +329,9 @@ class NeuralRecon(BaseFramework):
         self.pos_weight = cfg.get("POS_WEIGHT", 1.0)
         bb2d = dict(cfg.get("BACKBONE2D", {}))
         alpha = float(str(bb2d.get("ARC", "fpn-mnas-1")).split("-")[-1])
-        if bb2d.get("CKPT", pretrained):
-            raise NotImplementedError(
-                "BACKBONE2D.CKPT / pretrained backbone grafting is not ported "
-                "yet; load the weights with NeuralRecon.load_flax instead")
+        # an .npz from `tools/import_weights.py mnasnet`; `pretrained` and
+        # BACKBONE2D.CKPT both name it, CKPT winning
+        self.backbone_ckpt = bb2d.get("CKPT", pretrained)
         self.out_channels = tuple(cfg.get("CHANNELS", (96, 48, 24)))
         # per-level active-voxel capacity: a TRAIN_NUM_SAMPLE list of
         # n_layers entries is a per-level budget (neucon_network.py:190-194);
@@ -374,8 +375,36 @@ class NeuralRecon(BaseFramework):
         """Seeded init mirroring flax's defaults.  Returns (params,
         model_state) where ``params`` is the network module."""
         init_flax_defaults(self.net, torch.Generator().manual_seed(int(seed)))
+        if self.backbone_ckpt:
+            self._graft_backbone(self.backbone_ckpt)
         self.net.to(self.device)
         return self.net, self.init_state(np.shape(batch["imgs"])[0])
+
+    def _graft_backbone(self, ckpt_path: str) -> None:
+        """The imported MnasFPN tree (``npz['params'] = {'params': <fpn
+        tree>}``) into ``backbone2d.fpn``, shape-checked leaf by leaf in
+        flax layout with JAX's error."""
+        from ...utils.from_flax import to_flax_params
+
+        with np.load(ckpt_path, allow_pickle=True) as data:
+            loaded = data["params"].item()
+        loaded = dict(loaded).get("params", loaded)
+        fpn = self.net.backbone2d.fpn
+        target = to_flax_params(fpn)
+
+        def check(dst, src, path=()):
+            for k, v in dst.items():
+                if k not in src:
+                    raise ValueError(f"backbone ckpt has no leaf {'/'.join(path + (k,))}")
+                if isinstance(v, dict):
+                    check(v, src[k], path + (k,))
+                elif tuple(np.shape(v)) != tuple(np.shape(src[k])):
+                    raise ValueError(
+                        f"backbone ckpt leaf shape {np.shape(src[k])} != model "
+                        f"{tuple(np.shape(v))} — was the npz produced with the same "
+                        f"ARC/NORM/TORCH_PAD settings?")
+        check(target, loaded)
+        load_flax_params(fpn, loaded)
 
     def load_flax(self, flax_params):
         """Load a JAX ``NeuralRecon.init`` param tree (nested numpy arrays)."""

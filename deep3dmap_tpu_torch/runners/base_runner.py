@@ -2,7 +2,7 @@
 ``deep3dmap_tpu/runners/base_runner.py``).
 
 Hooks with priorities, ``setup`` (the framework's seeded ``init``, the lr
-schedule and Adam after the clip), ``run_iter`` (``runners/train_state.py``'s
+schedule and the optimizer chain), ``run_iter`` (``runners/train_state.py``'s
 ``train_step``), ``val``, checkpoints and ``resume``.  The logged values stay
 on the device until a logger reads them, so no step waits for the device.
 Training here is bitwise repeatable on the card (``utils/device.py``'s
@@ -34,9 +34,6 @@ from ..utils.logging import get_root_logger
 from .hooks import Hook, build_hook
 from .optim import build_lr_schedule, build_optimizer
 from .train_state import TrainState, train_step
-
-_LATER = "is not ported yet (ROADMAP.md Queue 1, the runtime's leftovers)"
-
 
 class BaseRunner:
     def __init__(self, framework, runner_cfgs=None, work_dir: Optional[str] = None,
@@ -137,7 +134,7 @@ class BaseRunner:
                                                  iters_per_epoch, dict(type="Adam", lr=1e-3))
         net, model_state = self.framework.init(self.seed, sample_batch)
         self.state = TrainState(net=net, model_state=model_state,
-                                optimizer=make_optimizer(net.parameters()),
+                                optimizer=make_optimizer(net),
                                 rng=self.step_generator()
                                 if hasattr(self.framework, "draws") else None)
         self._log_init(net)
@@ -154,7 +151,9 @@ class BaseRunner:
                            optimizer_config: Optional[dict], iters_per_epoch: int,
                            default: dict) -> Callable:
         """Sets ``base_lr`` and ``lr_schedule`` from the configs and returns
-        parameters -> optimizer (``runners/optim.py``)."""
+        (module, collection name) -> optimizer (``runners/optim.py``), with
+        the optimizer's ``paramwise_cfg`` and ``optimizer_config``'s
+        ``grad_clip`` and ``cumulative_iters``."""
         optimizer = dict(optimizer or self.runner_cfgs.get("optimizer", default))
         self.base_lr = optimizer.get("lr", 1e-3)
         total_iters = (self._max_iters if self._max_iters is not None
@@ -167,13 +166,12 @@ class BaseRunner:
         else:
             self.lr_schedule = None
         optimizer_config = dict(optimizer_config or {})
-        if optimizer.pop("paramwise_cfg", None):
-            raise NotImplementedError(f"paramwise_cfg {_LATER}")
-        if optimizer_config.get("cumulative_iters", 1) > 1:
-            raise NotImplementedError(f"gradient accumulation {_LATER}")
+        paramwise_cfg = optimizer.pop("paramwise_cfg", None)
         grad_clip, schedule = optimizer_config.get("grad_clip"), self.lr_schedule
-        return lambda params: build_optimizer(optimizer, params, grad_clip,
-                                              lr_schedule=schedule)
+        every_k = optimizer_config.get("cumulative_iters", 1)
+        return lambda module, collection="params": build_optimizer(
+            optimizer, module, grad_clip, lr_schedule=schedule, paramwise_cfg=paramwise_cfg,
+            cumulative_iters=every_k, collection=collection)
 
     def _log_init(self, net) -> None:
         n_params = sum(p.numel() for p in net.parameters())

@@ -8,9 +8,11 @@ dict of plain containers and tensors (``torch.load(weights_only=True)``
 reads it):
 
     net          the network's ``state_dict()``
-    optimizer    Adam's ``state_dict()``, the schedule's ``count`` and the
-                 optimizer's ``structure`` (clip and schedule on or off);
-                 with one optimizer per head, a dict of those by head
+    optimizer    the optimizer's ``state_dict()`` (``runners/optim.py``):
+                 Adam's state or optax's buffers by name, the counts, the
+                 MultiSteps accumulator, and the ``structure`` (type, clip,
+                 schedule, paramwise, accumulation); with one optimizer per
+                 head, a dict of those by head
     model_state  the model state's tensors, in tree order (dict keys
                  sorted, as ``jax.tree_util.tree_leaves`` orders them);
                  modules in it (Gan2Shape's frozen GAN, which comes from
@@ -81,15 +83,10 @@ def tree_unflatten(template, leaves: List[torch.Tensor]):
     return out
 
 
-def _structure(optimizer) -> dict:
-    return dict(clip=optimizer.max_norm is not None,
-                schedule=optimizer.schedule is not None)
-
-
 def _optimizer_state(opt) -> dict:
     if isinstance(opt, Mapping):
         return {name: _optimizer_state(o) for name, o in opt.items()}
-    return dict(adam=opt.adam.state_dict(), count=opt.count, structure=_structure(opt))
+    return opt.state_dict()
 
 
 def _load_optimizer(opt, saved: Mapping) -> None:
@@ -104,11 +101,10 @@ def _load_optimizer(opt, saved: Mapping) -> None:
         return
     if "structure" not in saved:
         raise ValueError("one optimizer per head in the checkpoint, one in the runner")
-    if saved["structure"] != _structure(opt):
+    if saved["structure"] != opt.structure():
         raise ValueError(f"optimizer structure {saved['structure']} in the checkpoint, "
-                         f"{_structure(opt)} in the runner")
-    opt.adam.load_state_dict(saved["adam"])
-    opt.count = int(saved["count"])
+                         f"{opt.structure()} in the runner")
+    opt.load_state_dict(saved)
 
 
 def save_checkpoint(work_dir: str, state, meta: Optional[dict] = None,

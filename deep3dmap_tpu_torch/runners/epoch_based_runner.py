@@ -34,6 +34,9 @@ class EpochBasedRunner(BaseRunner):
         assert len(data_loaders) == len(workflow)
 
         self._max_iters = self._max_epochs * len(data_loaders[0])
+        # EvalHook's loader: the workflow's val entry
+        self._val_loader = next((dl for dl, (mode, _) in zip(data_loaders, workflow)
+                                 if mode == "val"), None)
         self.call_hook("before_run")
         while self.epoch < self._max_epochs:
             for i, (mode, epochs) in enumerate(workflow):

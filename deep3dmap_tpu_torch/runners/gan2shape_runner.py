@@ -91,7 +91,7 @@ class Gan2ShapeRunner(BaseRunner):
         net, model_state = fw.init(self.seed, sample_batch)
         self.state = TrainState(
             net=net, model_state=model_state,
-            optimizer={name: make_optimizer(getattr(net, name).parameters())
+            optimizer={name: make_optimizer(getattr(net, name), name)
                        for name in fw.network_names},
             rng=self.step_generator())
         self._init_params = {n: p.detach().clone() for n, p in net.named_parameters()}

@@ -1,10 +1,12 @@
 """Hooks: host-side callbacks at step/epoch boundaries (port of
 ``deep3dmap_tpu/runners/hooks.py:20-186``).
 
-Hooks observe the runner for timing, logging and checkpoints; the lr
-schedule and the clip live in the optimizer (``runners/optim.py``).  Ported:
-``Hook``, ``HOOKS``, ``build_hook``, ``IterTimerHook``, ``TextLoggerHook``
-(its JSON log in the JAX keys) and ``CheckpointHook``.
+Hooks observe the runner for timing, logging, checkpoints and evaluation;
+the lr schedule and the clip live in the optimizer (``runners/optim.py``).
+Ported: ``Hook``, ``HOOKS``, ``build_hook``, ``IterTimerHook``,
+``TextLoggerHook`` (its JSON log in the JAX keys), ``CheckpointHook``,
+``EvalHook`` and ``ClosureHook``; ``runners/hooks_extra.py`` registers the
+rest.
 """
 from __future__ import annotations
 
@@ -12,12 +14,16 @@ import json
 import os.path as osp
 import time
 
+from typing import Optional
+
 from ..utils.registry import Registry
 
 HOOKS = Registry("hook")
 
 
 def build_hook(cfg, default_args=None):
+    from . import hooks_extra  # noqa: F401  (register)
+
     return HOOKS.build(dict(cfg), **(default_args or {}))
 
 
@@ -183,3 +189,87 @@ class CheckpointHook(Hook):
         if self.every_n_iters(runner, self.interval) or (self.save_last and self.is_last_iter(runner)):
             # after_train_iter fires before the loop's `iter += 1`
             self._save(runner, runner.iter + 1)
+
+
+@HOOKS.register_module()
+class EvalHook(Hook):
+    """``runner.val()`` every ``interval`` epochs (or iterations without
+    ``by_epoch``) from ``start`` on, and with ``save_best`` a checkpoint
+    under ``work_dir/best/`` whenever the averaged ``val_<save_best>`` (or
+    ``<save_best>``) improves by ``rule`` ("less" or "greater").
+
+    The value is read at this hook's own ``after_val_epoch`` (priority 80),
+    before the text logger (90) averages and clears the buffer, one device
+    read per evaluation.  (JAX's reads it after ``val`` returns, when a
+    ``TextLoggerHook`` has cleared it, so its ``save_best`` saves only
+    without a text logger.)  The val loader is the workflow's ``val`` entry
+    (``EpochBasedRunner.run`` sets ``runner._val_loader``)."""
+
+    PRIORITY = 80
+
+    def __init__(self, interval: int = 1, by_epoch: bool = True,
+                 start: Optional[int] = None, save_best: Optional[str] = None,
+                 rule: str = "less"):
+        if rule not in ("less", "greater"):
+            raise ValueError(f"EvalHook rule {rule!r}: 'less' or 'greater'")
+        self.interval = interval
+        self.by_epoch = by_epoch
+        self.start = start
+        self.save_best = save_best
+        self.rule = rule
+        self.best = None
+        self._evaluating = False
+
+    def _should(self, runner):
+        idx = runner.epoch if self.by_epoch else runner.iter
+        if self.start is not None and idx + 1 < self.start:
+            return False
+        n = self.interval
+        return (idx + 1) % n == 0 if n > 0 else False
+
+    def _evaluate(self, runner):
+        if runner.val_fn is None:
+            return
+        self._evaluating = True
+        try:
+            runner.val()
+        finally:
+            self._evaluating = False
+
+    def after_train_epoch(self, runner):
+        if self.by_epoch and self._should(runner):
+            self._evaluate(runner)
+
+    def after_train_iter(self, runner):
+        if not self.by_epoch and self._should(runner):
+            self._evaluate(runner)
+
+    def after_val_epoch(self, runner):
+        if not (self._evaluating and self.save_best):
+            return
+        hist = runner.log_buffer.val_history
+        key = next((k for k in (f"val_{self.save_best}", self.save_best) if k in hist), None)
+        if key is None:
+            return
+        from ..utils.log_buffer import _to_floats
+
+        weights = runner.log_buffer.n_history[key]
+        vals = _to_floats(hist[key])
+        val = sum(v * w for v, w in zip(vals, weights)) / max(sum(weights), 1)
+        if self.best is None or (val < self.best if self.rule == "less" else val > self.best):
+            self.best = val
+            from .checkpoint import save_checkpoint
+
+            path = save_checkpoint(osp.join(runner.work_dir, "best"), runner.state,
+                                   meta={"best": float(val), "metric": self.save_best})
+            runner.logger.info(f"New best {self.save_best}={val:.5f} -> {path}")
+
+
+@HOOKS.register_module()
+class ClosureHook(Hook):
+    """A function of the runner at one stage: ``ClosureHook(fn_name, fn)``."""
+
+    def __init__(self, fn_name: str, fn):
+        if fn_name not in Hook.stages:
+            raise ValueError(f"ClosureHook: {fn_name!r} is not a hook stage")
+        setattr(self, fn_name, fn)

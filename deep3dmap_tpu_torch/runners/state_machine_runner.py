@@ -86,7 +86,7 @@ class StateMachineRunner(BaseRunner):
                                                  iters_per_epoch, dict(type="Adam", lr=1e-3))
         net, model_state = self.framework.init(self.seed, sample_batch)
         self.state = TrainState(net=net, model_state=model_state, optimizer={
-            name: make_optimizer(m.parameters()) for name, m in self.collections(net).items()},
+            name: make_optimizer(m, name) for name, m in self.collections(net).items()},
             rng=self.step_generator())
         self._log_init(net)
         return self.state

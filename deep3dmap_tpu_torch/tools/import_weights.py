@@ -1,10 +1,18 @@
 #!/usr/bin/env python
-"""Convert torch checkpoints into the ``.npz`` files LERF's encoders read
-(port of ``tools/import_weights.py``'s ``clip`` and ``dino`` kinds; no JAX
-needed).  Usage:
+"""Convert torch checkpoints into the ``.npz`` files the port reads (port of
+``tools/import_weights.py``'s ``clip``, ``dino`` and ``mnasnet`` kinds; no
+JAX needed).  Usage:
 
     python -m deep3dmap_tpu_torch.tools.import_weights clip ViT-B-16.pt checkpoints/clip_vitb16.npz
     python -m deep3dmap_tpu_torch.tools.import_weights dino dino_vits8.pth checkpoints/dino_vits8.npz
+    python -m deep3dmap_tpu_torch.tools.import_weights mnasnet mnasnet1.0.pth \
+        checkpoints/mnasnet_fpn.npz [--alpha 1.0] [--device cuda|cpu]
+
+``mnasnet`` takes torchvision's MNASNet state dict and writes ``params``,
+the ``MnasFPN(norm="none", torch_pad=True)`` tree NeuralRecon's
+``BACKBONE2D.CKPT`` grafts (its BatchNorms folded, the FPN head from the
+port's seeded init); it builds that init on the card unless ``--device
+cpu`` is given.
 
 ``clip`` takes an OpenAI or OpenCLIP ViT state dict (a TorchScript archive
 unwrapped to its state dict first) and writes ``vision``/``text``/``meta``,
@@ -26,17 +34,26 @@ def _count(tree) -> int:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("kind", choices=["clip", "dino"])
+    ap.add_argument("kind", choices=["clip", "dino", "mnasnet"])
     ap.add_argument("src", help="torch checkpoint path")
     ap.add_argument("dst", help="output .npz path")
+    ap.add_argument("--alpha", type=float, default=1.0,
+                    help="MNASNet width multiplier (mnasnet)")
+    ap.add_argument("--device", default="cuda",
+                    help="mnasnet: cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
 
     import torch
 
     from ..utils.torch_import import import_npz_entries
 
+    kw = {}
+    if args.kind == "mnasnet":
+        from ..utils.device import resolve_device
+
+        kw = dict(alpha=args.alpha, device=resolve_device(args.device))
     raw = torch.load(args.src, map_location="cpu", weights_only=True)
-    out = import_npz_entries(args.kind, raw.get("state_dict", raw))
+    out = import_npz_entries(args.kind, raw.get("state_dict", raw), **kw)
     np.savez(args.dst, **out)
     for k, v in out.items():
         if k != "meta":

@@ -20,7 +20,10 @@ model when ``use_mask`` is set) or ``StateMachineRunner`` (imgs2mesh,
 ``B``, sized by ``need_info_from_datasets``) or ``IterBasedRunner`` (LERF,
 ``configs/lerf/``: ``LERFModel`` on ``LERFRayDataset``, a fixed
 ``runner_cfgs.max_iters``, raised with ``--cfg-options`` to resume further).  A config's
-``evaluation`` is ignored, as the JAX CLI ignores it.  One card: there is no
+``evaluation`` is ignored, as the JAX CLI ignores it (``custom_hooks`` take
+an ``EvalHook``).  With ``D3M_HEARTBEAT_FILE`` set (the elastic supervisor,
+``tools/run_elastic.py``, sets it) a ``HeartbeatHook`` writes there every
+``D3M_HEARTBEAT_INTERVAL`` iterations (10).  One card: there is no
 ``--launcher jax`` (multi-GPU is ROADMAP.md Queue 1).
 """
 import argparse
@@ -109,6 +112,12 @@ def main(argv=None):
         log_config=cfg.get("log_config"))
     for hook_cfg in cfg.get("custom_hooks", []):
         runner.register_hook_from_cfg(dict(hook_cfg))
+    # the elastic supervisor's liveness beacon (tools/run_elastic.py sets it)
+    hb = os.environ.get("D3M_HEARTBEAT_FILE")
+    if hb:
+        runner.register_hook_from_cfg(dict(
+            type="HeartbeatHook", path=hb,
+            interval=int(os.environ.get("D3M_HEARTBEAT_INTERVAL", "10"))))
 
     if args.resume_from:
         runner.resume(None if args.resume_from == "auto" else args.resume_from)

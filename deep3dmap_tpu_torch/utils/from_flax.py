@@ -162,9 +162,13 @@ def load_jax_checkpoint(raw: Mapping, state):
     and return it.  ``runners/checkpoint.py::save_checkpoint`` then writes
     it as the port's checkpoint, so a run trained by JAX resumes in the port.
 
-    ``opt_state`` is optax's chain: ``[clip state (None), [ScaleByAdamState
-    (count, mu, nu), ScaleByScheduleState (count) or None]]`` with the
-    global-norm clip, the Adam chain alone without it.  Where the port keeps
+    ``opt_state`` is the optax chain of JAX's ``build_optimizer``: for plain
+    Adam ``[clip state (None), [ScaleByAdamState (count, mu, nu),
+    ScaleByScheduleState (count) or None]]`` with the global-norm clip, the
+    Adam chain alone without it; for every other chain (SGD, AdamW, ...,
+    paramwise, ``MultiSteps``) the state of the same transforms, held
+    against the chain the port's optimizer stands for, its buffers, counts
+    and MultiSteps accumulator carried over.  Where the port keeps
     one optimizer per head or per collection (``Gan2ShapeRunner``,
     ``StateMachineRunner``), JAX's ``opt_state`` holds one such chain per
     head, by the same names (``param_collection``).  A JAX optimizer of another
@@ -197,13 +201,90 @@ def param_collection(net: nn.Module, name: str) -> nn.Module:
 
 
 def _load_optax(module: nn.Module, opt, opt_state) -> None:
+    """optax's state of the chain ``opt`` was built as, over ``module``'s
+    parameters, into the port's optimizer (``runners/optim.py``)."""
+    from ..runners.optim import ClippedAdam
+
+    if isinstance(opt, ClippedAdam):
+        _load_optax_adam(module, opt, opt_state)
+        return
+    want, got = _optax_skeleton(opt), _skeleton(opt_state)
+    if want != got:
+        raise ValueError(f"optimizer state {got} in the JAX checkpoint, the port's "
+                         f"{opt.structure()} reads {want}")
+    multi = opt_state if opt.every_k > 1 else None
+    states = _state_dicts(multi["inner_opt_state"] if multi else opt_state)
+    counts = [int(np.asarray(d["count"])) for d in states if "count" in d]
+    if multi is not None:
+        counts.append(int(np.asarray(multi["gradient_step"])))
+        opt.mini_step = int(np.asarray(multi["mini_step"]))
+        acc = _torch_layout(module, multi["acc_grads"])
+        with torch.no_grad():
+            for (name, p), a in zip(module.named_parameters(), opt.acc):
+                a.copy_(torch.from_numpy(acc[name]))
+    with torch.no_grad():
+        for d in states:
+            for key in set(d) & set(opt.buffers):
+                vals = _torch_layout(module, d[key])
+                for (name, p), b in zip(module.named_parameters(), opt.buffers[key]):
+                    b.copy_(torch.from_numpy(vals[name]))
+    opt.count = counts[0] if counts else 0
+
+
+_STATE_KEYS = {"count", "mu", "nu", "trace", "sum_of_squares"}
+
+
+def _skeleton(node):
+    """A restored optax state with its arrays and paramwise multiplier trees
+    left out: lists as lists, a state by its field names, ``"mult"``."""
+    if isinstance(node, (list, tuple)):
+        return [_skeleton(x) for x in node]
+    if isinstance(node, Mapping):
+        if "mini_step" in node:
+            return {"multi": _skeleton(node["inner_opt_state"])}
+        if set(node) <= _STATE_KEYS:
+            return tuple(sorted(node))
+        return "mult"
+    return None
+
+
+def _optax_skeleton(opt):
+    """The ``_skeleton`` of the optax chain JAX's ``build_optimizer`` makes
+    for the port's ``FoldedOptimizer`` ``opt``."""
+    sched = ("count",) if opt.schedule is not None else None
+    h, adam = opt.hyper, ("count", "mu", "nu")
+    tx = {"Adam": [adam, None, sched] if h.get("weight_decay") else [adam, sched],
+          "AdamW": [adam, None, sched],
+          "SGD": [None, [("trace",) if h.get("momentum") else None, sched]],
+          "RMSprop": [None, [("nu",), sched, ("trace",) if h.get("momentum") else None]],
+          "Adagrad": [("sum_of_squares",), sched],
+          "Adamax": [adam, sched],
+          "Lamb": [adam, None, None, sched],
+          "Lion": [("count", "mu"), None, sched]}[opt.kind]
+    parts = (([None] if opt.max_norm is not None else [])
+             + (["mult"] if opt.decay is not None else []) + [tx]
+             + (["mult"] if opt.lr_mults is not None else []))
+    inner = parts if len(parts) > 1 else tx
+    return {"multi": inner} if opt.every_k > 1 else inner
+
+
+def _state_dicts(node):
+    """The optax states (dicts of ``_STATE_KEYS``) in tree order."""
+    if isinstance(node, (list, tuple)):
+        return [d for x in node for d in _state_dicts(x)]
+    if isinstance(node, Mapping) and set(node) <= _STATE_KEYS:
+        return [node]
+    return []
+
+
+def _load_optax_adam(module: nn.Module, opt, opt_state) -> None:
     """optax's clip + Adam (+ schedule) state over ``module``'s parameters
     into the port's ``ClippedAdam``."""
     clip = (isinstance(opt_state, (list, tuple)) and len(opt_state) == 2
             and opt_state[0] is None and isinstance(opt_state[1], (list, tuple)))
     adam_state, sched_state = opt_state[1] if clip else opt_state
     jax_structure = dict(clip=clip, schedule=sched_state is not None)
-    port_structure = dict(clip=opt.max_norm is not None, schedule=opt.schedule is not None)
+    port_structure = opt.structure()
     if jax_structure != port_structure:
         raise ValueError(f"optimizer structure {jax_structure} in the JAX checkpoint, "
                          f"{port_structure} in the port's state")

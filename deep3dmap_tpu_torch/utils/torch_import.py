@@ -1,9 +1,10 @@
-"""Torch checkpoints -> the flax ``.npz`` layouts LERF's encoders read (port
-of ``deep3dmap_tpu/utils/torch_import.py:284-436``): ``import_clip`` for
-OpenAI/OpenCLIP ViT CLIP and ``import_dino`` for DINO ViTs, with the
-shape-sniffing that recovers their configs.  A user imports weights with no
-JAX installed (``tools/import_weights.py clip|dino``), and the files are the
-JAX tool's key for key.
+"""Torch checkpoints -> the flax ``.npz`` layouts the port reads (port of
+``deep3dmap_tpu/utils/torch_import.py:205-266,284-436``): ``import_clip``
+for OpenAI/OpenCLIP ViT CLIP and ``import_dino`` for DINO ViTs, with the
+shape-sniffing that recovers their configs, and ``import_mnasnet_trunk``
+for torchvision's MNASNet (NeuralRecon's ``BACKBONE2D.CKPT``).  A user
+imports weights with no JAX installed (``tools/import_weights.py
+clip|dino|mnasnet``), and the files are the JAX tool's key for key.
 
 Conventions (as the JAX importers'):
 
@@ -172,10 +173,84 @@ def import_dino(sd: Mapping):
     return cfg, _checked(DinoViT, cfg, _nest(flat))
 
 
-def import_npz_entries(kind: str, sd: Mapping) -> Dict[str, np.ndarray]:
+def _fold_bn(sd: Mapping, conv_key: str, bn_key: str, eps: float = 1e-5):
+    """Eval-mode BatchNorm folded into the conv before it: the flax-layout
+    (kernel HWIO, bias), exact for inference (BN(x*w) == x*w' + b')."""
+    w = conv_kernel(sd[f"{conv_key}.weight"])  # (kH, kW, I, O)
+    gamma = to_numpy(sd[f"{bn_key}.weight"])
+    beta = to_numpy(sd[f"{bn_key}.bias"])
+    mean = to_numpy(sd[f"{bn_key}.running_mean"])
+    var = to_numpy(sd[f"{bn_key}.running_var"])
+    scale = gamma / np.sqrt(var + eps)
+    return w * scale, beta - mean * scale
+
+
+def _mnasnet_trunk_flat(sd: Mapping) -> Dict[str, np.ndarray]:
+    """torchvision MNASNet ``layers[0:8]`` and stages 8/9/10, BatchNorms
+    folded, under the flax paths of ``MnasFPN(norm="none")``."""
+    sd = _strip_module(sd)
+    # some checkpoints nest the trunk ('backbone2d.layers.0.weight'): keep
+    # everything from the first 'layers.' on
+    if not any(k.startswith("layers.") for k in sd):
+        sd = {"layers." + k.split("layers.", 1)[1]: v for k, v in sd.items() if "layers." in k}
+    out: Dict[str, np.ndarray] = {}
+
+    def put(dst, conv_key, bn_key):
+        out[f"{dst}/kernel"], out[f"{dst}/bias"] = _fold_bn(sd, conv_key, bn_key)
+
+    # stem: layers 0/1 conv+BN, 3/4 depthwise+BN, 6/7 project+BN
+    put("Conv_0", "layers.0", "layers.1")
+    put("Conv_1", "layers.3", "layers.4")
+    put("Conv_2", "layers.6", "layers.7")
+    # stages 8/9/10 -> _Stack_0/1/2, 3 inverted residuals each, whose inner
+    # Sequential is [0 expand, 1 BN, 3 depthwise, 4 BN, 6 project, 7 BN]
+    for stack, layer in enumerate((8, 9, 10)):
+        for block in range(3):
+            src, dst = f"layers.{layer}.{block}.layers", f"_Stack_{stack}/MBConv_{block}"
+            put(f"{dst}/Conv_0", f"{src}.0", f"{src}.1")
+            put(f"{dst}/Conv_1", f"{src}.3", f"{src}.4")
+            put(f"{dst}/Conv_2", f"{src}.6", f"{src}.7")
+    return out
+
+
+def import_mnasnet_trunk(sd: Mapping, alpha: float = 1.0, seed: int = 0,
+                         device="cpu") -> Dict:
+    """A torchvision MNASNet state dict -> the flax tree ``{"params": ...}``
+    of ``MnasFPN(alpha, norm="none", torch_pad=True)``: the trunk from the
+    checkpoint with its BatchNorms folded, the FPN's lateral and output
+    convs (which have no torch source) from the port's seeded init on
+    ``device``.  A trunk leaf of another shape raises ``ValueError``, an
+    unknown one ``KeyError``, as JAX's ``merge_into`` does."""
+    from ..models.backbones.fpn2d import MnasFPN
+    from ..models.layers import init_flax_defaults
+    from .from_flax import to_flax_params
+
+    sd = {k: to_numpy(v) for k, v in sd.items() if hasattr(v, "shape")}
+    flat = _mnasnet_trunk_flat(sd)
+    module = MnasFPN(alpha=alpha, norm="none", torch_pad=True)
+    init_flax_defaults(module, torch.Generator().manual_seed(int(seed)))
+    tree = to_flax_params(module.to(device))
+    for key, arr in flat.items():
+        node, parts = tree, key.split("/")
+        for k in parts[:-1]:
+            if k not in node:
+                raise KeyError(f"importer produced unknown parameters: {key!r}")
+            node = node[k]
+        if parts[-1] not in node:
+            raise KeyError(f"importer produced unknown parameters: {key!r}")
+        if np.shape(node[parts[-1]]) != arr.shape:
+            raise ValueError(f"params/{key}: torch shape {arr.shape} != "
+                             f"flax shape {np.shape(node[parts[-1]])}")
+        node[parts[-1]] = np.ascontiguousarray(arr, np.float32)
+    return {"params": tree}
+
+
+def import_npz_entries(kind: str, sd: Mapping, **kw) -> Dict[str, np.ndarray]:
     """The ``.npz`` entries of ``tools/import_weights.py`` for ``kind``:
     ``clip`` -> ``vision``, ``text`` (flax trees) and ``meta`` (the configs,
-    the logit scale); ``dino`` -> ``params`` and ``meta`` (the config)."""
+    the logit scale); ``dino`` -> ``params`` and ``meta`` (the config);
+    ``mnasnet`` -> ``params`` (``import_mnasnet_trunk``'s tree; ``kw``:
+    ``alpha``, ``device``)."""
     sd = {k: to_numpy(v) for k, v in sd.items() if hasattr(v, "shape")}
     if kind == "clip":
         vision_cfg, text_cfg, vision, text, logit_scale = import_clip(sd)
@@ -185,4 +260,6 @@ def import_npz_entries(kind: str, sd: Mapping) -> Dict[str, np.ndarray]:
     if kind == "dino":
         cfg, params = import_dino(sd)
         return {"params": np.array(params, dtype=object), "meta": np.array(cfg, dtype=object)}
-    raise ValueError(f"unknown import kind {kind!r} (clip, dino)")
+    if kind == "mnasnet":
+        return {"params": np.array(import_mnasnet_trunk(sd, **kw), dtype=object)}
+    raise ValueError(f"unknown import kind {kind!r} (clip, dino, mnasnet)")

@@ -103,8 +103,10 @@ def test_lr_policies_raise():
         build_lr_schedule("bogus", 1e-3, 10)
     with pytest.raises(ValueError, match="Unknown lr policy"):
         jax_build_lr_schedule("bogus", 1e-3, 10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_lr_schedule("poly", 1e-3, 10)
+    # poly, once refused, is JAX's schedule (tests/test_torch_optim_runtime.py
+    # holds every policy)
+    port, ref = build_lr_schedule("poly", 1e-3, 10), jax_build_lr_schedule("poly", 1e-3, 10)
+    assert [port(k) for k in range(12)] == [float(ref(jnp.int32(k))) for k in range(12)]
 
 
 def test_registries_build_by_name(tmp_path):
@@ -123,8 +125,10 @@ def test_registries_build_by_name(tmp_path):
                             img_size=(32, 32), n_vox=16), default_args=dict(device="cpu"))
     assert len(ds) == 2 and "ScanNetDataset" in DATASETS.module_dict
     assert {"CelebaDataset", "SyntheticGanFaceDataset"} <= set(DATASETS.module_dict)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_dataset(dict(type="RepeatDataset", dataset=dict(type="X"), times=2))
+    rep = build_dataset(dict(type="RepeatDataset", times=2, dataset=dict(
+        type="SyntheticScanNetDataset", n_samples=2, n_views=3, img_size=(32, 32), n_vox=16)),
+        default_args=dict(device="cpu"))
+    assert len(rep) == 4 and type(rep.dataset).__name__ == "SyntheticScanNetDataset"
 
     hooks = [build_hook(dict(type=t)) for t in
              ("IterTimerHook", "TextLoggerHook", "CheckpointHook")]

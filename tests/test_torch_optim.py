@@ -129,8 +129,30 @@ def test_clip_is_optax_rule_not_clip_grad_norm(rng):
     (dict(type="Adam", lr=1e-3), dict(max_norm=1.0, norm_type=2)),
 ])
 def test_other_optimizers_and_options_raise(rng, cfg, clip):
-    with pytest.raises(NotImplementedError, match="Queue 1, the runtime.s leftovers"):
-        build_optimizer(cfg, _net(rng).parameters(), clip)
+    """Once the cases that raised: each is now the chain JAX's
+    ``build_optimizer`` makes, and ``amsgrad`` and ``norm_type`` are
+    swallowed as its factory swallows them (plain Adam, the clip by
+    ``max_norm``)."""
+    from deep3dmap_tpu.runners.optim import build_optimizer as jax_build_optimizer
+
+    net = _net(rng)
+    opt = build_optimizer(cfg, net.parameters(), clip)
+    tx = jax_build_optimizer(dict(cfg), grad_clip=clip)
+    params = jax.tree_util.tree_map(jnp.asarray, to_flax_params(net))
+    params = jax.tree_util.tree_map(lambda x: x.copy(), params)
+    state = tx.init(params)
+    for norm in (3.0, 0.5, 2.0):
+        g = _grads(rng, net, norm)
+        updates, state = tx.update(jax.tree_util.tree_map(jnp.asarray, _to_flax(net, g)),
+                                   state, params)
+        params = optax.apply_updates(params, updates)
+        opt.zero_grad()
+        for n, p in net.named_parameters():
+            p.grad = torch.from_numpy(g[n].copy())
+        opt.step()
+        for k, v in leaf_rel_errors(jax.tree_util.tree_map(np.asarray, params),
+                                    to_flax_params(net)).items():
+            assert v <= ATOL, (k, v)
 
 
 def test_step_without_gradients_raises(rng):

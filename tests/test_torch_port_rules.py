@@ -7,8 +7,9 @@
   StyleGAN2 generator and discriminator, the Gan2Shape runner, the parsers,
   the data path's GT fusion, the fixture writer, the data-gen, the face
   frameworks and the UV sampler's tables, GNeRF's framework and ray
-  sampler and readers) default to CUDA and raise on a machine without a
-  GPU unless the caller asks for ``device="cpu"`` (the CLIs on a
+  sampler and readers; the streaming demo, the quality twin, the elastic
+  supervisor and ``import_weights.py mnasnet``) default to CUDA and raise
+  on a machine without a GPU unless the caller asks for ``device="cpu"`` (the CLIs on a
   NeuralRecon config: ``tests/test_torch_cli.py``; on a Gan2Shape or GNeRF
   config: here; on the face configs: ``tests/test_torch_face_cli.py``);
 - the evaluation's worker processes import no torch.
@@ -336,3 +337,24 @@ def test_lerf_entry_points_raise_without_gpu(tmp_path):
     for cli in (train_cli, test_cli):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli.main([config, "--work-dir", str(tmp_path / "wd")])
+
+
+def test_runtime_entry_points_raise_without_gpu(tmp_path):
+    """The streaming demo, the quality twin, the elastic supervisor and the
+    MNASNet importer default to the card (``--device cpu`` runs them here:
+    ``tests/test_torch_demo_quality.py``, ``tests/test_torch_elastic.py``)."""
+    _no_gpu()
+    from deep3dmap_tpu_torch.demos import demo_neucon
+    from deep3dmap_tpu_torch.tools import import_weights, quality_regression, run_elastic
+
+    cfg = tmp_path / "cfg.py"
+    cfg.write_text("model = dict(type='NeuralRecon')\n")
+    calls = [lambda: demo_neucon.main(["--out", str(tmp_path / "demo")]),
+             lambda: quality_regression.main(["--workdir", str(tmp_path / "q")]),
+             lambda: run_elastic.main(["--", str(cfg)]),
+             lambda: import_weights.main(["mnasnet", str(tmp_path / "none.pth"),
+                                          str(tmp_path / "out.npz")])]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not (tmp_path / "q").exists() and not (tmp_path / "out.npz").exists()
