@@ -235,6 +235,35 @@ Phases; any error ends the run with a nonzero exit and no result line:
    ``set_sync_debug_mode("error")`` (the per-fragment host copy outside
    it), keyframes/s of both runs.
 
+27. the SfM layer (``deep3dmap_tpu_torch/core/sfm/``), float32 with TF32
+   off unless float64 is named: (a) the port on the CPU against the port on
+   the card on ``tests/test_sfm.py``'s ring scene (6 cameras, 64 points,
+   0.5 px of noise, a perturbed start), float64 and float32: 20 LM
+   iterations with and without Huber, 15 pose-graph iterations on a
+   12-node chain with a loop closure, RANSAC with 30% outliers on uniforms
+   drawn once on the host and replayed on both; float64 states within 1e-9
+   relative and the same accept sequence while the decisions are above
+   rounding (past the cost's floor both sides compare two costs equal to
+   ~1e-15 and either may take a step of rounding's size: then the cost
+   within 1e-9, the states within 1e-6), float32 costs within 1e-3 and
+   rotations within 1e-4 rad, the inliers equal but where a Sampson
+   distance lies within 1e-3 of the threshold; (b) LM at
+   ``tools/benchmark_ba.py``'s default problem (24 cameras, 4,096 points,
+   32,768 observations) and at the capacity ``ba.py:29-32`` names (64,
+   16,384, 131,072), 30 iterations each under
+   ``set_sync_debug_mode("error")``: iterations/s and observations/s (CUDA
+   events), the final cost within 5% of sigma^2 (2M - 6C - 3P) / 2, the
+   peak bytes, two runs bitwise equal; the port's tool run as a user runs
+   it, its JSON line read back; (c) ``match_images`` on two 640x480 frames
+   (k 512: the share of matches that recover the shift), RANSAC of 256
+   hypotheses over 2,048 correspondences (30% outliers) and
+   ``recover_pose`` (rotation error below 1 degree), ms per call and the
+   host syncs counted (``eigh``'s); (d) ``optimize`` on a 64-node chain
+   with 8 loop closures, 15 iterations, sync-free, the anchor unchanged,
+   ms per iteration; (e) torch.profiler over 2 LM iterations at capacity:
+   launches per iteration, device ms, the busy share and the top 5 device
+   ops.  No SfM op launches a kernel of the repo.
+
 The raster's launches in the kernels line are phases 7's, 12's and 16's
 main paths together; the fused loss's are phase 4's (forward) or phase 10's
 (backward), phase 14's, phase 25's (both attempts, train and val) and
@@ -246,6 +275,7 @@ Before the last line it prints one
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -4002,6 +4032,460 @@ def phase_demo(card, work, demo_mod, nr_module, fused_loss, train_mod, runtime_d
     return launches
 
 
+# --------------------------------------------------------------- phase 27 --
+# tools/benchmark_ba.py's default problem, and the capacity that
+# deep3dmap_tpu/core/sfm/ba.py:29-32 names: (cameras, points, views a point)
+SFM_SIZES = (("default", (24, 4096, 8)), ("capacity", (64, 16384, 8)))
+SFM_ITERS, SFM_REPS, SFM_SIGMA = 30, 3, 0.5
+SFM_EXPECT_TOL = 0.05         # final cost against sigma^2 (2M - 6C - 3P) / 2
+TOL_SFM64 = 1e-9              # CPU vs card, float64: states, relative
+TOL_SFM64_END = 1e-6          # ... after the cost's floor (rounding-sized steps)
+TOL_SFM32_COST, TOL_SFM32_ROT = 1e-3, 1e-4
+TOL_SFM32_THRESH = 1e-3       # a Sampson distance this near thresh may flip
+SFM_DECIDED = 1e-12           # a cost change below this (relative) is rounding
+SFM_IMG_HW, SFM_K, SFM_SHIFT = (480, 640), 512, 6
+SFM_RANSAC = (256, 2048, 0.3)       # hypotheses, correspondences, outliers
+SFM_GRAPH = (64, 8, 15)             # nodes, loop closures, iterations
+SFM_PROFILED = 2                    # LM iterations in the profile window
+
+
+def _rodrigues(w) -> np.ndarray:
+    w = np.asarray(w, np.float64)
+    th = np.linalg.norm(w, axis=-1)[..., None, None]
+    W = np.zeros(w.shape[:-1] + (3, 3))
+    W[..., 0, 1], W[..., 0, 2], W[..., 1, 2] = -w[..., 2], w[..., 1], -w[..., 0]
+    W = W - np.swapaxes(W, -1, -2)
+    safe = np.where(th < 1e-12, 1.0, th)
+    A = np.where(th < 1e-12, 1.0, np.sin(safe) / safe)
+    B = np.where(th < 1e-12, 0.5, (1.0 - np.cos(safe)) / (safe * safe))
+    return np.eye(3) + A * W + B * (W @ W)
+
+
+def _ring_scene(rng, n_cams, n_pts, noise):
+    """``tests/test_sfm.py:82-107``'s scene in numpy: (K, Rs, ts, X, cam_idx,
+    pt_idx, uv) with ``noise`` px on the observations."""
+    X = rng.randn(n_pts, 3) * 0.6
+    K = np.tile(np.array([320.0, 320.0, 160.0, 120.0]), (n_cams, 1))
+    Rs, ts = [], []
+    for i in range(n_cams):
+        ang = 0.4 * i / max(n_cams - 1, 1)
+        R = _rodrigues([0.0, ang, 0.0])
+        Rs.append(R)
+        ts.append(-R @ np.array([2.5 * np.sin(ang), 0.1 * i, -2.5 * np.cos(ang)]))
+    Rs, ts = np.stack(Rs), np.stack(ts)
+    cam_idx = np.repeat(np.arange(n_cams), n_pts)
+    pt_idx = np.tile(np.arange(n_pts), n_cams)
+    Xc = np.einsum("nij,nj->ni", Rs[cam_idx], X[pt_idx]) + ts[cam_idx]
+    uv = K[cam_idx, :2] * Xc[:, :2] / Xc[:, 2:] + K[cam_idx, 2:]
+    return K, Rs, ts, X, cam_idx, pt_idx, uv + noise * rng.randn(*uv.shape)
+
+
+def _pose_ring(rng, N, loops, noise=0.03):
+    """Ground-truth poses, noisy odometry edges and exact loop closures
+    (``tests/test_sfm.py:251-276``), the start integrated from the
+    odometry: (R0, t0, (i, j, Rz, tz, w))."""
+    Rg, tg = _rodrigues(rng.randn(N, 3) * 0.3), rng.randn(N, 3)
+    pairs = [(a, a + 1) for a in range(N - 1)] + list(loops)
+    Rz = np.stack([Rg[a].T @ Rg[b] for a, b in pairs])
+    tz = np.stack([Rg[a].T @ (tg[b] - tg[a]) for a, b in pairs])
+    Rz[:N - 1] = _rodrigues(rng.randn(N - 1, 3) * noise) @ Rz[:N - 1]
+    tz[:N - 1] += rng.randn(N - 1, 3) * noise
+    R0, t0 = [Rg[0]], [tg[0]]
+    for k in range(N - 1):
+        Rk, tk = R0[-1], t0[-1]
+        R0.append(Rk @ Rz[k])
+        t0.append(Rk @ tz[k] + tk)
+    i, j = (np.array(p, np.int64) for p in zip(*pairs))
+    return np.stack(R0), np.stack(t0), (i, j, Rz, tz, np.ones(len(pairs)))
+
+
+def _on(dev, dtype, *arrays):
+    """numpy arrays as tensors on ``dev``: floating ones in ``dtype``."""
+    out = []
+    for a in arrays:
+        t = torch.as_tensor(np.asarray(a))
+        out.append(t.to(dev, dtype) if t.is_floating_point() else t.to(dev))
+    return out
+
+
+def _recorded(mod, name, solve):
+    """``solve()`` with every call of ``mod.<name>`` (a solver's cost
+    function: the start's cost, then each iteration's candidate) recorded
+    as a float; (result, costs)."""
+    seen, orig = [], getattr(mod, name)
+
+    def spy(*a):
+        c = orig(*a)
+        seen.append(float(c))
+        return c
+    setattr(mod, name, spy)
+    try:
+        return solve(), seen
+    finally:
+        setattr(mod, name, orig)
+
+
+def _decisions(seen):
+    """(accepts, the number of leading iterations decided above rounding)
+    from a recorded run: an iteration whose candidate is within
+    ``SFM_DECIDED`` of the cost it meets is decided by rounding alone, and
+    so, on either device, may be every later one."""
+    cost, accepts, n = seen[0], [], None
+    for k, new in enumerate(seen[1:]):
+        if n is None and abs(new - cost) <= SFM_DECIDED * abs(cost):
+            n = k
+        accepts.append(new < cost)
+        cost = min(cost, new)
+    return accepts, len(accepts) if n is None else n
+
+
+def _rel(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).abs().max() / a.abs().max().clamp_min(1e-300))
+
+
+def _rot_err(Ra, Rb, so3_log) -> float:
+    """Largest angle (rad) between matching rotations of two stacks."""
+    return float(so3_log((Ra.double().cpu().transpose(-1, -2) @ Rb.double().cpu()))
+                 .norm(dim=-1).max())
+
+
+def _solver_cpu_vs_card(label, run, mod, cost_name, n_states, iters, dtype, so3_log):
+    """``run(dev, iters)`` (an LM solve: a result whose first ``n_states``
+    entries are the states, rotations first, and ``mod.<cost_name>`` its
+    cost function) on the CPU and on the card.  float64: the same accepts while the decisions
+    are above rounding, the states after those iterations within 1e-9,
+    after all of them the cost within 1e-9 and the states within 1e-6;
+    float32: the cost within 1e-3, the rotations within 1e-4 rad."""
+    runs = {dev: _recorded(mod, cost_name, lambda: run(dev, iters)) for dev in ("cpu", "cuda")}
+    (rc, sc), (rg, sg) = runs["cpu"], runs["cuda"]
+    cost_rel = abs(min(sc) - min(sg)) / min(sc)
+    if dtype == torch.float64:
+        (ac, n), (ag, _) = _decisions(sc), _decisions(sg)
+        check(n >= 3 and ac[:n] == ag[:n], f"{label} float64: accepts {ac} (CPU) {ag} (card), "
+              f"decided to iteration {n}")
+        mid = {dev: run(dev, n) for dev in ("cpu", "cuda")}
+        err_n = max(_rel(a, b) for a, b in zip(mid["cpu"][:n_states], mid["cuda"][:n_states]))
+        err_end = max(_rel(a, b) for a, b in zip(rc[:n_states], rg[:n_states]))
+        check(err_n < TOL_SFM64 and cost_rel < TOL_SFM64 and err_end < TOL_SFM64_END,
+              f"{label} float64 CPU vs card: states {err_n:.3e} after the {n} decided "
+              f"iterations, {err_end:.3e} after {iters}, cost {cost_rel:.3e}")
+        print(f"sfm (a) {label} float64: decided={n} accepts_cpu="
+              f"{''.join('AR'[not a] for a in ac)} accepts_card="
+              f"{''.join('AR'[not a] for a in ag)} state_rel_at_decided={err_n:.3e} "
+              f"state_rel_at_{iters}={err_end:.3e} cost_rel={cost_rel:.3e}", flush=True)
+    else:
+        rot = _rot_err(rc[0], rg[0], so3_log)
+        check(cost_rel < TOL_SFM32_COST and rot < TOL_SFM32_ROT,
+              f"{label} float32 CPU vs card: cost {cost_rel:.3e}, rotation {rot:.3e}")
+        print(f"sfm (a) {label} float32: cost_cpu={min(sc):.6f} cost_card={min(sg):.6f} "
+              f"cost_rel={cost_rel:.3e} rot_rad={rot:.3e}", flush=True)
+    return rc
+
+
+def _sfm_cpu_vs_card(sfm, ba_mod, pg_mod, tri_mod):
+    """(a): the port on the CPU against the port on the card, float64 and
+    float32: LM with and without Huber, the pose graph, RANSAC with the
+    uniforms drawn once on the host and replayed on both."""
+    rng = np.random.RandomState(0)
+    K, Rs, ts, X, ci, pi, uv = _ring_scene(rng, 6, 64, SFM_SIGMA)
+    xi = rng.randn(6, 6) * 0.02
+    xi[:2] = 0.0
+    dR = _rodrigues(xi[:, 3:])
+    start = (dR @ Rs, np.einsum("nij,nj->ni", dR, ts) + xi[:, :3], X + rng.randn(*X.shape) * 0.05)
+    uv_out = uv.copy()
+    uv_out[::37] += 80.0                  # gross outliers for the Huber run
+    gR0, gt0, graph = _pose_ring(rng, 12, loops=[(0, 11)])
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).split(".")[-1]
+
+        def on(dev, *arrays):
+            return _on(dev, dtype, *arrays)
+
+        for name, obs, huber in (("l2", uv, None), ("huber", uv_out, 2.0)):
+            def lm(dev, iters):
+                K_, uv_, w = on(dev, K, obs, np.ones(len(ci)))
+                prob = ba_mod.BAProblem(K_, *on(dev, ci, pi), uv_, w, *on(dev, np.arange(6) < 2))
+                return sfm.lm_solve(*on(dev, *start), prob, iters=iters, huber=huber)
+            _solver_cpu_vs_card(f"lm {name}", lm, ba_mod, "robust_cost", 3, 20, dtype,
+                                sfm.so3_log)
+
+        def pose_graph(dev, iters):
+            return sfm.optimize(*on(dev, gR0, gt0), pg_mod.PoseGraph(*on(dev, *graph)),
+                                iters=iters)
+        R, t, cost, c0 = _solver_cpu_vs_card("pose graph", pose_graph, pg_mod, "graph_cost",
+                                             2, 15, dtype, sfm.so3_log)
+        check(float(cost) < 0.5 * float(c0), f"pose graph {tag}: cost {cost} from {c0}")
+
+        # RANSAC, the host's uniforms replayed on both devices
+        n_pts = 200
+        Kr, *_, uvr = _ring_scene(np.random.RandomState(1), 2, n_pts, 0.0)
+        uv1, uv2 = uvr[:n_pts], uvr[n_pts:].copy()
+        bad = rng.rand(n_pts) < 0.3
+        uv2[bad] += rng.randn(bad.sum(), 2) * 40 + 20
+        x1 = (uv1 - Kr[0, 2:]) / Kr[0, :2]
+        x2 = (uv2 - Kr[1, 2:]) / Kr[1, :2]
+        gen = torch.Generator().manual_seed(0)
+        g = tri_mod._hypothesis_uniforms(gen, SFM_RANSAC[0], torch.zeros(n_pts, dtype=dtype))
+        res = {}
+        with _replayed_uniforms(tri_mod, g):
+            for dev in ("cpu", "cuda"):
+                a, b = on(dev, x1, x2)
+                E, inl = sfm.essential_ransac(a, b, None, n_hypotheses=SFM_RANSAC[0],
+                                              thresh=1e-4)
+                R, _ = sfm.recover_pose(E, a[inl], b[inl])
+                res[dev] = (E.cpu(), inl.cpu(), R.cpu())
+        (Ec, ic, Rc), (Eg, ig, Rg_) = res["cpu"], res["cuda"]
+        sign = torch.sign((Ec * Eg).sum())
+        e_err = float((Ec - sign * Eg).abs().max())
+        differ = (ic != ig).nonzero().flatten()
+        d = sfm.sampson_distance(Ec, *on("cpu", x1, x2))
+        near = bool(((d[differ] - 1e-4).abs() <= TOL_SFM32_THRESH * 1e-4).all())
+        rot = _rot_err(Rc[None], Rg_[None], sfm.so3_log)
+        if dtype == torch.float64:
+            check(len(differ) == 0 and e_err < 1e-9 and rot < 1e-9,
+                  f"RANSAC float64 CPU vs card: {len(differ)} inliers differ, E {e_err:.3e}, "
+                  f"rotation {rot:.3e}")
+        else:
+            check(near and rot < TOL_SFM32_ROT,
+                  f"RANSAC float32 CPU vs card: {len(differ)} inliers differ (near thresh: "
+                  f"{near}), rotation {rot:.3e}")
+        print(f"sfm (a) ransac {tag}: inliers={int(ic.sum())} differ={len(differ)} "
+              f"E_abs_up_to_sign={e_err:.3e} rot_rad={rot:.3e}", flush=True)
+
+
+@contextlib.contextmanager
+def _replayed_uniforms(tri_mod, g):
+    """RANSAC's draw (``triangulate._hypothesis_uniforms``) returns ``g`` on
+    the inputs' device inside the block."""
+    orig = tri_mod._hypothesis_uniforms
+    tri_mod._hypothesis_uniforms = lambda gen, H, like: g.to(like.device, like.dtype)
+    try:
+        yield
+    finally:
+        tri_mod._hypothesis_uniforms = orig
+
+
+def _count_syncs(fn):
+    """(fn(), the host syncs it made): ``set_sync_debug_mode("warn")``'s
+    warnings, counted."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _no_sync(fn):
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _events_ms(fn, reps: int) -> float:
+    """Best of ``reps`` calls, CUDA events, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
+def _sfm_ba_full_width(sfm, bench):
+    """(b): the tool's default problem and the capacity, 30 iterations."""
+    out = {}
+    for name, (C, P, V) in SFM_SIZES:
+        rng = np.random.RandomState(0)
+        K, Rs, ts, X, prob = bench.make_problem(rng, C, P, V, device="cuda")
+        start = bench.perturbed_start(rng, Rs, ts, X)
+        M = prob.uv.shape[0]
+
+        def solve():
+            return sfm.lm_solve(*start, prob, iters=SFM_ITERS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        first = _no_sync(solve)                  # the whole solve, no host sync
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = _events_ms(solve, SFM_REPS)
+        again = solve()
+        same = all(torch.equal(a, b) for a, b in zip(first, again))
+        check(same, f"BA {name}: two runs of the same problem differ")
+        expect = SFM_SIGMA ** 2 * (2 * M - 6 * C - 3 * P) / 2
+        c0, c = float(first.initial_cost), float(first.cost)
+        check(abs(c - expect) <= SFM_EXPECT_TOL * expect,
+              f"BA {name}: final cost {c} against its expectation {expect}")
+        ips = SFM_ITERS / (ms / 1e3)
+        out[name] = dict(C=C, P=P, M=M, ms=ms, iters_per_s=ips, obs_per_s=ips * M,
+                         initial_cost=c0, final_cost=c, expect=expect, peak_bytes=peak)
+        print(f"sfm (b) ba {name}: cams={C} points={P} observations={M} iters={SFM_ITERS} "
+              f"solve_ms={ms:.6f} lm_iters_per_s={ips:.6f} obs_per_s={ips * M:.1f} "
+              f"initial_cost={c0:.6f} final_cost={c:.6f} expected={expect:.1f} "
+              f"({(c - expect) / expect:+.4%}) peak_bytes={peak} U_bytes={P * C * 18 * 4} "
+              f"bitwise_repeat={same} host_syncs=0", flush=True)
+    return out
+
+
+def _sfm_tool(card, default):
+    """The port's tool as a user runs it, its JSON line read back."""
+    tool = os.path.join(os.path.dirname(os.path.abspath(__file__)), "deep3dmap_tpu_torch",
+                        "tools", "benchmark_ba.py")
+    r = subprocess.run([sys.executable, tool], capture_output=True, text=True, timeout=300)
+    check(r.returncode == 0, f"benchmark_ba.py exit {r.returncode}: {r.stderr[-2000:]}")
+    line = json.loads(r.stdout.strip().splitlines()[-1])
+    want = {"report", "cams", "points", "observations", "lm_iters_per_s", "obs_per_s",
+            "initial_cost", "final_cost", "device", "power_limit_w"}
+    check(set(line) == want and line["device"] == torch.cuda.get_device_name(0)
+          and line["observations"] == default["M"]
+          and abs(line["final_cost"] - default["final_cost"]) <= 1e-6 * default["final_cost"],
+          f"benchmark_ba.py printed {line}")
+    print(f"sfm (b) tool: {json.dumps(line)} card={card!r}", flush=True)
+
+
+def _shifted_frames(rng, H, W, shift):
+    img = rng.rand(H, W)
+    pad = np.pad(img, 2)
+    img = (sum(pad[dy:dy + H, dx:dx + W] for dy in range(5) for dx in range(5)) / 25.0)
+    img = img.astype(np.float32)
+    return img, np.roll(img, shift, axis=1)
+
+
+def _sfm_two_view(sfm):
+    """(c): ``match_images`` on two 640x480 frames, RANSAC over 2,048
+    correspondences and ``recover_pose``."""
+    H, W = SFM_IMG_HW
+    img1, img2 = (torch.tensor(a, device="cuda")
+                  for a in _shifted_frames(np.random.RandomState(2), H, W, SFM_SHIFT))
+    (k1, k2, m), match_syncs = _count_syncs(lambda: sfm.match_images(img1, img2, k=SFM_K))
+    sel = m.valid.cpu().numpy()
+    dx = k2.xy[m.idx2].cpu().numpy()[sel, 0] - k1.xy.cpu().numpy()[sel, 0]
+    share = float(np.mean(np.abs(((dx - SFM_SHIFT) + W // 2) % W - W // 2) <= 1))
+    check(sel.sum() >= 50 and share > 0.7, f"match_images: {sel.sum()} matches, "
+          f"{share:.3f} recover the shift")
+    match_ms = _events_ms(lambda: sfm.match_images(img1, img2, k=SFM_K), 10)
+
+    Hh, N, out_share = SFM_RANSAC
+    rng = np.random.RandomState(3)
+    K, Rs, *_, uv = _ring_scene(rng, 2, N, 0.0)
+    uv2 = uv[N:].copy()
+    bad = rng.rand(N) < out_share
+    uv2[bad] += rng.randn(bad.sum(), 2) * 40 + 20
+    x1 = torch.tensor((uv[:N] - K[0, 2:]) / K[0, :2], dtype=torch.float32, device="cuda")
+    x2 = torch.tensor((uv2 - K[1, 2:]) / K[1, :2], dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    # the inliers vote in recover_pose through its weights: a boolean index
+    # would be a host sync of the caller's own
+    def two_view():
+        E, inl = sfm.essential_ransac(x1, x2, gen, n_hypotheses=Hh, thresh=1e-4)
+        return E, inl, sfm.recover_pose(E, x1, x2, inl.to(x1.dtype))
+    (E, inl, (R, t)), syncs = _count_syncs(two_view)
+    Rt = torch.tensor(Rs[1] @ Rs[0].T, dtype=torch.float32)
+    rot_deg = float(np.degrees(_rot_err(R[None], Rt[None], sfm.so3_log)))
+    inl_np = inl.cpu().numpy()
+    check(rot_deg < 1.0 and inl_np[~bad].mean() > 0.95 and inl_np[bad].mean() < 0.15,
+          f"two-view: rotation error {rot_deg:.4f} deg, clean kept {inl_np[~bad].mean():.3f}, "
+          f"outliers kept {inl_np[bad].mean():.3f}")
+    # which calls sync: eigh at the shapes the two-view path gives it
+    eigh_syncs = {}
+    for shape in ((Hh, 9, 9), (Hh, 3, 3), (9, 9), (3, 3)):
+        A = torch.randn(*shape, device="cuda")
+        A = A @ A.transpose(-1, -2)
+        eigh_syncs["x".join(map(str, shape))] = _count_syncs(lambda: torch.linalg.eigh(A))[1]
+    ransac_ms = _events_ms(lambda: sfm.essential_ransac(x1, x2, gen, n_hypotheses=Hh,
+                                                        thresh=1e-4), 10)
+    pose_ms = _events_ms(lambda: sfm.recover_pose(E, x1, x2, inl.to(x1.dtype)), 10)
+    print(f"sfm (c) two-view: match_images {H}x{W} k={SFM_K} ms={match_ms:.6f} "
+          f"matches={int(sel.sum())} shift_share={share:.4f} host_syncs={match_syncs}; "
+          f"essential_ransac H={Hh} N={N} outliers={int(bad.sum())} ms={ransac_ms:.6f} "
+          f"inliers={int(inl_np.sum())}; recover_pose ms={pose_ms:.6f} rot_err_deg={rot_deg:.6f}; "
+          f"host syncs in RANSAC + recover_pose: {syncs} (eigh, 2 + 2 + 1 calls, by shape: "
+          f"{eigh_syncs})", flush=True)
+
+
+def _sfm_pose_graph(sfm, pg_mod):
+    """(d): a 64-node noisy odometry chain with 8 loop closures."""
+    N, L, iters = SFM_GRAPH
+    rng = np.random.RandomState(4)
+    loops = [(a, a + N // 2) for a in range(0, N // 2, N // (2 * L))]
+    R0, t0, graph = _pose_ring(rng, N, loops=loops)
+    R0, t0 = _on("cuda", torch.float32, R0, t0)
+    g = pg_mod.PoseGraph(*_on("cuda", torch.float32, *graph))
+    R, t, cost, c0 = _no_sync(lambda: sfm.optimize(R0, t0, g, iters=iters))
+    check(float(cost) < 0.5 * float(c0), f"pose graph: cost {float(cost)} from {float(c0)}")
+    check(torch.equal(R[0], R0[0]) and torch.equal(t[0], t0[0]), "pose graph: the anchor moved")
+    ms = _events_ms(lambda: sfm.optimize(R0, t0, g, iters=iters), 3)
+    print(f"sfm (d) pose graph: nodes={N} edges={len(graph[0])} loops={L} iters={iters} "
+          f"cost {float(c0):.6f} -> {float(cost):.6f} ms_per_iter={ms / iters:.6f} "
+          f"host_syncs=0 anchor_unchanged=True", flush=True)
+
+
+def _sfm_profile(sfm, bench):
+    """(e): torch.profiler over ``SFM_PROFILED`` LM iterations of the
+    capacity problem."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+    C, P, V = dict(SFM_SIZES)["capacity"]
+    rng = np.random.RandomState(0)
+    K, Rs, ts, X, prob = bench.make_problem(rng, C, P, V, device="cuda")
+    start = bench.perturbed_start(rng, Rs, ts, X)
+
+    def solve():
+        return sfm.lm_solve(*start, prob, iters=SFM_PROFILED)
+    # the wall unprofiled (the profiler's own host cost would count as idle)
+    wall_ms = _events_ms(solve, SFM_REPS)
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        solve()
+        torch.cuda.synchronize()
+    ks = device_kernels(prof)
+    dev_ms = sum(e.self_device_time_total for e in ks) / 1e3
+    top = sorted(ks, key=lambda e: -e.self_device_time_total)[:5]
+    launches = sum(e.count for e in ks) / SFM_PROFILED
+    print(f"sfm (e) profile: capacity, {SFM_PROFILED} LM iterations: "
+          f"launches_per_iter={launches:.1f} device_ms_per_iter={dev_ms / SFM_PROFILED:.6f} "
+          f"wall_ms_per_iter={wall_ms / SFM_PROFILED:.6f} (unprofiled, CUDA events) "
+          f"busy={dev_ms / wall_ms:.4f}", flush=True)
+    for e in top:
+        print(f"sfm (e)   {e.self_device_time_total / 1e3 / SFM_PROFILED:10.6f} ms/iter "
+              f"{e.self_device_time_total / 1e3 / dev_ms:7.2%} x{e.count // SFM_PROFILED} "
+              f"{e.key[:110]}", flush=True)
+
+
+def phase_sfm(card):
+    """Phase 27: the SfM layer on the card (no kernel of the repo)."""
+    phase("the SfM layer: CPU vs card (float64, float32); BA at the tool's default and at "
+          "capacity; two-view at 640x480; a 64-node pose graph; one profile")
+    set_tf32(cudnn=False, matmul=False)
+    import importlib
+    from deep3dmap_tpu_torch.core import sfm
+    from deep3dmap_tpu_torch.tools import benchmark_ba as bench
+    ba_mod = importlib.import_module("deep3dmap_tpu_torch.core.sfm.ba")
+    pg_mod = importlib.import_module("deep3dmap_tpu_torch.core.sfm.pose_graph")
+    tri_mod = importlib.import_module("deep3dmap_tpu_torch.core.sfm.triangulate")
+    t0 = time.perf_counter()
+    _sfm_cpu_vs_card(sfm, ba_mod, pg_mod, tri_mod)
+    ba = _sfm_ba_full_width(sfm, bench)
+    _sfm_tool(card, ba["default"])
+    _sfm_two_view(sfm)
+    _sfm_pose_graph(sfm, pg_mod)
+    _sfm_profile(sfm, bench)
+    print(f"sfm: phase 27 took {time.perf_counter() - t0:.3f} s card={card!r}", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -4097,6 +4581,11 @@ def main():
                                    runtime["train_dir"])
         check((fused_loss.launches, fused_loss.bwd_launches) == demo_launches,
               "the demo's streaming launched a loss kernel")
+    # the SfM layer launches none of the repo's kernels
+    counts = (fused_loss.launches, fused_loss.bwd_launches, raster.launches)
+    phase_sfm(card)
+    check((fused_loss.launches, fused_loss.bwd_launches, raster.launches) == counts,
+          "the SfM phase launched a kernel of the repo")
     print(f"phases took {time.perf_counter() - t0:.3f} s", flush=True)
 
     print(json.dumps({"kernels": [{

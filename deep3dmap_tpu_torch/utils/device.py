@@ -6,6 +6,7 @@ GPU raises instead of continuing on the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -32,3 +33,16 @@ def make_deterministic() -> None:
     Called by the runner and the CLIs."""
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """float32 matmuls at full precision inside the block (TF32 off),
+    whatever the caller's setting; restored on exit.  A solver whose result
+    is compared with float32 (the SfM layer's Schur complement) runs in it."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

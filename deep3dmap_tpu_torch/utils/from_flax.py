@@ -1,6 +1,7 @@
 """Carry flax params across: a JAX ``init`` param tree -> the port's modules,
-and a JAX training checkpoint -> the port's ``TrainState``
-(``load_jax_checkpoint``).
+a JAX training checkpoint -> the port's ``TrainState``
+(``load_jax_checkpoint``), and a JAX ``NamedTuple`` of arrays (the SfM
+layer's problems) -> the port's twin (``from_jax_tuple``).
 
 The reverse of ``deep3dmap_tpu/utils/torch_import.py:50-57`` (which maps torch
 state dicts into flax trees), kept as the port's own copy:
@@ -39,6 +40,7 @@ import torch
 import torch.nn as nn
 
 from ..models.layers import Conv, ConvTranspose, Dense, GroupNorm, LayerNorm
+from .device import resolve_device
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -377,3 +379,19 @@ def to_flax_adam_state(module: nn.Module, adam: torch.optim.Adam) -> Dict:
     return {"count": steps.pop() if steps else 0,
             "mu": _to_flax_tree(module, {n: s.get("exp_avg") for n, s in state.items()}),
             "nu": _to_flax_tree(module, {n: s.get("exp_avg_sq") for n, s in state.items()})}
+
+
+def from_jax_tuple(cls, value, device=None):
+    """A JAX ``NamedTuple`` of arrays (``BAProblem``, ``PoseGraph``,
+    ``Keypoints``, ``Matches``, or its numpy twin) as the port's ``cls`` on
+    ``device`` (``None``: the card, raising without one), field by field by
+    name.  Floating and bool dtypes are kept; integer fields become int64,
+    the port's index dtype."""
+    dev = resolve_device(device)
+    out = {}
+    for name in cls._fields:
+        a = torch.from_numpy(np.array(getattr(value, name)))
+        if not (a.is_floating_point() or a.dtype == torch.bool):
+            a = a.long()
+        out[name] = a.to(dev)
+    return cls(**out)

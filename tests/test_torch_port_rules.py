@@ -8,7 +8,8 @@
   the data path's GT fusion, the fixture writer, the data-gen, the face
   frameworks and the UV sampler's tables, GNeRF's framework and ray
   sampler and readers; the streaming demo, the quality twin, the elastic
-  supervisor and ``import_weights.py mnasnet``) default to CUDA and raise
+  supervisor and ``import_weights.py mnasnet``; the SfM tool
+  ``benchmark_ba.py``, its problem builder and ``from_jax_tuple``) default to CUDA and raise
   on a machine without a GPU unless the caller asks for ``device="cpu"`` (the CLIs on a
   NeuralRecon config: ``tests/test_torch_cli.py``; on a Gan2Shape or GNeRF
   config: here; on the face configs: ``tests/test_torch_face_cli.py``);
@@ -358,3 +359,38 @@ def test_runtime_entry_points_raise_without_gpu(tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert not (tmp_path / "q").exists() and not (tmp_path / "out.npz").exists()
+
+
+def test_sfm_entry_points_raise_without_gpu():
+    """The SfM layer's tool and problem builders default to the card: the
+    tool's ``main`` and ``make_problem``, and ``from_jax_tuple`` (how the
+    tests and the tool carry a JAX problem across).  The functions on
+    tensors follow their inputs' device.  ``lm_solve_sharded`` is not in the
+    port yet; every other name of the JAX package's ``core/sfm`` is."""
+    _no_gpu()
+    from deep3dmap_tpu_torch.core import sfm
+    from deep3dmap_tpu_torch.core.sfm.ba import BAProblem
+    from deep3dmap_tpu_torch.tools import benchmark_ba
+    from deep3dmap_tpu_torch.utils.from_flax import from_jax_tuple
+
+    rng = np.random.RandomState(0)
+    for call in (lambda: benchmark_ba.main(["--cams", "4", "--pts", "8", "--obs-per-pt", "2"]),
+                 lambda: benchmark_ba.main(["--device", "cuda"]),
+                 lambda: benchmark_ba.make_problem(rng, 4, 8, 2)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    K, Rs, ts, X, prob = benchmark_ba.make_problem(rng, 4, 8, 2, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        from_jax_tuple(BAProblem, prob)
+    assert from_jax_tuple(BAProblem, prob, device="cpu").uv.device == torch.device("cpu")
+    res = sfm.lm_solve(Rs, ts, X, prob, iters=1)
+    assert {v.device.type for v in res} == {"cpu"}
+    import deep3dmap_tpu_torch.core.sfm as port
+    assert set(port.__all__) == {
+        "BAProblem", "BAResult", "lm_solve", "project", "reprojection_residuals", "Keypoints",
+        "Matches", "detect_keypoints", "extract_descriptors", "harris_response",
+        "match_descriptors", "match_images", "PoseGraph", "compose_chain", "edge_residual",
+        "graph_cost", "odometry_graph", "optimize", "se3_compose", "se3_exp", "se3_inverse",
+        "se3_log", "se3_retract", "so3_exp", "so3_log", "transform_points",
+        "essential_eight_point", "normalize_points", "recover_pose", "relative_pose",
+        "triangulate", "triangulate_two_view", "essential_ransac", "sampson_distance"}
