@@ -264,6 +264,31 @@ Phases; any error ends the run with a nonzero exit and no result line:
    launches per iteration, device ms, the busy share and the top 5 device
    ops.  No SfM op launches a kernel of the repo.
 
+28. the detection data path (``configs/detection/coco_custom.py``,
+   mmdetection's published COCO defaults): (a) a fixture written at run
+   time (64 PNG frames at 640x480, ~7.3 COCO-like boxes a frame over 80
+   classes, the annotation pickle through ``utils/fileio.dump``),
+   ``CustomDataset`` through ``build_dataset`` and ``build_dataloader``
+   (``GroupSampler`` from its ``flag``), the train pipeline (load, Resize
+   to 1333x800, RandomFlip, PhotoMetricDistortion, AutoAugment with one
+   policy each of Shear, Rotate, Translate, Color, Equalize, Brightness and
+   Contrast, Normalize, Pad 32, ToTensor, Collect) uploaded by
+   ``prefetch_to_device``: ms per sample, the first sample equal to the
+   host's bit for bit; (b) the test pipeline's ``MultiScaleFlipAug`` (two
+   scales, a flip): ms per sample; (c) the box ops on the card against the
+   port's CPU run of the same inputs -- ``bbox_overlaps`` 5,000 x 5,000,
+   ``batched_nms`` on 1,000 and 5,000 scored boxes over 80 classes,
+   ``soft_nms`` linear and gaussian on 1,000, ``box_iou_rotated`` and
+   ``nms_rotated`` on 1,000 rotated boxes: equal keep sets, scores and IoUs
+   within 1e-5; ms per call (median of 10 after warm-up, CUDA events),
+   launches and device ms per call (torch.profiler over 5 calls), host
+   syncs of a call after a warm-up one, the top device ops; (d) detections made from the fixture's GT
+   (jittered copies and false positives) through ``batched_nms`` on the
+   card, the top 100 an image, ``evaluate`` for mAP at IoU 0.5 and 0.75
+   (perfect detections give 1.0; the jittered mAP equals the CPU's) and
+   for recall at (100, 300, 1000) proposals: seconds per evaluation.  No
+   op of the path launches a kernel of the repo.
+
 The raster's launches in the kernels line are phases 7's, 12's and 16's
 main paths together; the fused loss's are phase 4's (forward) or phase 10's
 (backward), phase 14's, phase 25's (both attempts, train and val) and
@@ -4486,6 +4511,318 @@ def phase_sfm(card):
     print(f"sfm: phase 27 took {time.perf_counter() - t0:.3f} s card={card!r}", flush=True)
 
 
+# --------------------------------------------------------------- phase 28 --
+# mmdetection's published COCO defaults (configs/_base_/datasets/
+# coco_detection.py, the Faster R-CNN test_cfg): img_scale (1333, 800), 80
+# classes, test NMS IoU 0.5 with max_per_img 100, proposal_nums (100, 300,
+# 1000); COCO's ~7.3 instances an image
+DET_CONFIG = os.path.join("configs", "detection", "coco_custom.py")
+DET_FIXTURE = dict(n_images=64, img_wh=(640, 480), n_classes=80, mean_boxes=7.3)
+DET_TEST_IMAGES = 16
+DET_NMS_IOU, DET_MAX_PER_IMG = 0.5, 100
+DET_PROPOSALS = (100, 300, 1000)
+DET_REPS = 10                 # timed calls per box op (median), after 2 warm-up
+TOL_DET = 1e-5                # scores and IoUs, card against the CPU
+
+
+def _det_boxes(rs, n, W=1333, H=800):
+    """COCO-like xyxy boxes: log-uniform sides from 8 to 400 pixels."""
+    wh = np.exp(rs.uniform(np.log(8), np.log(400), (n, 2)))
+    xy = rs.uniform(0, 1, (n, 2)) * np.maximum([W, H] - wh, 1)
+    return np.concatenate([xy, xy + wh], 1).astype(np.float32)
+
+
+def _det_candidates(rs, n, n_objects, W=1333, H=800):
+    """``n`` scored detections clustered on ``n_objects`` objects, as a
+    detector's raw output is (each object seen by several anchors), the
+    rest scattered: boxes, scores, labels over 80 classes."""
+    obj = _det_boxes(rs, n_objects, W, H)
+    pick = rs.randint(0, n_objects, n)
+    size = (obj[pick, 2:] - obj[pick, :2]).repeat(2, 1)
+    boxes = obj[pick] + rs.normal(0, 0.08, (n, 4)).astype(np.float32) * size
+    stray = rs.rand(n) < 0.2
+    boxes[stray] = _det_boxes(rs, int(stray.sum()), W, H)
+    labels = rs.randint(0, 80, n_objects)[pick]
+    labels[stray] = rs.randint(0, 80, int(stray.sum()))
+    return boxes, rs.rand(n).astype(np.float32), labels
+
+
+def _det_rotated(rs, n, n_objects, W=1333, H=800):
+    b, s, _ = _det_candidates(rs, n, n_objects, W, H)
+    c, wh = (b[:, :2] + b[:, 2:]) / 2, np.abs(b[:, 2:] - b[:, :2]) + 1
+    ang = rs.uniform(-np.pi / 2, np.pi / 2, (n, 1))
+    return np.concatenate([c, wh, ang], 1).astype(np.float32), s
+
+
+def _median_ms(fn, reps=DET_REPS) -> float:
+    """Median of ``reps`` calls, CUDA events around each, after 2 warm-up."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _device_ops(fn, reps: int = 5, pad: int = 128):
+    """(launches of one call, its device ms, its top device ops): the CUDA
+    events (kernels, copies, memsets) torch.profiler records over ``reps``
+    calls, over ``reps``.  Late in a long process a window lost ~56 events
+    at its edge (phase 28 of a whole run: 0 of bbox_overlaps' 20), so
+    ``pad`` sleep kernels on each side absorb the loss and are left out."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(pad):
+            torch.cuda._sleep(1)
+        for _ in range(reps):
+            fn()
+        for _ in range(pad):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+    ks = [e for e in device_kernels(prof) if "spin_kernel" not in e.key]
+    dev = sum(e.self_device_time_total for e in ks) / 1e3 / reps
+    top = sorted(ks, key=lambda e: -e.self_device_time_total)[:3]
+    return (sum(e.count for e in ks) / reps, dev,
+            [(e.key[:70], e.count / reps, e.self_device_time_total / 1e3 / reps) for e in top])
+
+
+def _det_keep_equal(name, card_out, cpu_out):
+    (dc, kc), (dh, kh) = card_out, cpu_out
+    check(torch.equal(kc.cpu(), kh), f"{name}: the card keeps {kc.numel()} boxes, the CPU "
+          f"{kh.numel()}, or another order")
+    err = float((dc.cpu() - dh).abs().max()) if dh.numel() else 0.0
+    check(err <= TOL_DET, f"{name}: dets differ by {err}")
+    return err
+
+
+def _det_ops(bbox):
+    """(c): each box op on the card against the port's own CPU run of the
+    same inputs, given as tensors on each device (a detector's outputs are
+    on the card); ms, launches, syncs, top device ops."""
+    rs = np.random.RandomState(28)
+
+    def on(dev, *arrays):
+        return [torch.from_numpy(np.asarray(a)).to(dev) for a in arrays]
+    cases = []
+    ab = (_det_boxes(rs, 5000), _det_boxes(rs, 5000))
+    cases.append(("bbox_overlaps 5000x5000", ab, lambda a, b: bbox.bbox_overlaps(a, b), "iou"))
+    for n in (1000, 5000):
+        cases.append((f"batched_nms {n} boxes 80 classes iou {DET_NMS_IOU}",
+                      _det_candidates(rs, n, n // 10),
+                      lambda bx, sc, lab: bbox.batched_nms(bx, sc, lab, DET_NMS_IOU), "keep"))
+    cand = _det_candidates(rs, 1000, 100)[:2]
+    for method in ("linear", "gaussian"):
+        cases.append((f"soft_nms {method} 1000", cand, lambda bx, sc, m=method: bbox.soft_nms(
+            bx, sc, iou_threshold=0.3, sigma=0.5, min_score=1e-3, method=m), "keep"))
+    rb, rsc = _det_rotated(rs, 1000, 100)
+    cases.append(("box_iou_rotated 1000x1000", (rb,), lambda b: bbox.box_iou_rotated(b, b), "iou"))
+    cases.append(("nms_rotated 1000", (rb, rsc),
+                  lambda b, sc: bbox.nms_rotated(b, sc, DET_NMS_IOU), "keep"))
+    out = {}
+    for name, arrays, fn, kind in cases:
+        host = fn(*on("cpu", *arrays))
+        args = on("cuda", *arrays)
+        fn(*args)                 # warm-up: the allocator's first growth
+        torch.cuda.synchronize()
+        card, syncs = _count_syncs(lambda: fn(*args))
+        torch.cuda.synchronize()
+        if kind == "iou":
+            err = float((card.cpu() - host).abs().max())
+            check(err <= TOL_DET, f"{name}: IoUs differ by {err}")
+            what = f"max_abs_err={err:.3e}"
+        else:
+            err = _det_keep_equal(name, card, host)
+            what = f"kept={host[1].numel()} keep_sets_equal=True max_abs_err={err:.3e}"
+        ms = _median_ms(lambda: fn(*args))
+        launches, dev_ms, top = _device_ops(lambda: fn(*args))
+        out[name] = dict(ms=ms, launches=launches, syncs=syncs, device_ms=dev_ms)
+        print(f"det (c) {name}: ms={ms:.6f} (median of {DET_REPS}, CUDA events) "
+              f"launches={launches:g} device_ms={dev_ms:.6f} host_syncs={syncs} {what}", flush=True)
+        for key, count, t in top:
+            print(f"det (c)   {t:10.6f} ms x{count:g} {key}", flush=True)
+    return out
+
+
+def _det_train(card, cfg, ann, builder):
+    """(a): CustomDataset from the config through build_dataset and
+    build_dataloader (GroupSampler from ``flag``), uploaded with
+    prefetch_to_device."""
+    from deep3dmap_tpu_torch.datasets.samplers import GroupSampler
+    ds = builder.build_dataset(dict(cfg.data["train"], ann_file=ann))
+    check(len(ds) == DET_FIXTURE["n_images"] and len(ds.flag) == len(ds),
+          f"CustomDataset: {len(ds)} images")
+    # the uploaded sample is the host pipeline's, bit for bit: a second
+    # dataset from the same config (its transforms' own generators fresh)
+    ref = builder.build_dataset(dict(cfg.data["train"], ann_file=ann))
+    np.random.seed(0)
+    host = ref[0]
+    np.random.seed(0)
+    up = builder.upload_batch(builder._stack_samples([ds[0]]), "cuda")
+    check(torch.equal(up["img"][0].cpu(), torch.from_numpy(host["img"]))
+          and torch.equal(up["gt_bboxes"][0].cpu(), torch.from_numpy(host["gt_bboxes"])),
+          "the uploaded sample differs from the host pipeline's")
+    loader = builder.build_dataloader(ds, samples_per_gpu=cfg.data["samples_per_gpu"],
+                                      workers_per_gpu=cfg.data["workers_per_gpu"], seed=0)
+    check(isinstance(loader.sampler, GroupSampler), f"sampler {type(loader.sampler)}")
+    np.random.seed(0)
+    ok = torch.ones((), dtype=torch.bool, device="cuda")
+    n, boxes, flips = 0, 0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in builder.prefetch_to_device(loader, "cuda"):
+        img = batch["img"]
+        ok &= torch.isfinite(img).all()
+        check(img.device.type == "cuda" and tuple(img.shape) == (1, 800, 1344, 3)
+              and img.dtype == torch.float32, f"train batch img {tuple(img.shape)} {img.dtype}")
+        n += img.shape[0]
+        boxes += batch["gt_bboxes"].shape[1]
+        flips += int(batch["flipped"].sum())
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    check(bool(ok) and n == len(ds), f"train path: {n} samples, finite {bool(ok)}")
+    print(f"det (a) train: CustomDataset {n} images {DET_FIXTURE['img_wh'][0]}x"
+          f"{DET_FIXTURE['img_wh'][1]} -> (1, 800, 1344, 3) float32 on the card, {boxes} boxes "
+          f"after AutoAugment, {flips} flipped, loader threads "
+          f"{cfg.data['workers_per_gpu']}: ms_per_sample={took / n * 1e3:.3f} "
+          f"(host wall, prefetch_to_device, synced at the end) card={card!r}", flush=True)
+    return ds
+
+
+def _det_transform_ms(card, ds, n: int = 8):
+    """(a): where a train sample's host time goes: each transform of the
+    pipeline timed alone on ``n`` samples, in this thread."""
+    totals = {}
+    for i in range(n):
+        data = dict(img_info=ds.data_infos[i], ann_info=ds.get_ann_info(i))
+        ds.pre_pipeline(data)
+        for j, t in enumerate(ds.pipeline.transforms):
+            t0 = time.perf_counter()
+            data = t(data)
+            key = f"{j}:{type(t).__name__}"
+            totals[key] = totals.get(key, 0.0) + time.perf_counter() - t0
+            check(data is not None, f"{key} dropped sample {i}")
+    total = sum(totals.values()) / n * 1e3
+    parts = ", ".join(f"{k} {v / n * 1e3:.3f}" for k, v in totals.items())
+    print(f"det (a) per transform, ms a sample (host wall, one thread, {n} samples, "
+          f"sum {total:.3f}): {parts} card={card!r}", flush=True)
+
+
+def _det_test(card, cfg, ann, builder):
+    """(b): MultiScaleFlipAug (two scales, flip) through the loader."""
+    ds = builder.build_dataset(dict(cfg.data["test"], ann_file=ann))
+    loader = builder.build_dataloader(ds, samples_per_gpu=cfg.data["samples_per_gpu"],
+                                      workers_per_gpu=cfg.data["workers_per_gpu"], shuffle=False)
+    n = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in builder.prefetch_to_device(loader, "cuda"):
+        imgs, flips = batch["img"], [bool(f[0]) for f in batch["flip"]]
+        check(len(imgs) == 4 and all(tuple(i.shape) == (1, 800, 1344, 3) for i in imgs)
+              and flips == [False, True, False, True],
+              f"test batch: {[tuple(i.shape) for i in imgs]} flips {flips}")
+        n += 1
+        if n == DET_TEST_IMAGES:
+            break
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    print(f"det (b) test: MultiScaleFlipAug scales (1333, 800), (666, 400) x flip: {n} images, "
+          f"4 copies each at (1, 800, 1344, 3) (JAX's Resize ignores the scale key): "
+          f"ms_per_sample={took / n * 1e3:.3f} card={card!r}", flush=True)
+    return ds
+
+
+def _det_results(bbox, ds, device, jitter):
+    """Per-image per-class detections from the fixture's GT: with
+    ``jitter``, 10 jittered copies of each GT box and 200 false positives
+    through ``batched_nms`` on ``device``, the top 100 kept; else the GT
+    with score 1.  Also per-image proposals (for recall)."""
+    rs = np.random.RandomState(7)
+    results, proposals = [], []
+    for i in range(len(ds)):
+        ann = ds.get_ann_info(i)
+        gt, lab = ann["bboxes"], np.asarray(ann["labels"])
+        if not jitter:
+            dets = np.concatenate([gt, np.ones((len(gt), 1), np.float32)], 1)
+            labels = lab
+        else:
+            size = (gt[:, 2:] - gt[:, :2]).repeat(2, 1)
+            cand = (np.repeat(gt, 10, 0) + rs.normal(0, 0.06, (10 * len(gt), 4))
+                    * np.repeat(size, 10, 0)).astype(np.float32)
+            fp = _det_boxes(rs, 200, 640, 480)
+            boxes = np.concatenate([cand, fp])
+            scores = np.concatenate([rs.uniform(0.3, 1.0, len(cand)),
+                                     rs.uniform(0.0, 0.6, 200)]).astype(np.float32)
+            labels = np.concatenate([np.repeat(lab, 10), rs.randint(0, 80, 200)])
+            d, keep = bbox.batched_nms(boxes, scores, labels, DET_NMS_IOU, device=device)
+            d, keep = d[:DET_MAX_PER_IMG].cpu().numpy(), keep[:DET_MAX_PER_IMG].cpu().numpy()
+            dets, labels = d, labels[keep]
+            # proposals: class-agnostic, 1000 a frame
+            props = np.concatenate([boxes, scores[:, None]], 1)
+            proposals.append(np.concatenate([props, np.concatenate(
+                [_det_boxes(rs, 1000 - len(props), 640, 480), rs.rand(1000 - len(props), 1) * 0.3],
+                1)]).astype(np.float32))
+        results.append([dets[labels == c] for c in range(80)])
+    return results, proposals
+
+
+def _det_eval(card, bbox, ds):
+    """(d): mAP at IoU 0.5 and 0.75 and recall at (100, 300, 1000)."""
+    perfect, _ = _det_results(bbox, ds, "cuda", jitter=False)
+    t0 = time.perf_counter()
+    ev = ds.evaluate(perfect, metric="mAP", iou_thr=[0.5, 0.75])
+    perfect_s = time.perf_counter() - t0
+    check(ev["mAP"] == 1.0, f"perfect detections: {ev}")
+    card_res, props = _det_results(bbox, ds, "cuda", jitter=True)
+    cpu_res, _ = _det_results(bbox, ds, "cpu", jitter=True)
+    t0 = time.perf_counter()
+    ev_card = ds.evaluate(card_res, metric="mAP", iou_thr=[0.5, 0.75])
+    map_s = time.perf_counter() - t0
+    ev_cpu = ds.evaluate(cpu_res, metric="mAP", iou_thr=[0.5, 0.75])
+    check(ev_card == ev_cpu, f"jittered mAP: card {ev_card}, CPU {ev_cpu}")
+    check(0.2 < ev_card["mAP"] < 1.0, f"jittered mAP {ev_card}")
+    t0 = time.perf_counter()
+    rec = ds.evaluate(props, metric="recall", proposal_nums=DET_PROPOSALS, iou_thr=[0.5, 0.75])
+    rec_s = time.perf_counter() - t0
+    check(all(0 < v <= 1 for v in rec.values()), f"recall {rec}")
+    print(f"det (d) eval: {len(ds)} images, perfect mAP {ev['mAP']} "
+          f"({perfect_s:.4f} s); jittered after batched_nms on the card "
+          f"(top {DET_MAX_PER_IMG}): {json.dumps({k: float(v) for k, v in ev_card.items()})} "
+          f"equal to the CPU's; s_per_eval mAP={map_s:.4f} "
+          f"recall={rec_s:.4f}; recall {json.dumps({k: float(v) for k, v in rec.items()})} "
+          f"card={card!r}", flush=True)
+
+
+def phase_detection(card, work):
+    """Phase 28: the detection data path (no kernel of the repo)."""
+    phase("the detection data path: CustomDataset at COCO scale, the train and test pipelines, "
+          "the box ops against the CPU, mAP and recall")
+    from deep3dmap_tpu_torch.datasets import builder
+    from deep3dmap_tpu_torch.datasets.synthetic import write_detection_fixture
+    from deep3dmap_tpu_torch.ops import bbox
+    from deep3dmap_tpu_torch.utils.config import Config
+    t0 = time.perf_counter()
+    cfg = Config.fromfile(os.path.join(os.path.dirname(os.path.abspath(__file__)), DET_CONFIG))
+    ann = write_detection_fixture(os.path.join(work, "detection"), **DET_FIXTURE)
+    fixture_s = time.perf_counter() - t0
+    ds = _det_train(card, cfg, ann, builder)
+    _det_transform_ms(card, ds)
+    _det_test(card, cfg, ann, builder)
+    ops = _det_ops(bbox)
+    _det_eval(card, bbox, ds)
+    print(f"det: phase 28 took {time.perf_counter() - t0:.3f} s (fixture {fixture_s:.3f} s) "
+          f"card={card!r}", flush=True)
+    return ops
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -4581,11 +4918,15 @@ def main():
                                    runtime["train_dir"])
         check((fused_loss.launches, fused_loss.bwd_launches) == demo_launches,
               "the demo's streaming launched a loss kernel")
-    # the SfM layer launches none of the repo's kernels
+    # the SfM layer and the detection data path launch none of the repo's kernels
     counts = (fused_loss.launches, fused_loss.bwd_launches, raster.launches)
     phase_sfm(card)
     check((fused_loss.launches, fused_loss.bwd_launches, raster.launches) == counts,
           "the SfM phase launched a kernel of the repo")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_det_") as work:
+        phase_detection(card, work)
+    check((fused_loss.launches, fused_loss.bwd_launches, raster.launches) == counts,
+          "the detection phase launched a kernel of the repo")
     print(f"phases took {time.perf_counter() - t0:.3f} s", flush=True)
 
     print(json.dumps({"kernels": [{

@@ -27,7 +27,7 @@ def build_dataset(cfg, default_args=None):
     names (JAX's ``build_dataset``)."""
     import copy
 
-    from . import (face_tuple, face_uv, gan_faces, lerf_rays,  # noqa: F401  (register)
+    from . import (custom, face_tuple, face_uv, gan_faces, lerf_rays,  # noqa: F401  (register)
                    nerf_synthetic, pipelines, real_files, scannet, synthetic, wrappers)
 
     if isinstance(cfg, (list, tuple)):

@@ -12,10 +12,10 @@ images, and registered ``.obj`` scans.
 Host readers: ``device`` is the keyword the CLIs pass every dataset, and
 the items are numpy arrays.  Images are read by ``utils/image_io.py`` as
 ``cv2.imread(path)`` reads them (3-channel BGR) and resized with
-``cv2.resize``'s ``INTER_LINEAR`` (``image_io.resize``, which needs ``cv2``
-only when the size changes).  The pickled indexes hold plain dicts and
-numpy arrays and are read with the standard library's ``pickle``: load
-only indexes this program's data-gen wrote.
+``cv2.resize``'s ``INTER_LINEAR`` (``image_ops.resize``, without ``cv2``).
+The pickled indexes hold plain dicts and numpy arrays and are read with the
+standard library's ``pickle``: load only indexes this program's data-gen
+wrote.
 """
 from __future__ import annotations
 
@@ -29,7 +29,8 @@ import torch
 from ..core.all3dmm.bfm_tools import BFMModel, make_synthetic_bfm, param2points_bfm
 from ..core.all3dtrans.lmk2angle import matrix2angle
 from ..core.all3dtrans.rotations import euler_angles_to_matrix
-from ..utils.image_io import imread, resize
+from ..utils.image_io import imread
+from ..utils.image_ops import resize
 from .builder import DATASETS
 
 

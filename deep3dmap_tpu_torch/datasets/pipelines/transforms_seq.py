@@ -5,7 +5,8 @@ Host-side numpy, as in the JAX package, except the GT TSDF pyramid of
 ``SeqRandomTransformSpace``: it is fused with the port's
 ``core/tsdf/fusion.py`` on an explicit ``device`` (the card unless the
 caller asks for the CPU, as JAX fuses on its default device) and handed back
-as host arrays.  Images are read and resized through ``utils/image_io.py``.
+as host arrays.  Images are read through ``utils/image_io.py``
+and resized through ``utils/image_ops.py``.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import torch
 
 from ...core.tsdf.fusion import tsdf_pyramid_from_depths
 from ...utils.device import resolve_device
-from ...utils.image_io import resize
+from ...utils.image_ops import resize
 from ..builder import PIPELINES
 from ..synthetic import align_xyplane_rotation, build_proj_matrices
 

@@ -11,8 +11,8 @@ Host-side and independent of OpenCV: frames are read by ``utils/image_io.py``
 importable; the format comes from the file's first bytes, as in
 ``cv2.imread``, so PNG bytes under a ``.jpg`` name read without a decoder)
 and resized with ``cv2``'s ``INTER_AREA`` weights, its ``INTER_LINEAR``
-ones for the depth and UV maps (``image_io.resize_float``), as the JAX
-readers' ``cv2.resize`` calls do.
+ones for the depth and UV maps (``image_io.resize_float``, the latter
+through ``image_ops.resize``), as the JAX readers' ``cv2.resize`` calls do.
 """
 from __future__ import annotations
 

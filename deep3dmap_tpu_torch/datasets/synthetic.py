@@ -14,7 +14,9 @@ the NeRF-synthetic and DTU layouts for ``BlenderDataset`` and
 ``DTUDataset``.  Its colour frames are PNG
 (lossless, decoded without OpenCV by ``utils/image_io.py``) under ScanNet's
 ``<i>.jpg`` names: readers pick the decoder by content, as ``cv2.imread``
-does.  The JAX package writes JPEG there.
+does.  The JAX package writes JPEG there.  ``write_detection_fixture`` writes
+a COCO-like ``CustomDataset`` (PNG frames and an annotation pickle) for the
+detection data path.
 """
 from __future__ import annotations
 
@@ -479,3 +481,44 @@ def seeded_dino_state_dict(seed: int = 0, dim: int = 384, depth: int = 12, patch
         sd[f"{p}.mlp.fc2.weight"], sd[f"{p}.mlp.fc2.bias"] = lin(dim, 4 * dim), vec(dim)
     sd["norm.weight"], sd["norm.bias"] = 1 + vec(dim), vec(dim)
     return sd
+
+
+def write_detection_fixture(root, n_images: int = 64, img_wh=(640, 480), n_classes: int = 80,
+                            mean_boxes: float = 7.3, seed: int = 0) -> str:
+    """A COCO-like ``CustomDataset`` fixture under ``root``: ``n_images`` PNG
+    frames (smooth backgrounds with textured boxes) and ``ann.pkl`` (written
+    by ``utils/fileio.dump``), ``1 + Poisson(mean_boxes - 1)`` boxes a frame
+    of log-uniform sizes from 8 to 400 pixels over ``n_classes`` labels.
+    Each info holds the frame's absolute ``filename`` and its boxes under
+    ``bboxes``/``labels`` and, for the pipelines' ``GetKeysFromDict``, under
+    ``gt_bboxes``/``gt_labels`` too.  Returns the annotation file's path."""
+    import os
+
+    from ..utils import fileio
+    from ..utils.image_io import imwrite_png
+
+    os.makedirs(root, exist_ok=True)
+    rs = np.random.RandomState(seed)
+    W, H = img_wh
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    infos = []
+    for i in range(n_images):
+        fx, fy, ph = rs.uniform(0.005, 0.03, 2).tolist() + [rs.uniform(0, 6.3)]
+        base = 128 + 60 * np.sin(fx * xx + ph)[..., None] * np.cos(fy * yy)[..., None] \
+            * rs.uniform(0.5, 1.0, 3)
+        img = base + rs.normal(0, 6, (H, W, 3))
+        n = min(1 + rs.poisson(mean_boxes - 1), 30)
+        wh = np.exp(rs.uniform(np.log(8), np.log(400), (n, 2)))
+        wh = np.minimum(wh, [W - 1, H - 1])
+        xy = rs.uniform(0, 1, (n, 2)) * ([W, H] - wh)
+        boxes = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+        labels = rs.randint(0, n_classes, n).astype(np.int64)
+        for (x1, y1, x2, y2), c in zip(boxes.astype(int), rs.uniform(0, 255, (n, 3))):
+            img[y1:y2, x1:x2] = c + rs.normal(0, 12, (y2 - y1, x2 - x1, 3))
+        path = os.path.join(os.path.abspath(root), f"{i:06d}.png")
+        imwrite_png(path, np.clip(img, 0, 255).astype(np.uint8))
+        infos.append(dict(filename=path, width=W, height=H,
+                          ann=dict(bboxes=boxes, labels=labels, gt_bboxes=boxes, gt_labels=labels)))
+    ann_file = os.path.join(root, "ann.pkl")
+    fileio.dump(infos, ann_file)
+    return ann_file

@@ -7,13 +7,12 @@ The JAX package reads and writes frames with ``cv2`` (``datasets/scannet.py``,
 with its own PNG codec (``zlib`` and ``struct``): 8-bit grey/RGB/RGBA and
 16-bit grey, every PNG row filter, no interlacing.  JPEG goes through ``cv2``
 or else ``PIL`` where one is importable; without either, reading a JPEG
-raises, naming the file.  Resizing a ``uint8`` frame to another size needs
-``cv2`` (its fixed-point ``INTER_LINEAR`` arithmetic is what the JAX
-pipeline gives); a resize to the same size is a copy, as it is in ``cv2``.
-``resize_float`` resizes float images with ``cv2``'s ``INTER_AREA`` and
-``INTER_LINEAR`` weights and no ``cv2`` (Gan2Shape's CelebA reader);
-``resize_uint8_area`` rounds them as ``cv2`` does on a ``uint8`` frame
-(GNeRF's DTU reader).
+raises, naming the file.  ``imread_color`` reads as ``cv2.IMREAD_COLOR``
+does.  ``resize_float`` resizes float images with ``cv2``'s ``INTER_AREA``
+weights and no ``cv2``, or with its ``INTER_LINEAR`` through
+``utils/image_ops.py::resize`` (the readers of ``datasets/real_files.py``);
+``resize_uint8_area`` rounds the area means as ``cv2`` does on a ``uint8``
+frame (GNeRF's DTU reader).  Every other resize calls ``image_ops.resize``.
 
 The encoder writes filter type 0 (none) on every row, so the fixture frames
 the port writes decode without a loop over rows.  Rows that another encoder
@@ -26,6 +25,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from . import image_ops
 
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 _JPEG_MAGIC = b"\xff\xd8\xff"
@@ -176,39 +177,28 @@ def imwrite_png(path: str, img: np.ndarray) -> None:
         f.write(encode_png(img))
 
 
-def resize(img: np.ndarray, size, nearest: bool = False) -> np.ndarray:
-    """``cv2.resize(img, size)`` with ``size = (W, H)``, bilinear
-    (``INTER_LINEAR``) or ``nearest`` (``INTER_NEAREST``)."""
-    img = np.asarray(img)
-    if tuple(size) == (img.shape[1], img.shape[0]):
-        return img.copy()
-    try:
-        import cv2
-    except ImportError:
-        raise RuntimeError(
-            f"resizing {img.shape[1]}x{img.shape[0]} to {size[0]}x{size[1]} "
-            f"needs cv2; store frames at the pipeline's size") from None
-    return cv2.resize(img, tuple(size),
-                      interpolation=cv2.INTER_NEAREST if nearest else cv2.INTER_LINEAR)
+def imread_color(path: str) -> np.ndarray:
+    """``cv2.imread(path, cv2.IMREAD_COLOR)``: always (H, W, 3) ``uint8`` BGR
+    -- grey repeated, alpha dropped, 16-bit samples cut to their high byte."""
+    img = imread(path)
+    if img.dtype == np.uint16:
+        img = (img >> 8).astype(np.uint8)
+    if img.ndim == 3 and img.shape[2] in (2, 4):
+        img = img[..., :1] if img.shape[2] == 2 else img[..., :3]
+    if img.ndim == 2 or img.shape[2] == 1:
+        img = np.repeat(img.reshape(img.shape[0], img.shape[1], 1), 3, axis=2)
+    return np.ascontiguousarray(img)
 
 
-def _linear_weights(n_in: int, n_out: int, area_mode: bool = False) -> np.ndarray:
-    """(n_out, n_in) weights of ``cv2.resize``'s ``INTER_LINEAR`` on one axis
-    (and of ``INTER_AREA`` when it enlarges, ``area_mode``): two taps at
-    ``floor`` of the source position, clamped at the borders."""
+def _area_enlarge_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) weights of ``cv2.resize``'s ``INTER_AREA`` on an axis
+    it enlarges: two taps at ``floor(d * scale)``, clamped at the borders."""
     scale = n_in / n_out
     w = np.zeros((n_out, n_in), np.float32)
     for d in range(n_out):
-        if area_mode:
-            sx = int(np.floor(d * scale))
-            fx = (d + 1) - (sx + 1) / scale
-            fx = 0.0 if fx <= 0 else fx - np.floor(fx)
-        else:
-            fx = (d + 0.5) * scale - 0.5
-            sx = int(np.floor(fx))
-            fx -= sx
-        if sx < 0:
-            fx, sx = 0.0, 0
+        sx = int(np.floor(d * scale))
+        fx = (d + 1) - (sx + 1) / scale
+        fx = 0.0 if fx <= 0 else fx - np.floor(fx)
         if sx >= n_in - 1:
             fx, sx = 0.0, n_in - 1
         fx = np.float32(fx)
@@ -241,18 +231,20 @@ def _area_weights(n_in: int, n_out: int) -> np.ndarray:
 
 def resize_float(img: np.ndarray, size, area: bool = True) -> np.ndarray:
     """``cv2.resize(img, size, interpolation=INTER_AREA)`` (or ``INTER_LINEAR``
-    with ``area=False``) of a float32 (H, W[, C]) image, ``size = (W, H)``:
-    one weight matrix per axis, rows then columns, in float32."""
+    with ``area=False``, ``image_ops.resize``) of a float32 (H, W[, C])
+    image, ``size = (W, H)``; the area means as one weight matrix per axis,
+    rows then columns, in float32."""
     img = np.asarray(img, np.float32)
+    if not area:
+        return image_ops.resize(img, size)
     w_out, h_out = size
     h, w = img.shape[:2]
     if (w_out, h_out) == (w, h):
         return img.copy()
 
     def weights(n_in, n_out):
-        if area and n_out < n_in:
-            return _area_weights(n_in, n_out)
-        return _linear_weights(n_in, n_out, area_mode=area)
+        return (_area_weights(n_in, n_out) if n_out < n_in
+                else _area_enlarge_weights(n_in, n_out))
     out = np.tensordot(weights(w, w_out), img, axes=([1], [1]))    # (W', H[, C])
     out = np.tensordot(weights(h, h_out), out, axes=([1], [1]))    # (H', W'[, C])
     return np.ascontiguousarray(out, np.float32)

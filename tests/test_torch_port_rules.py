@@ -13,7 +13,9 @@
   on a machine without a GPU unless the caller asks for ``device="cpu"`` (the CLIs on a
   NeuralRecon config: ``tests/test_torch_cli.py``; on a Gan2Shape or GNeRF
   config: here; on the face configs: ``tests/test_torch_face_cli.py``);
-- the evaluation's worker processes import no torch.
+- the evaluation's worker processes import no torch;
+- the detection data path's modules import no ``cv2`` or ``PIL``, and its
+  box ops put numpy inputs on the card unless ``device="cpu"`` is passed.
 """
 import ast
 import os
@@ -394,3 +396,48 @@ def test_sfm_entry_points_raise_without_gpu():
         "se3_log", "se3_retract", "so3_exp", "so3_log", "transform_points",
         "essential_eight_point", "normalize_points", "recover_pose", "relative_pose",
         "triangulate", "triangulate_two_view", "essential_ransac", "sampson_distance"}
+
+
+DETECTION_MODULES = (
+    "utils/fileio.py", "utils/structures.py", "utils/mask_structures.py", "utils/message_hub.py",
+    "utils/meters.py", "utils/image_ops.py", "ops/bbox.py", "core/evaluation/mean_ap.py",
+    "core/evaluation/recall.py", "core/evaluation/evaluator.py", "datasets/custom.py",
+    "datasets/pipelines/loading.py", "datasets/pipelines/formating.py",
+    "datasets/pipelines/transforms.py", "datasets/pipelines/auto_augment.py",
+    "datasets/pipelines/test_time_aug.py", "datasets/pipelines/transforms_seq.py")
+
+
+def test_detection_path_imports_no_cv2_or_pil():
+    bad = [(m, r) for m in DETECTION_MODULES
+           for r in _imported_roots(os.path.join(ROOT, "deep3dmap_tpu_torch", m))
+           if r in ("cv2", "PIL")]
+    assert not bad, f"the detection path imports OpenCV or PIL: {bad}"
+
+
+def test_box_ops_raise_without_gpu():
+    """Numpy boxes go to the card unless the caller asks for the CPU; a
+    tensor stays on its own device."""
+    _no_gpu()
+    from deep3dmap_tpu_torch.ops import bbox
+
+    rs = np.random.RandomState(0)
+    xy = rs.rand(8, 2) * 50
+    boxes = np.concatenate([xy, xy + 10], 1).astype(np.float32)
+    rboxes = np.concatenate([xy, np.full((8, 2), 5.0), np.zeros((8, 1))], 1).astype(np.float32)
+    scores = rs.rand(8).astype(np.float32)
+    dets = np.concatenate([boxes, scores[:, None]], 1)
+    calls = [lambda **kw: bbox.bbox_overlaps(boxes, boxes, **kw),
+             lambda **kw: bbox.nms(boxes, scores, 0.5, **kw),
+             lambda **kw: bbox.batched_nms(boxes, scores, np.arange(8) % 3, 0.5, **kw),
+             lambda **kw: bbox.soft_nms(boxes, scores, **kw),
+             lambda **kw: bbox.nms_match(dets, 0.5, **kw),
+             lambda **kw: bbox.box_iou_rotated(rboxes, rboxes, **kw),
+             lambda **kw: bbox.nms_rotated(rboxes, scores, 0.5, **kw)]
+    for call in calls:
+        for kw in ({}, {"device": "cuda"}):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call(**kw)
+        out = call(device="cpu")
+        leaves = out if isinstance(out, (tuple, list)) else [out]
+        assert leaves and {t.device.type for t in leaves} == {"cpu"}
+    assert bbox.nms(torch.from_numpy(boxes), torch.from_numpy(scores), 0.5)[1].device.type == "cpu"
