@@ -289,6 +289,37 @@ Phases; any error ends the run with a nonzero exit and no result line:
    for recall at (100, 300, 1000) proposals: seconds per evaluation.  No
    op of the path launches a kernel of the repo.
 
+29. the op zoo (``deep3dmap_tpu_torch/ops/``), TF32 off, each op at the
+   size of a published model that uses it: mask_rcnn_r50_fpn_1x_coco's P2
+   (2 x 256 x 200 x 336) with 1,024 RoIs for ``roi_align`` (7x7, sampling
+   0, aligned), ``roi_pool``, ``roi_align_rotated`` and ``deform_roi_pool``
+   (gamma 0.1); DCNv2 (``modulated_deform_conv2d`` 128 at 100x168 and 256
+   at 50x84, ``deform_conv2d`` 256, B 2); Deformable DETR's encoder
+   (``ms_deform_attn``, 22,223 queries, 8 heads, 4 levels, 4 points, B 2);
+   CARAFE (k 5, 256 channels, 100x168 -> 200x336); GA-RPN's
+   ``masked_conv2d``; PWC-Net's ``correlation``; PSANet's ``psamask``
+   (97x97 at 64x128); CornerNet's ``corner_pool`` (4 modes); TIN's
+   ``tin_shift``; BorderDet's ``border_align``; RetinaNet's focal losses
+   (403,200 anchors x 80 / 81 classes); pointnet2_ssg on ScanNet (8,192
+   points, B 16: furthest point sampling to 1,024, ball query, gather and
+   group, knn 16, three-NN interpolation at 128 channels); PointPillars'
+   ``voxelize`` (120,000 points, 16,000 and 40,000 voxels), dv_second's
+   ``dynamic_scatter`` (mean, max), ``points_in_boxes`` with 50 boxes;
+   the BEV and 3D IoUs and ``nms3d``/``nms3d_normal`` on 1,000 boxes,
+   PartA2's ``roiaware_pool3d`` (out 14, max and avg, 128 RoIs on 16,384
+   points) and PointRCNN's ``roipoint_pool3d`` (512 points); PANet's
+   ``pixel_group`` and PSENet's ``contour_expand`` at 640x640; the
+   ``ResFCN256Cls`` backbone at 256² with B 16 (forward and backward, its
+   FLOPs from ``utils/analysis.py``), ``grid_sample_3d`` on a 96³ x 32
+   volume and ``back_project_dense`` at the bench fragment's first level.
+   For each: the card's result against the port's own CPU run of the same
+   function on the same inputs (a cut, named, where the CPU would take
+   long): index outputs equal, floats within 1e-4 and gradients within 1e-3
+   of the largest CPU value; ms per call (median of 10 after warm-up, CUDA
+   events), forward and forward plus backward; launches, device ms and the
+   top device ops of one call (torch.profiler); host syncs of one call;
+   peak bytes.  No op of the zoo launches a kernel of the repo.
+
 The raster's launches in the kernels line are phases 7's, 12's and 16's
 main paths together; the fused loss's are phase 4's (forward) or phase 10's
 (backward), phase 14's, phase 25's (both attempts, train and val) and
@@ -301,6 +332,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import gc
 import json
 import os
@@ -4303,7 +4335,9 @@ def _count_syncs(fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return out, sum("synchroniz" in str(w.message) for w in caught)
+    # the mode's own one-time notice ("... does not yet detect all
+    # synchronizing operations") is not a sync
+    return out, sum("called a synchronizing" in str(w.message) for w in caught)
 
 
 def _no_sync(fn):
@@ -4554,9 +4588,9 @@ def _det_rotated(rs, n, n_objects, W=1333, H=800):
     return np.concatenate([c, wh, ang], 1).astype(np.float32), s
 
 
-def _median_ms(fn, reps=DET_REPS) -> float:
-    """Median of ``reps`` calls, CUDA events around each, after 2 warm-up."""
-    for _ in range(2):
+def _median_ms(fn, reps=DET_REPS, warmup=2) -> float:
+    """Median of ``reps`` calls, CUDA events around each, after ``warmup``."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -4823,6 +4857,534 @@ def phase_detection(card, work):
     return ops
 
 
+# --------------------------------------------------------------- phase 29 --
+# The op zoo at the sizes of the published models that use each op
+# (mmdetection / mmdetection3d / mmcv configs named in each case's label).
+ZOO_REPS = 10                 # timed calls per op (median), after 2 warm-up
+ZOO_HOST_REPS = 3             # for the host ops (numpy breadth-first searches),
+                              # warmed by the comparison's call
+# calls per profiler window, and sleep kernels on each side of it: late in
+# the whole run a window of one call with 128 of them lost every event of
+# some ops (launches 0 where 83 were made)
+ZOO_PROFILE_REPS, ZOO_PROFILE_PAD = 3, 1024
+TOL_ZOO, TOL_ZOO_GRAD = 1e-4, 1e-3   # relative to the largest |CPU value|
+ZOO_SEED = 29
+# mask_rcnn_r50_fpn_1x_coco: P2 of a 1333x800 batch padded to 32, stride 4;
+# the R-CNN sampler's 512 RoIs an image
+ZOO_P2, ZOO_ROIS = (2, 256, 200, 336), 1024
+# Deformable DETR's encoder: strides 8/16/32/64 of 1333x800
+ZOO_MSDA_SHAPES = ((100, 167), (50, 84), (25, 42), (13, 21))
+# PointPillars (hv_pointpillars_secfpn_6x8_160e_kitti-3d-3class) and
+# dv_second_secfpn_6x8_80e_kitti-3d-car
+ZOO_PP_VOXEL, ZOO_PP_RANGE = (0.16, 0.16, 4.0), (0.0, -39.68, -3.0, 69.12, 39.68, 1.0)
+ZOO_DV_VOXEL, ZOO_DV_RANGE = (0.05, 0.05, 0.1), (0.0, -40.0, -3.0, 70.4, 40.0, 1.0)
+ZOO_LIDAR_POINTS = 120_000
+
+
+def _zoo_leaves(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (tuple, list)) and out and all(isinstance(o, torch.Tensor) for o in out):
+        return list(out)
+    return None
+
+
+def _zoo_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    if b.numel() == 0:
+        return 0.0
+    return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+
+
+def _zoo_tree_rel(card, host):
+    """Gradients as one vector: (max difference over the largest |host
+    value|, the worst leaf by its own scale, that leaf's error)."""
+    scale = max(float(v.abs().max()) for v in host.values())
+    err = max(float((card[k].double() - host[k].double()).abs().max()) for k in host) / scale
+    leaf = max(host, key=lambda k: _zoo_rel(card[k], host[k]))
+    return err, leaf, _zoo_rel(card[leaf], host[leaf])
+
+
+def _zoo_call(fn, args, grads, cot=None):
+    """``fn(*args)``; with ``grads`` (argument positions), the first output's
+    backward under ``cot`` (seeded when None).  -> (outputs, gradients)."""
+    args = [a.detach().requires_grad_() if i in grads else a for i, a in enumerate(args)]
+    out = fn(*args)
+    gs = []
+    if grads:
+        first = out if isinstance(out, torch.Tensor) else out[0]
+        if cot is None:
+            cot = torch.randn(first.shape, generator=torch.Generator().manual_seed(ZOO_SEED))
+        first.backward(cot.to(first.device))
+        gs = [args[i].grad for i in grads]
+        out = [o.detach() for o in _zoo_leaves(out)]
+    return out, gs
+
+
+def _zoo_compare(name, card, host):
+    """Index outputs equal, float outputs within TOL_ZOO relative; host
+    results (lists) equal.  -> the worst relative error."""
+    cl, hl = _zoo_leaves(card), _zoo_leaves(host)
+    if cl is None:
+        check(card == host, f"zoo {name}: the card's inputs give another result than the CPU's")
+        return 0.0
+    check(len(cl) == len(hl), f"zoo {name}: {len(cl)} outputs on the card, {len(hl)} on the CPU")
+    worst = 0.0
+    for i, (c, h) in enumerate(zip(cl, hl)):
+        check(c.shape == h.shape and c.dtype == h.dtype,
+              f"zoo {name}: output {i} is {tuple(c.shape)} {c.dtype} on the card, "
+              f"{tuple(h.shape)} {h.dtype} on the CPU")
+        if c.is_floating_point():
+            err = _zoo_rel(c, h)
+            check(err <= TOL_ZOO, f"zoo {name}: output {i} differs by {err:.3e} relative")
+            worst = max(worst, err)
+        else:
+            check(torch.equal(c.cpu(), h), f"zoo {name}: index output {i} differs "
+                  f"({int((c.cpu() != h).sum())} of {h.numel()} values)")
+    return worst
+
+
+def _zoo_peak(fn) -> int:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return int(peak)
+
+
+def _zoo_case(name, shapes, fn, args, grads=(), cut=None, cut_desc="none", reps=ZOO_REPS,
+              warmup=2):
+    """One op: the card against the port's CPU run of the same function on
+    the same inputs (or on ``cut(args)``, the same cut on both), forward and
+    the gradients of ``grads``; then at full size: ms per call (forward, and
+    forward plus backward), launches, device ms and top device ops of one
+    call, host syncs of one call, peak bytes."""
+    t0 = time.perf_counter()
+    cmp_args = cut(args) if cut is not None else args
+    host_args = [a.cpu() if isinstance(a, torch.Tensor) else a for a in cmp_args]
+    host, host_g = _zoo_call(fn, host_args, grads)
+    cpu_s = time.perf_counter() - t0
+    card, card_g = _zoo_call(fn, cmp_args, grads)
+    err = _zoo_compare(name, card, host)
+    gerr = 0.0
+    for i, (c, h) in enumerate(zip(card_g, host_g)):
+        e = _zoo_rel(c, h)
+        check(e <= TOL_ZOO_GRAD, f"zoo {name}: gradient {i} differs by {e:.3e} relative")
+        gerr = max(gerr, e)
+    del card, card_g, host, host_g
+    call = lambda: fn(*args)              # noqa: E731
+    ms = _median_ms(call, reps=reps, warmup=warmup)
+    _, syncs = _count_syncs(call)
+    launches, dev_ms, top = _device_ops(call, reps=ZOO_PROFILE_REPS, pad=ZOO_PROFILE_PAD)
+    peak = _zoo_peak(call)
+    bwd = ""
+    if grads:
+        leaves = [a.detach().requires_grad_() if i in grads else a for i, a in enumerate(args)]
+        first = fn(*leaves)
+        first = first if isinstance(first, torch.Tensor) else first[0]
+        cot = torch.randn(first.shape, device="cuda")
+        del first
+
+        def step():
+            for i in grads:
+                leaves[i].grad = None
+            out = fn(*leaves)
+            (out if isinstance(out, torch.Tensor) else out[0]).backward(cot)
+        fb_ms = _median_ms(step, reps=ZOO_REPS)
+        fb_peak = _zoo_peak(step)
+        bwd = f" fwd_bwd_ms={fb_ms:.6f} fwd_bwd_peak_bytes={fb_peak} grad_rel_err={gerr:.3e}"
+        del leaves, cot
+    print(f"zoo {name}: {shapes}; cut={cut_desc} fwd_ms={ms:.6f} (median of {reps} after "
+          f"{warmup} warm-up, "
+          f"CUDA events) launches={launches:g} device_ms={dev_ms:.6f} host_syncs={syncs} "
+          f"peak_bytes={peak} max_rel_err={err:.3e}{bwd} cpu_s={cpu_s:.3f} "
+          f"wall_s={time.perf_counter() - t0:.3f}", flush=True)
+    for key, count, t in top:
+        print(f"zoo   {t:10.6f} ms x{count:g} {key}", flush=True)
+    return dict(ms=ms, launches=launches, syncs=syncs, device_ms=dev_ms, peak=peak)
+
+
+def _zoo_boxes(g, n, W, H, lo=16.0, hi=512.0):
+    """xyxy boxes with log-uniform sides in [lo, hi] pixels, centred in the
+    image."""
+    wh = torch.exp(torch.empty(n, 2, device="cuda").uniform_(np.log(lo), np.log(hi), generator=g))
+    c = torch.rand(n, 2, device="cuda", generator=g) * torch.tensor([W, H], device="cuda")
+    return torch.cat([c - wh / 2, c + wh / 2], 1)
+
+
+def _zoo_detection(ops, g):
+    """Two-stage heads, DCNv2, Deformable DETR, CARAFE, masked conv and the
+    dense-prediction ops."""
+    N, C, H, W = ZOO_P2
+    feat = torch.randn(ZOO_P2, device="cuda", generator=g)
+    half = ZOO_ROIS // 2
+    b = torch.arange(ZOO_ROIS, device="cuda") // half
+    rois = torch.cat([b[:, None].float(), _zoo_boxes(g, ZOO_ROIS, 1333, 800)], 1)
+    cut_rois = lambda a: [a[0], torch.cat([a[1][:64], a[1][half:half + 64]])] + a[2:]  # noqa: E731
+    heads = f"P2 {tuple(ZOO_P2)}, {ZOO_ROIS} RoIs (512 an image), scale 1/4, out 7x7"
+    _zoo_case("roi_align (mask_rcnn_r50_fpn_1x_coco)", heads + ", sampling 0, aligned",
+              lambda f, r: ops.roi_align(f, r, 7, 0.25, 0, True), [feat, rois], grads=(0,),
+              cut=cut_rois, cut_desc="128 RoIs")
+    _zoo_case("roi_pool", heads, lambda f, r: ops.roi_pool(f, r, 7, 0.25), [feat, rois],
+              grads=(0,), cut=cut_rois, cut_desc="128 RoIs")
+    xyxy = rois[:, 1:]
+    rrois = torch.cat([b[:, None].float(), (xyxy[:, :2] + xyxy[:, 2:]) / 2, xyxy[:, 2:] - xyxy[:, :2],
+                       (torch.rand(ZOO_ROIS, 1, device="cuda", generator=g) - 0.5) * np.pi], 1)
+    _zoo_case("roi_align_rotated", heads + ", sampling 2",
+              lambda f, r: ops.roi_align_rotated(f, r, 7, 0.25, 2, True), [feat, rrois],
+              grads=(0,), cut=cut_rois, cut_desc="128 RoIs")
+    off = torch.randn(ZOO_ROIS, 2, 7, 7, device="cuda", generator=g) * 0.1
+    _zoo_case("deform_roi_pool (faster_rcnn_r50_fpn_dpool_1x_coco)", heads + ", gamma 0.1",
+              lambda f, r, o: ops.deform_roi_pool(f, r, o, 7, 0.25, 2, 0.1), [feat, rois, off],
+              grads=(0, 2), cut=lambda a: [a[0], torch.cat([a[1][:64], a[1][half:half + 64]]),
+                                          torch.cat([a[2][:64], a[2][half:half + 64]])],
+              cut_desc="128 RoIs")
+    del feat, rois, rrois, off
+
+    # DCNv2 in mask_rcnn_r50_fpn_mdconv_c3-c5_1x_coco: 3x3, one deform group
+    for ch, (h, w) in ((128, (100, 168)), (256, (50, 84))):
+        x = torch.randn(2, ch, h, w, device="cuda", generator=g)
+        offset = torch.randn(2, 18, h, w, device="cuda", generator=g)
+        mask = torch.rand(2, 9, h, w, device="cuda", generator=g)
+        wt = torch.randn(ch, ch, 3, 3, device="cuda", generator=g) * (2 / (9 * ch)) ** 0.5
+        bias = torch.randn(ch, device="cuda", generator=g) * 0.1
+        crop = lambda a: [t[:1, :, :24, :40] for t in a[:3]] + a[3:]  # noqa: E731
+        _zoo_case(f"modulated_deform_conv2d {ch}->{ch}", f"x (2, {ch}, {h}, {w}), 3x3, pad 1, dg 1",
+                  lambda x_, o, m, w_, b_: ops.modulated_deform_conv2d(x_, o, m, w_, b_, padding=1),
+                  [x, offset, mask, wt, bias], grads=(0, 1, 2, 3, 4), cut=crop,
+                  cut_desc="B 1, a 24x40 crop")
+        if ch == 256:
+            _zoo_case("deform_conv2d 256->256", f"x (2, 256, {h}, {w}), 3x3, pad 1, dg 1",
+                      lambda x_, o, w_: ops.deform_conv2d(x_, o, w_, padding=1),
+                      [x, offset, wt], grads=(0, 1, 2),
+                      cut=lambda a: [t[:1, :, :24, :40] for t in a[:2]] + a[2:],
+                      cut_desc="B 1, a 24x40 crop")
+        del x, offset, mask, wt, bias
+
+    # Deformable DETR's encoder: d_model 256, 8 heads, 4 levels, 4 points
+    lv = sum(hh * ww for hh, ww in ZOO_MSDA_SHAPES)
+    starts = np.cumsum([0] + [hh * ww for hh, ww in ZOO_MSDA_SHAPES[:-1]]).tolist()
+    value = torch.randn(2, lv, 8, 32, device="cuda", generator=g)
+    loc = torch.rand(2, lv, 8, 4, 4, 2, device="cuda", generator=g)
+    attn = torch.softmax(torch.randn(2, lv, 8, 16, device="cuda", generator=g), -1).reshape(
+        2, lv, 8, 4, 4)
+    _zoo_case("ms_deform_attn (Deformable DETR encoder)",
+              f"value (2, {lv}, 8, 32), {lv} queries, levels {ZOO_MSDA_SHAPES}, 4 points",
+              lambda v, l_, a: ops.ms_deform_attn(v, ZOO_MSDA_SHAPES, starts, l_, a),
+              [value, loc, attn], grads=(0, 1, 2),
+              cut=lambda a: [a[0][:1], a[1][:1, :2048], a[2][:1, :2048]],
+              cut_desc="B 1, 2048 queries")
+    del value, loc, attn
+
+    # faster_rcnn_r50_fpn_carafe_1x_coco's upsampler: k 5, group 1, scale 2
+    f = torch.randn(2, 256, 100, 168, device="cuda", generator=g)
+    m = torch.softmax(torch.randn(2, 25, 200, 336, device="cuda", generator=g), 1)
+    _zoo_case("carafe (faster_rcnn_r50_fpn_carafe_1x_coco)", "(2, 256, 100, 168) -> 200x336, k 5",
+              lambda a, b_: ops.carafe(a, b_, 5, 1, 2), [f, m], grads=(0, 1),
+              cut=lambda a: [a[0][:1, :, :25, :42], a[1][:1, :, :50, :84]],
+              cut_desc="B 1, a 25x42 crop")
+    del f, m
+    # GA-RPN's masked conv: 3x3, 256 channels, a third of the mask set
+    x = torch.randn(2, 256, 200, 336, device="cuda", generator=g)
+    mk = (torch.rand(2, 200, 336, device="cuda", generator=g) < 1 / 3).float()
+    wt = torch.randn(256, 256, 3, 3, device="cuda", generator=g) * (2 / (9 * 256)) ** 0.5
+    bias = torch.randn(256, device="cuda", generator=g) * 0.1
+    _zoo_case("masked_conv2d (ga_rpn)", "(2, 256, 200, 336), 3x3, a third masked in",
+              lambda a, mm, w_, b_: ops.masked_conv2d(a, mm, w_, b_, 1), [x, mk, wt, bias],
+              grads=(0, 2), cut=lambda a: [a[0][:1, :, :48, :64], a[1][:1, :48, :64]] + a[2:],
+              cut_desc="B 1, a 48x64 crop")
+    del x, mk, wt, bias
+
+    # PWC-Net's correlation: 1/4 of a 384x448 crop, 32 channels, B 8
+    a1 = torch.randn(8, 32, 96, 112, device="cuda", generator=g)
+    a2 = torch.randn(8, 32, 96, 112, device="cuda", generator=g)
+    _zoo_case("correlation (PWC-Net)", "(8, 32, 96, 112), max displacement 4, kernel 1",
+              lambda p, q: ops.correlation(p, q, 1, 4), [a1, a2], grads=(0, 1),
+              cut=lambda a: [t[:2] for t in a], cut_desc="B 2")
+    del a1, a2
+    # PSANet: mask 97x97 at 1/8 of 512x1024
+    psa = torch.randn(2, 97 * 97, 64, 128, device="cuda", generator=g)
+    for kind in ("collect", "distribute"):
+        _zoo_case(f"psamask {kind} (PSANet)", "(2, 9409, 64, 128) -> (2, 8192, 64, 128)",
+                  lambda p, k=kind: ops.psamask(p, k, 97, 97), [psa],
+                  cut=lambda a: [a[0][:1]], cut_desc="B 1")
+    del psa
+    # CornerNet's corner pool: 128x128, 256 channels
+    cp = torch.randn(2, 256, 128, 128, device="cuda", generator=g)
+    for mode in ("top", "bottom", "left", "right"):
+        _zoo_case(f"corner_pool {mode} (CornerNet)", "(2, 256, 128, 128)",
+                  lambda p, md=mode: ops.corner_pool(p, md), [cp])
+    del cp
+    # TIN: 8 segments, shift_div 4 (a quarter of ResNet-50's 256 channels
+    # at 56x56 shifted, in 2 groups)
+    x = torch.randn(4, 8, 64, 56 * 56, device="cuda", generator=g)
+    shift = torch.randint(-3, 4, (4, 2), device="cuda", generator=g)
+    _zoo_case("tin_shift (TIN)", "(4, 8, 64, 3136), 2 groups", lambda p, s: ops.tin_shift(p, s),
+              [x, shift])
+    del x, shift
+    # BorderDet's border align at P3 (stride 8) of 1333x800, 256 channels,
+    # pool 10, 1,000 boxes an image
+    inp = torch.randn(2, 1024, 100, 168, device="cuda", generator=g)
+    bx = torch.stack([_zoo_boxes(g, 1000, 168, 100, 2, 64) for _ in range(2)])
+    _zoo_case("border_align (BorderDet)", "(2, 1024, 100, 168), 1000 boxes an image, pool 10",
+              lambda p, q: ops.border_align(p, q, 10), [inp, bx], grads=(0,),
+              cut=lambda a: [a[0], a[1][:, :200]], cut_desc="200 boxes an image")
+    del inp, bx
+
+
+def _zoo_loss_and_points(ops, g):
+    # RetinaNet: 9 anchors a location on P3-P7 of 1333x800, 2 images, 80
+    # classes; most anchors background (class id 80)
+    n = 2 * 9 * sum(h * w for h, w in ((100, 168), (50, 84), (25, 42), (13, 21), (7, 11)))
+    pred = torch.randn(n, 80, device="cuda", generator=g) * 2
+    tgt = torch.where(torch.rand(n, device="cuda", generator=g) < 0.02,
+                      torch.randint(0, 80, (n,), device="cuda", generator=g), 80)
+    num_pos = 0.02 * n
+    cut = lambda a: [a[0][:100_800], a[1][:100_800]]  # noqa: E731
+    _zoo_case("sigmoid_focal_loss (retinanet_r50_fpn_1x_coco)", f"({n}, 80), avg_factor {num_pos:g}",
+              lambda p, t: ops.sigmoid_focal_loss(p, t, avg_factor=num_pos), [pred, tgt],
+              grads=(0,), cut=cut, cut_desc="100800 anchors")
+    pred = torch.randn(n, 81, device="cuda", generator=g) * 2
+    _zoo_case("softmax_focal_loss", f"({n}, 81)",
+              lambda p, t: ops.softmax_focal_loss(p, t, avg_factor=num_pos), [pred, tgt],
+              grads=(0,), cut=cut, cut_desc="100800 anchors")
+    del pred, tgt
+
+    # pointnet2_ssg on ScanNet segmentation: 8,192 points a 1.5 x 1.5 x 3 m
+    # block, B 16; SA1: 1,024 centres, radius 0.1, 32 samples
+    B, N, S = 16, 8192, 1024
+    xyz = torch.rand(B, N, 3, device="cuda", generator=g) * torch.tensor([1.5, 1.5, 3.0],
+                                                                        device="cuda")
+    b2 = lambda a: [t[:2] if isinstance(t, torch.Tensor) else t for t in a]  # noqa: E731
+    _zoo_case("furthest_point_sample (pointnet2_ssg)", f"({B}, {N}, 3) -> {S}",
+              lambda p: ops.furthest_point_sample(p, S), [xyz], cut=b2, cut_desc="B 2")
+    idx = ops.furthest_point_sample(xyz, S)
+    new_xyz = xyz[torch.arange(B, device="cuda")[:, None], idx]
+    _zoo_case("ball_query", f"{S} centres in ({B}, {N}, 3), r 0.1, 32 samples",
+              lambda p, q: ops.ball_query(0.1, 32, p, q), [xyz, new_xyz], cut=b2, cut_desc="B 2")
+    grp = ops.ball_query(0.1, 32, xyz, new_xyz)
+    feats = torch.cat([xyz, torch.rand(B, N, 3, device="cuda", generator=g)], -1).transpose(1, 2)
+    feats = feats.contiguous()
+    _zoo_case("gather_points", f"({B}, 6, {N}) at {S}", lambda f, i: ops.gather_points(f, i),
+              [feats, idx], grads=(0,))
+    _zoo_case("group_points", f"({B}, 6, {N}) at ({B}, {S}, 32)",
+              lambda f, i: ops.group_points(f, i), [feats, grp], grads=(0,))
+    _zoo_case("knn", f"k 16, {S} queries in ({B}, {N}, 3)", lambda p, q: ops.knn(16, p, q),
+              [xyz, new_xyz], cut=b2, cut_desc="B 2")
+    _zoo_case("three_nn (FP1)", f"({B}, {N}, 3) in ({B}, {S}, 3)", lambda u, k: ops.three_nn(u, k),
+              [xyz, new_xyz], cut=b2, cut_desc="B 2")
+    nn_idx, w = ops.three_interpolate_weights(xyz, new_xyz)
+    f128 = torch.randn(B, 128, S, device="cuda", generator=g)
+    _zoo_case("three_interpolate (FP1)", f"({B}, 128, {S}) -> {N}",
+              lambda f, i, ww: ops.three_interpolate(f, i, ww), [f128, nn_idx, w], grads=(0, 2))
+    del xyz, new_xyz, idx, grp, feats, nn_idx, w, f128
+
+
+def _zoo_lidar(ops, g):
+    """KITTI-like points: uniform over and around the range, 5% in a 0.3 m
+    cluster (voxels past ``max_points``)."""
+    n = ZOO_LIDAR_POINTS
+    lo = torch.tensor([-5.0, -45.0, -3.5, 0.0], device="cuda")
+    hi = torch.tensor([75.0, 45.0, 1.5, 1.0], device="cuda")
+    pts = lo + (hi - lo) * torch.rand(n, 4, device="cuda", generator=g)
+    k = n // 20
+    pts[:k, :3] = torch.tensor([10.0, 0.0, -1.0], device="cuda") + 0.3 * torch.rand(
+        k, 3, device="cuda", generator=g)
+    for mv in (16000, 40000):
+        _zoo_case(f"voxelize (hv_pointpillars_secfpn_6x8_160e_kitti-3d-3class) max_voxels {mv}",
+                  f"({n}, 4), voxel {ZOO_PP_VOXEL}, 32 points a voxel",
+                  lambda p, m=mv: ops.voxelize(p, ZOO_PP_VOXEL, ZOO_PP_RANGE, 32, m), [pts])
+    vs = torch.tensor(ZOO_DV_VOXEL, device="cuda")
+    rlo = torch.tensor(ZOO_DV_RANGE[:3], device="cuda")
+    grid = torch.round((torch.tensor(ZOO_DV_RANGE[3:], device="cuda") - rlo) / vs)
+    c = torch.floor((pts[:, :3] - rlo) / vs)
+    inside = ((c >= 0) & (c < grid)).all(1, keepdim=True)
+    coors = torch.where(inside, c, -1.0).flip(1).int()                 # zyx, -1 outside
+    f64 = torch.randn(n, 64, device="cuda", generator=g)
+    for op, feats in (("mean", pts), ("max", f64)):
+        _zoo_case(f"dynamic_scatter {op} (dv_second_secfpn_6x8_80e_kitti-3d-car)",
+                  f"({n}, {feats.shape[1]}), voxel {ZOO_DV_VOXEL}, capacity {n}",
+                  lambda f, cc, o=op: ops.dynamic_scatter(f, cc, o, n), [feats, coors],
+                  grads=(0,))
+    boxes = torch.cat([torch.rand(50, 2, device="cuda", generator=g)
+                       * torch.tensor([60.0, 70.0], device="cuda") + torch.tensor(
+                           [5.0, -35.0], device="cuda"),
+                       torch.full((50, 1), -1.7, device="cuda"),
+                       torch.tensor([3.9, 1.6, 1.56], device="cuda") * (
+                           0.8 + 0.4 * torch.rand(50, 3, device="cuda", generator=g)),
+                       (torch.rand(50, 1, device="cuda", generator=g) - 0.5) * 2 * np.pi], 1)
+    _zoo_case("points_in_boxes", f"(1, {n}, 3), 50 boxes",
+              lambda p, bb: ops.points_in_boxes(p, bb), [pts[None, :, :3].contiguous(), boxes[None]])
+    del pts, coors, f64
+
+    # 1,000 KITTI car boxes for the IoUs and NMS
+    bx = torch.cat([torch.rand(1000, 2, device="cuda", generator=g)
+                    * torch.tensor([70.0, 80.0], device="cuda") - torch.tensor([0.0, 40.0],
+                                                                               device="cuda"),
+                    torch.full((1000, 1), -1.0, device="cuda"),
+                    torch.tensor([3.9, 1.6, 1.56], device="cuda") * (
+                        0.8 + 0.4 * torch.rand(1000, 3, device="cuda", generator=g)),
+                    (torch.rand(1000, 1, device="cuda", generator=g) - 0.5) * 2 * np.pi], 1)
+    bx[500:, :2] = bx[:500, :2] + 0.5 * torch.randn(500, 2, device="cuda", generator=g)
+    sc = torch.rand(1000, device="cuda", generator=g)
+    first = lambda a: [t[:500] for t in a]  # noqa: E731
+    _zoo_case("boxes_iou_bev", "1000 x 1000", lambda a: ops.boxes_iou_bev(a, a), [bx],
+              cut=first, cut_desc="500 boxes")
+    _zoo_case("boxes_iou3d", "1000 x 1000", lambda a: ops.boxes_iou3d(a, a), [bx],
+              cut=first, cut_desc="500 boxes")
+    _zoo_case("nms3d", "1000 boxes, iou 0.5", lambda a, s: ops.nms3d(a, s, 0.5), [bx, sc],
+              cut=first, cut_desc="500 boxes")
+    _zoo_case("nms3d_normal", "1000 boxes, iou 0.5", lambda a, s: ops.nms3d_normal(a, s, 0.5),
+              [bx, sc])
+    del bx, sc
+
+    # PartA2's RoI-aware pooling (out 14) and PointRCNN's RoI point pooling
+    # (512 points), on 16,384 points
+    pts = torch.rand(2, 16384, 3, device="cuda", generator=g) * torch.tensor(
+        [40.0, 40.0, 3.0], device="cuda") - torch.tensor([0.0, 20.0, 2.0], device="cuda")
+    centre = pts[:, torch.randint(0, 16384, (128,), device="cuda", generator=g)]
+    rois = torch.cat([centre, torch.tensor([3.9, 1.6, 1.56], device="cuda").expand(2, 128, 3) * 1.5,
+                      (torch.rand(2, 128, 1, device="cuda", generator=g) - 0.5) * np.pi], -1)
+    pf = torch.randn(2, 16384, 128, device="cuda", generator=g)
+    for mode, ch in (("max", 128), ("avg", 4)):
+        _zoo_case(f"roiaware_pool3d {mode} (PartA2)", f"128 RoIs, (16384, {ch}), out 14",
+                  lambda r, p, f, md=mode: ops.roiaware_pool3d(r, p, f, (14, 14, 14), 128, md),
+                  [rois[0], pts[0], pf[0, :, :ch].contiguous()],
+                  cut=lambda a: [a[0][:16]] + a[1:], cut_desc="16 RoIs")
+    _zoo_case("roipoint_pool3d (PointRCNN)", "(2, 16384, 3), 128 features, 128 boxes, 512 points",
+              lambda p, f, r: ops.roipoint_pool3d(p, f, r, 512), [pts, pf, rois])
+    del pts, pf, rois, centre
+
+
+def _zoo_text(ops):
+    """PANet's and PSENet's post-processing at 640x640 (7 kernels), on the
+    host: the card's tensors (one copy each) against the same maps on the
+    CPU."""
+    rs = np.random.RandomState(ZOO_SEED)
+    H = W = 640
+    label = np.zeros((H, W), np.int32)
+    kernels = np.zeros((7, H, W), np.uint8)
+    for i in range(1, 13):
+        y, x = rs.randint(20, H - 60), rs.randint(20, W - 160)
+        h, w = rs.randint(14, 26), rs.randint(40, 120)
+        for k in range(7):                            # kernel 0 the largest
+            s = 6 - k
+            kernels[k, max(y - 2 * s, 0):y + h + 2 * s, max(x - 2 * s, 0):x + w + 2 * s] = 1
+        label[y + 6:y + h - 6, x + 12:x + w - 12] = i
+    mask = kernels[0] > 0
+    score = rs.rand(H, W).astype(np.float32)
+    emb = (rs.randn(H, W, 4) * 0.2).astype(np.float32)
+    contour = np.zeros((H, W), np.uint8)
+    contour[1:-1, 1:-1] = ((label[1:-1, 1:-1] > 0) & ((label[:-2, 1:-1] == 0) |
+                                                       (label[2:, 1:-1] == 0)))
+    arrays = [torch.from_numpy(a).cuda() for a in (score, mask, emb, label, contour)]
+    _zoo_case("pixel_group (PANet)", "640x640, 4-d embedding, 13 regions",
+              lambda s, m, e, l_, c: ops.pixel_group(s, m, e, l_, c, 13, 0.8), arrays,
+              reps=ZOO_HOST_REPS, warmup=0)
+    arrays = [torch.from_numpy(a).cuda() for a in (kernels, label)]
+    _zoo_case("contour_expand (PSENet)", "7 kernels at 640x640, min area 16",
+              lambda k, l_: ops.contour_expand(k, l_, 16, 7), arrays, reps=ZOO_HOST_REPS,
+              warmup=0)
+
+
+def _zoo_backbone_and_utils(ops, g, card):
+    from deep3dmap_tpu_torch.datasets.synthetic import make_fragment_sample
+    from deep3dmap_tpu_torch.models.backbones.resnet_v1 import ResFCN256Cls
+    from deep3dmap_tpu_torch.models.layers import init_flax_defaults
+    from deep3dmap_tpu_torch.utils.analysis import get_model_complexity_info
+
+    net = ResFCN256Cls(num_classes=1000)
+    init_flax_defaults(net, torch.Generator().manual_seed(ZOO_SEED))
+    cpu_net = ResFCN256Cls(num_classes=1000)
+    cpu_net.load_state_dict(net.state_dict())
+    net = net.cuda()
+    x = torch.rand(16, 256, 256, 3, device="cuda", generator=g)
+    cot = torch.randn(2, 1000, generator=torch.Generator().manual_seed(ZOO_SEED))
+    outs = []
+    for m, xx in ((cpu_net, x[:2].cpu()), (net, x[:2])):
+        m.zero_grad()
+        out = m(xx)
+        out.backward(cot.to(xx.device))
+        outs.append((out.detach().cpu(), {k: p.grad.cpu() for k, p in m.named_parameters()}))
+    err = _zoo_rel(outs[1][0], outs[0][0])
+    # float32 gradients move with the rounding of the forward at ReLU kinks
+    # (stage 4 is 8x8 at B 2: one flip is ~1% of a leaf); in float64 the two
+    # devices compute the same function's gradient
+    f32_g = _zoo_tree_rel(outs[1][1], outs[0][1])
+    outs64 = []
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(cpu_net).double().to(dev)
+        out = m(x[:2].double().to(dev))
+        out.backward(cot.double().to(dev))
+        outs64.append((out.detach().cpu(), {k: p.grad.cpu() for k, p in m.named_parameters()}))
+        del m, out
+    err64 = _zoo_rel(outs64[1][0], outs64[0][0])
+    gerr, leaf, leaf_err = _zoo_tree_rel(outs64[1][1], outs64[0][1])
+    check(err <= TOL_ZOO and err64 <= TOL_ZOO and gerr <= TOL_ZOO_GRAD,
+          f"zoo ResFCN256Cls: the card differs from the CPU by {err:.3e} (float32 output), "
+          f"{err64:.3e} (float64 output), {gerr:.3e} (float64 gradients)")
+    full_cot = torch.randn(16, 1000, device="cuda")
+
+    def step():
+        net.zero_grad(set_to_none=True)
+        net(x).backward(full_cot)
+    step_ms = _median_ms(step, reps=ZOO_REPS)
+    fwd_ms = _median_ms(lambda: net(x), reps=ZOO_REPS)
+    info = get_model_complexity_info(lambda m, v: m(v), net, x)
+    launches, dev_ms, top = _device_ops(step, reps=1, pad=ZOO_PROFILE_PAD)
+    peak = _zoo_peak(step)
+    print(f"zoo ResFCN256Cls: (16, 256, 256, 3), 1000 classes; cut=B 2 for the CPU "
+          f"fwd_ms={fwd_ms:.6f} fwd_bwd_ms={step_ms:.6f} (median of {ZOO_REPS}, CUDA events) "
+          f"flops_fwd={info['flops']:.6g} ({info['flops_readable']}) params={info['params']} "
+          f"fwd_tflops_per_s={info['flops'] / fwd_ms / 1e9:.3f} launches_fwd_bwd={launches:g} "
+          f"device_ms={dev_ms:.6f} peak_bytes={peak} max_rel_err={err:.3e} "
+          f"float64: max_rel_err={err64:.3e} grad_rel_err={gerr:.3e} (worst leaf {leaf} "
+          f"{leaf_err:.3e}); float32 grad_rel_err={f32_g[0]:.3e} (worst leaf {f32_g[1]} "
+          f"{f32_g[2]:.3e}) card={card!r}", flush=True)
+    for key, count, t in top:
+        print(f"zoo   {t:10.6f} ms x{count:g} {key}", flush=True)
+    del net, cpu_net, x, outs
+
+    vol = torch.randn(96, 96, 96, 32, device="cuda", generator=g)
+    co = [torch.rand(96 ** 3, device="cuda", generator=g) * 98 - 1 for _ in range(3)]
+    _zoo_case("grid_sample_3d", "(96, 96, 96, 32) at 96^3 points, bilinear",
+              lambda v, a, b_, c: ops.grid_sample_3d(v, a, b_, c), [vol] + co,
+              grads=(0, 1, 2, 3), cut=lambda a: [a[0]] + [t[:100_000] for t in a[1:]],
+              cut_desc="100000 points")
+    del vol, co
+    # the bench fragment's first level: 9 views at 480x640, 96^3 at 0.04 m,
+    # level 0 = 24^3 voxels at interval 4 over the stride-16 features (80 ch)
+    s = make_fragment_sample(seed=ZOO_SEED, n_views=9, img_size=(480, 640), n_vox=96,
+                             voxel_size=0.04, device="cuda")
+    proj = torch.from_numpy(s["proj_matrices"][:, 2]).cuda()
+    origin = torch.from_numpy(s["vol_origin_partial"]).cuda()
+    feats = torch.randn(9, 30, 40, 80, device="cuda", generator=g)
+    _zoo_case("back_project_dense (bench fragment, level 0)", "9 x (30, 40, 80) -> 24^3",
+              lambda f, p, o: ops.back_project_dense(f, p, o, 24, 0.04, 4), [feats, proj, origin],
+              grads=(0,))
+
+
+def phase_zoo(card):
+    """Phase 29: the op zoo (no kernel of the repo)."""
+    phase("the op zoo: each op at the size of a published model that uses it, the card "
+          "against the CPU (TF32 off), ms, launches, syncs, peak bytes")
+    set_tf32(cudnn=False, matmul=False)
+    import deep3dmap_tpu_torch.ops as ops
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(ZOO_SEED)
+    _zoo_detection(ops, g)
+    _zoo_loss_and_points(ops, g)
+    _zoo_lidar(ops, g)
+    _zoo_text(ops)
+    _zoo_backbone_and_utils(ops, g, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"zoo: phase 29 took {time.perf_counter() - t0:.3f} s card={card!r}", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -4927,6 +5489,9 @@ def main():
         phase_detection(card, work)
     check((fused_loss.launches, fused_loss.bwd_launches, raster.launches) == counts,
           "the detection phase launched a kernel of the repo")
+    phase_zoo(card)
+    check((fused_loss.launches, fused_loss.bwd_launches, raster.launches) == counts,
+          "the op zoo launched a kernel of the repo")
     print(f"phases took {time.perf_counter() - t0:.3f} s", flush=True)
 
     print(json.dumps({"kernels": [{

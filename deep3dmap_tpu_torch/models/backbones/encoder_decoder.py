@@ -14,6 +14,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..builder import BACKBONES
 from ..layers import Conv, ConvTranspose, GroupNorm
 
 
@@ -25,6 +26,7 @@ def _up2(x: torch.Tensor) -> torch.Tensor:
 ZDIM = 256   # the latent width (flax EDDeconv's default, the only one used)
 
 
+@BACKBONES.register_module()
 class EDDeconv(nn.Module):
     def __init__(self, image_size: int, cout: int = 1, nf: int = 32):
         super().__init__()

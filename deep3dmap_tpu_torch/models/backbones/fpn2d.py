@@ -19,6 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..builder import BACKBONES
 from ..layers import Conv, GroupNorm, num_groups
 
 
@@ -108,6 +109,7 @@ def _up2(x):
     return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
 
 
+@BACKBONES.register_module()
 class MnasFPN(_NormSlots):
     """Returns [1/4 (fine), 1/8, 1/16 (coarse)] feature maps, float32."""
 

@@ -12,10 +12,12 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
+from ..builder import BACKBONES
 from ..layers import Dense
 from ..modulars.embeddings import embedding_out_channels, high_dim_embedding
 
 
+@BACKBONES.register_module()
 class NeRF(nn.Module):
     def __init__(self, xyz_freq: int = 10, dir_freq: int = 4, fc_depth: int = 8,
                  fc_dim: int = 256, skips: Sequence[int] = (4,)):

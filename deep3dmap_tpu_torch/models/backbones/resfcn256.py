@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..builder import BACKBONES
 from ..layers import Conv, GroupNorm, num_groups
 from .encoder_decoder import _up2
 
@@ -76,6 +77,7 @@ class _UpBlock(nn.Module):
         return x
 
 
+@BACKBONES.register_module(name=["ResFCN256", "resfcn256_std"])
 class ResFCN256(nn.Module):
     """Input (B, R, R, 3) in [0, 1]; output (B, R, R, out_ch) in (0, 1)."""
 

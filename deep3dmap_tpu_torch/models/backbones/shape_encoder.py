@@ -13,10 +13,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..builder import BACKBONES
 from ..layers import Dense, init_flax_defaults
 from .vgg import Vgg
 
 
+@BACKBONES.register_module()
 class Shape3dmmEncoder(nn.Module):
     def __init__(self, n_param: int = 228, feat_dim: int = 512):
         super().__init__()

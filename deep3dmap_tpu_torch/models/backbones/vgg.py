@@ -9,11 +9,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..builder import BACKBONES
 from ..layers import Conv, Dense, GroupNorm
 
 STAGES = ((64, 2), (128, 2), (256, 3), (512, 3))
 
 
+@BACKBONES.register_module()
 class Vgg(nn.Module):
     def __init__(self, feat_dim: int = 512):
         super().__init__()

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from ..builder import BACKBONES
 from ..layers import Dense, LayerNorm, MultiHeadDotProductAttention, gelu
 
 
@@ -28,6 +29,7 @@ class _Block(nn.Module):
         return x + self.Dense_1(gelu(self.Dense_0(self.LayerNorm_1(x))))
 
 
+@BACKBONES.register_module()
 class InversionNet(nn.Module):
     FLAX_LEAVES = {"cls": ("cls", "plain"), "pos_embed": ("pos_embed", "plain")}
 

@@ -17,6 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.resize import resize_bilinear
+from ..builder import BACKBONES
 from ..layers import Conv, GroupNorm
 
 
@@ -47,6 +48,7 @@ class _ARM(nn.Module):
         return x * torch.sigmoid(self.GroupNorm_1(self.Conv_1(atten)))
 
 
+@BACKBONES.register_module()
 class BiSeNet(nn.Module):
     def __init__(self, n_classes: int = 19, base: int = 32):
         super().__init__()

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from ...ops.resize import resize_bilinear, resize_nearest
 from ...utils.device import resolve_device
 from ...utils.from_flax import load_flax_npz
+from ..builder import BACKBONES
 from ..layers import Conv, init_flax_defaults
 
 
@@ -85,6 +86,7 @@ class _ARM(nn.Module):
         return feat * torch.sigmoid(self.conv_atten(feat.mean(dim=(1, 2), keepdim=True)))
 
 
+@BACKBONES.register_module()
 class BiSeNetFP(nn.Module):
     """(B, H, W, 3) -> (B, H, W, n_classes) logits."""
 

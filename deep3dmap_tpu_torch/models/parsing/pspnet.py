@@ -17,6 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.resize import resize_bilinear
+from ..builder import BACKBONES
 from ..layers import Conv
 from .bisenet import add_cbr, cbr
 from .bisenet_fp import RegionParser
@@ -42,6 +43,7 @@ class _PPM(nn.Module):
         return torch.cat(outs, -1)
 
 
+@BACKBONES.register_module()
 class PSPNet(nn.Module):
     """(B, H, W, 3) -> (B, H, W, n_classes) logits."""
 

@@ -199,3 +199,32 @@ def back_project_masked_batch(feats, proj, origin, mask, capacity: int,
     count.index_put_((rows,), (cnt * vf).reshape(-1), accumulate=True)
     return (volume.reshape(B, dim, dim, dim, C + 1),
             count.reshape(B, dim, dim, dim))
+
+
+def back_project_sparse(feats, proj, origin, flat_idx, slot_valid, dim: int,
+                        voxel_size: float, interval: int, gather_dtype=None):
+    """One batch element: feats (V, H, W, C), proj (V, 4, 4), origin (3,),
+    flat_idx (K,), slot_valid (K,) -> features (K, C + 1), count (K,)."""
+    f, cnt = back_project_sparse_batch(feats[None], proj[None], origin[None], flat_idx[None],
+                                       slot_valid[None], dim, voxel_size, interval,
+                                       gather_dtype=gather_dtype)
+    return f[0], cnt[0]
+
+
+def back_project_dense(feats, proj, origin, dim: int, voxel_size: float, interval: int,
+                       gather_dtype=None):
+    """One batch element, all dim³ voxels: volume (d, d, d, C + 1), count
+    (d, d, d)."""
+    vol, cnt = back_project_batch(feats[None], proj[None], origin[None], dim, voxel_size,
+                                  interval, gather_dtype=gather_dtype)
+    return vol[0], cnt[0]
+
+
+def back_project_masked(feats, proj, origin, mask, capacity: int, dim: int,
+                        voxel_size: float, interval: int, gather_dtype=None):
+    """One batch element, up to ``capacity`` active voxels of ``mask``
+    (d, d, d): volume (d, d, d, C + 1), count (d, d, d)."""
+    vol, cnt = back_project_masked_batch(feats[None], proj[None], origin[None], mask[None],
+                                         capacity, dim, voxel_size, interval,
+                                         gather_dtype=gather_dtype)
+    return vol[0], cnt[0]

@@ -1,7 +1,7 @@
-"""2-D grid sampling in pixel units, written from indexing ops.
+"""2-D and 3-D grid sampling in pixel/voxel units, written from indexing ops.
 
-Port of ``deep3dmap_tpu/ops/grid_sample.py::grid_sample_2d``.  Coordinates
-are in pixels (pixel i sits at coordinate i).
+Port of ``deep3dmap_tpu/ops/grid_sample.py``.  Coordinates are in pixels
+(pixel i sits at coordinate i).
 
 TRAP: this is not ``F.grid_sample``.  A sample whose continuous coordinate
 lies outside [0, W-1] x [0, H-1] is zeroed whole, and the neighbour weights
@@ -64,3 +64,58 @@ def grid_sample_2d(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     Returns (N, C).  Zeros outside [0, W-1] x [0, H-1].
     """
     return grid_sample_2d_batch(img[None], x[None], y[None], mode=mode)[0]
+
+
+def grid_sample_3d(vol: torch.Tensor, x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
+                   mode: str = "bilinear", fill: float = 0.0) -> torch.Tensor:
+    """Sample ``vol`` (X, Y, Z) or (X, Y, Z, C) at voxel coords ``x``, ``y``,
+    ``z`` (any equal shapes; x indexes dim 0, y dim 1, z dim 2).
+
+    Returns (..., C), or (...) for a volume without channels; ``fill``
+    outside [0, X-1] x [0, Y-1] x [0, Z-1].  The eight taps are one gather,
+    so the backward is one sorted accumulation (a fixed order on the card).
+    """
+    squeeze = vol.ndim == 3
+    if squeeze:
+        vol = vol[..., None]
+    X, Y, Z, C = vol.shape
+    flat = vol.reshape(X * Y * Z, C)
+    in_bounds = ((x >= 0) & (x <= X - 1) & (y >= 0) & (y <= Y - 1)
+                 & (z >= 0) & (z <= Z - 1))
+
+    def take(xi, yi, zi):
+        return flat[((xi * Y + yi) * Z + zi).reshape(-1)].reshape(*xi.shape, C)
+
+    if mode == "nearest":
+        idx = [torch.nan_to_num(torch.round(c)).clamp(0, n - 1).long()
+               for c, n in ((x, X), (y, Y), (z, Z))]
+        out = take(*idx)
+    elif mode == "bilinear":
+        x0 = torch.clamp(torch.floor(x), 0, X - 1)
+        y0 = torch.clamp(torch.floor(y), 0, Y - 1)
+        z0 = torch.clamp(torch.floor(z), 0, Z - 1)
+        x1 = torch.clamp(x0 + 1, 0, X - 1)
+        y1 = torch.clamp(y0 + 1, 0, Y - 1)
+        z1 = torch.clamp(z0 + 1, 0, Z - 1)
+        wx = (torch.clamp(x, 0, X - 1) - x0)[..., None].to(vol.dtype)
+        wy = (torch.clamp(y, 0, Y - 1) - y0)[..., None].to(vol.dtype)
+        wz = (torch.clamp(z, 0, Z - 1) - z0)[..., None].to(vol.dtype)
+        x0i, x1i, y0i, y1i, z0i, z1i = (torch.nan_to_num(c).long()
+                                        for c in (x0, x1, y0, y1, z0, z1))
+        # JAX's corner order: 000, 100, 010, 001, 110, 101, 011, 111
+        corners = take(torch.stack([x0i, x1i, x0i, x0i, x1i, x1i, x0i, x1i]),
+                       torch.stack([y0i, y0i, y1i, y0i, y1i, y0i, y1i, y1i]),
+                       torch.stack([z0i, z0i, z0i, z1i, z0i, z1i, z1i, z1i]))
+        out = (corners[0] * (1 - wx) * (1 - wy) * (1 - wz)
+               + corners[1] * wx * (1 - wy) * (1 - wz)
+               + corners[2] * (1 - wx) * wy * (1 - wz)
+               + corners[3] * (1 - wx) * (1 - wy) * wz
+               + corners[4] * wx * wy * (1 - wz)
+               + corners[5] * wx * (1 - wy) * wz
+               + corners[6] * (1 - wx) * wy * wz
+               + corners[7] * wx * wy * wz)
+    else:
+        raise ValueError(f"grid_sample_3d: unknown mode {mode!r}")
+    mask = in_bounds[..., None].to(vol.dtype)
+    out = out * mask + fill * (1 - mask)
+    return out[..., 0] if squeeze else out

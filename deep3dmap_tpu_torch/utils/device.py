@@ -37,12 +37,14 @@ def make_deterministic() -> None:
 
 @contextlib.contextmanager
 def no_tf32():
-    """float32 matmuls at full precision inside the block (TF32 off),
-    whatever the caller's setting; restored on exit.  A solver whose result
-    is compared with float32 (the SfM layer's Schur complement) runs in it."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """float32 matmuls and cuDNN convolutions at full precision inside the
+    block (TF32 off), whatever the caller's setting; restored on exit.  A
+    solver whose result is compared with float32 (the SfM layer's Schur
+    complement) runs in it, and so does a check of the op zoo's GEMMs and
+    convolutions against the CPU."""
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev

@@ -15,12 +15,15 @@ give what OpenCV 5.0's x86-64 build gives, bit for bit (held against
   (((S1>>4)*b1)>>16) + 2) >> 2``.  Columns past the last source pixel take
   it alone; rows past an edge repeat the edge row with the row weights
   unchanged (an exact 2x shrink, which OpenCV hands to ``INTER_AREA``,
-  gives the same numbers).  On ``float32`` the fractions come from double
-  positions (one that rounds to 1 moves to the next tap) and each pass is
-  one fused multiply-add, ``S0 + f*(S1 - S0)``: bit-equal at the
-  pipelines' sizes (640x480 -> 1333x800 and the like); OpenCV takes other
-  paths for some shapes (columns past an edge, some shrinks), where a
-  value can differ by one float32 ulp (``ROADMAP.md`` Queue 3).
+  gives the same numbers).  On ``float32`` the fractions are float32
+  roundings of double positions ``(d + 0.5) * in / out - 0.5`` (a fraction
+  that rounds to 1 keeps its taps) and each pass is one fused multiply-add,
+  ``S0 + f*(S1 - S0)``, except in the columns before the first and past the
+  last source pixel: there the vertical lerp rounds its product and its sum
+  apart on 16-pixel blocks with 4 channels, and on the first two channels
+  of a remainder of 5 or more pixels with 3 or 4 (``_unfused_columns``).
+  A source of one row or one column takes OpenCV's generic path instead:
+  float32 positions, and ``S0*(1-f) + S1*f`` without fused multiply-adds.
 - ``warp_affine`` (``INTER_LINEAR``/``INTER_NEAREST``, constant border):
   the inverse map in float32, source x as ``fma(M0, x, float(y*M1) + M2)``
   on 16-pixel vector blocks and ``fma(x, M0, y*M1) + M2`` on a row's tail;
@@ -43,7 +46,8 @@ AVX512F,AVX512-SKX``) and fail with AVX2 switched off as well, where
 ``warpAffine`` differs by up to 0.018 on ``float32`` and by 1 on up to
 0.05% of ``uint8`` values, and HSV -> RGB by 1 on up to 1.4% (``ROADMAP.md``
 Queue 3).  The parts that belong to the build are ``_WARP_BLOCK``,
-``_HSV_BLOCK`` and the scalar order on each row's tail; a ``cv2`` that
+``_HSV_BLOCK``, the resize's edge rule (``_RESIZE_EDGE_BLOCK``,
+``_RESIZE_EDGE_MIN``) and the scalar order on each row's tail; a ``cv2`` that
 dispatches otherwise (SSE4 only, NEON, another version) is another
 target.
 """
@@ -58,6 +62,8 @@ _COEF_SCALE = 2048                 # INTER_RESIZE_COEF_SCALE (11 bits)
 _HSV_SHIFT = 12
 _WARP_BLOCK = 16                   # pixels per vector step of warpAffine
 _HSV_BLOCK = 32                    # pixels per vector step of HSV -> RGB
+_RESIZE_EDGE_BLOCK = 16            # edge-column pixels per vector step of a float32 resize
+_RESIZE_EDGE_MIN = 5               # the shortest edge remainder OpenCV vectorises
 # (b, g, r) picks from (v, v(1-s), v(1-s h), v(1-s(1-h))) per hue sector
 _HSV_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]])
 
@@ -118,24 +124,78 @@ def _resize_u8(src: np.ndarray, W: int, H: int) -> np.ndarray:
 
 
 def _float_weights(n_in: int, n_out: int, clamp: bool):
-    pos, s = _taps(n_in, n_out)
+    """Source index and float32 fraction of each output sample for the
+    ``float32`` path: the position ``(d + 0.5) * (in / out) - 0.5`` in
+    double, its floor, and the fraction rounded to float32 (it may round to
+    1).  On the x axis the columns before the first and past the last source
+    pixel take that pixel alone; ``left``/``right`` mark them."""
+    pos = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+    s = np.floor(pos).astype(np.int64)
     f = (pos - s).astype(_F32)
-    s = np.where(f == 1, s + 1, s)            # a fraction that rounds to 1
-    f[f == 1] = 0
+    left = right = np.zeros(n_out, bool)
     if clamp:
-        f[(s < 0) | (s >= n_in - 1)] = 0
+        left, right = s < 0, s >= n_in - 1
+        f[left | right] = 0
         s = np.clip(s, 0, n_in - 1)
-    return s, f
+    return s, f, left, right
+
+
+def _unfused_columns(edge: np.ndarray, c: int) -> np.ndarray:
+    """(W, c) mask of the values whose vertical lerp OpenCV rounds twice
+    (``r0 + round(f * (r1 - r0))``) in one run of edge columns: with 4
+    channels the full blocks of ``_RESIZE_EDGE_BLOCK`` pixels, and with 3 or
+    4 the first ``2 * (c // 2)`` channels of a remainder of at least
+    ``_RESIZE_EDGE_MIN`` pixels.  Every other value is one fused
+    multiply-add."""
+    idx = np.nonzero(edge)[0]
+    k = len(idx) // _RESIZE_EDGE_BLOCK * _RESIZE_EDGE_BLOCK
+    m = np.zeros((len(edge), c), bool)
+    if c == 4:
+        m[idx[:k]] = True
+    if len(idx) - k >= _RESIZE_EDGE_MIN:
+        m[idx[k:], :2 * (c // 2)] = True
+    return m
+
+
+def _resize_f32_thin(src: np.ndarray, W: int, H: int) -> np.ndarray:
+    """A source of one row or one column: OpenCV's generic path, with
+    float32 positions and each pass two products and a sum, no fused
+    multiply-add."""
+    h, w = src.shape[:2]
+
+    def weights(n_in, n_out, clamp):
+        p = ((np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5).astype(_F32)
+        s = np.floor(p).astype(np.int64)
+        f = (p - s.astype(_F32)).astype(_F32)
+        if clamp:
+            out = (s < 0) | (s >= n_in - 1)
+            f[out] = 0
+            s = np.clip(s, 0, n_in - 1)
+        return s, _F32(1) - f, f
+
+    sx, a0, a1 = weights(w, W, True)
+    rows = (src[:, sx] * a0[None, :, None]
+            + src[:, np.minimum(sx + 1, w - 1)] * a1[None, :, None])
+    sy, b0, b1 = weights(h, H, False)
+    return (rows[np.clip(sy, 0, h - 1)] * b0[:, None, None]
+            + rows[np.clip(sy + 1, 0, h - 1)] * b1[:, None, None])
 
 
 def _resize_f32(src: np.ndarray, W: int, H: int) -> np.ndarray:
-    h, w = src.shape[:2]
-    sx, fx = _float_weights(w, W, clamp=True)
+    h, w, c = src.shape
+    if h == 1 or w == 1:
+        return _resize_f32_thin(src, W, H)
+    sx, fx, left, right = _float_weights(w, W, clamp=True)
     s0, s1 = src[:, sx], src[:, np.minimum(sx + 1, w - 1)]
     rows = _fma(fx[None, :, None], s1 - s0, s0)
-    sy, fy = _float_weights(h, H, clamp=False)
+    sy, fy, _, _ = _float_weights(h, H, clamp=False)
     r0, r1 = rows[np.clip(sy, 0, h - 1)], rows[np.clip(sy + 1, 0, h - 1)]
-    return _fma(fy[:, None, None], r1 - r0, r0)
+    fy = fy[:, None, None]
+    out = _fma(fy, r1 - r0, r0)
+    unfused = _unfused_columns(left, c) | _unfused_columns(right, c)
+    if unfused.any():
+        out = np.where(unfused[None], r0 + (fy * (r1 - r0)).astype(_F32), out)
+    return out
 
 
 def _resize_nearest(img: np.ndarray, W: int, H: int) -> np.ndarray:

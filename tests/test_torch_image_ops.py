@@ -7,14 +7,12 @@ port copies; ``image_ops``' docstring): every ``uint8`` resize, every
 ``float32``, 1/3/4 channels, vector blocks and row tails), both HSV
 conversions (all 180 x 256 x 256 HSV codes, a third of all RGB codes per
 axis), ``INTER_NEAREST`` resizes and ``getRotationMatrix2D`` are bit-equal.
-``float32`` ``INTER_LINEAR`` resizes are bit-equal at the pipelines' sizes
-(640x480 to 1333x800 and to 666x400, 2x shrinks, 317x203 both ways); over
-random shapes whose source has at least 2 pixels a side OpenCV takes other
-paths for some (columns past an edge, some shrinks) and a value differs by
-at most 1.53e-5 (one float32 ulp at 255; 2.2% of values), inside the 1e-4
-bound held here; a source of one row or column differs by up to 7.0e-4
-(``ROADMAP.md`` Queue 3).  ``getAffineTransform`` solves the same 6 x 6
-system with LAPACK: 7.1e-15.
+``float32`` ``INTER_LINEAR`` resizes are bit-equal too: at the pipelines'
+sizes (640x480 to 1333x800 and to 666x400, 2x shrinks, 317x203 both ways),
+over random shapes whose source has at least 2 pixels a side (positions a
+hair from an integer, wide edge runs before the first and past the last
+source column), and from a source of one row or one column.
+``getAffineTransform`` solves the same 6 x 6 system with LAPACK: 7.1e-15.
 """
 import numpy as np
 import pytest
@@ -65,15 +63,40 @@ def test_resize_uint8_random_shapes_bit_equal():
 
 
 def test_resize_float32_random_shapes_within_bound():
+    """The bound is 0: every value equal to ``cv2``'s."""
     rs = np.random.RandomState(2)
-    worst = 0.0
     for _ in range(150):
         w, h = rs.randint(2, 90, 2)
         W, H = rs.randint(1, 200, 2)
         img = _img(rs, w, h, rs.choice([1, 3, 4]), np.float32)
         ref = cv2.resize(img, (int(W), int(H)), interpolation=cv2.INTER_LINEAR)
-        worst = max(worst, float(np.abs(image_ops.resize(img, (W, H)) - ref).max()))
-    assert worst <= 1e-4, worst
+        np.testing.assert_array_equal(image_ops.resize(img, (W, H)), ref)
+
+
+@pytest.mark.parametrize("seed", [5, 7])
+def test_resize_float32_edge_runs_bit_equal(seed):
+    """Enlargements of narrow sources: runs of 1-48 edge columns on either
+    side (``image_ops._unfused_columns``), and positions near an integer."""
+    rs = np.random.RandomState(seed)
+    for _ in range(60):
+        w, h = rs.randint(2, 14), rs.randint(2, 90)
+        W, H = rs.randint(2, 200), rs.randint(1, 200)
+        img = _img(rs, w, h, rs.choice([1, 3, 4]), np.float32)
+        np.testing.assert_array_equal(image_ops.resize(img, (W, H)),
+                                      cv2.resize(img, (int(W), int(H)),
+                                                 interpolation=cv2.INTER_LINEAR))
+
+
+def test_resize_float32_one_row_or_column_bit_equal():
+    rs = np.random.RandomState(4)
+    for t in range(80):
+        n = rs.randint(1, 90)
+        w, h = (1, n) if t % 2 else (n, 1)
+        W, H = rs.randint(1, 200, 2)
+        img = _img(rs, w, h, rs.choice([1, 3, 4]), np.float32)
+        np.testing.assert_array_equal(image_ops.resize(img, (W, H)),
+                                      cv2.resize(img, (int(W), int(H)),
+                                                 interpolation=cv2.INTER_LINEAR))
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.float32])

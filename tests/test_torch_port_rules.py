@@ -15,7 +15,11 @@
   config: here; on the face configs: ``tests/test_torch_face_cli.py``);
 - the evaluation's worker processes import no torch;
 - the detection data path's modules import no ``cv2`` or ``PIL``, and its
-  box ops put numpy inputs on the card unless ``device="cpu"`` is passed.
+  box ops put numpy inputs on the card unless ``device="cpu"`` is passed;
+- the port's ``ops`` exports every name of the JAX package's
+  ``ops.__all__`` and its ``BACKBONES`` every name JAX registers; the op
+  zoo puts numpy inputs on the card unless ``device="cpu"`` is passed, and
+  ``ops/host.py`` imports no torch.
 """
 import ast
 import os
@@ -441,3 +445,107 @@ def test_box_ops_raise_without_gpu():
         leaves = out if isinstance(out, (tuple, list)) else [out]
         assert leaves and {t.device.type for t in leaves} == {"cpu"}
     assert bbox.nms(torch.from_numpy(boxes), torch.from_numpy(scores), 0.5)[1].device.type == "cpu"
+
+
+def test_ops_exports_cover_jax_and_backbones_registry():
+    """Every name of the JAX package's ``ops.__all__`` imports from the
+    port's ``ops``, and the port's ``BACKBONES`` holds every name JAX's
+    registers."""
+    import importlib
+
+    import deep3dmap_tpu.models  # noqa: F401  (register)
+    import deep3dmap_tpu.models.modulars.inversion_net  # noqa: F401
+    import deep3dmap_tpu.models.parsing  # noqa: F401
+    import deep3dmap_tpu.ops as jops
+    from deep3dmap_tpu.models.builder import BACKBONES as JAX_BACKBONES
+    from deep3dmap_tpu_torch.models.builder import BACKBONES, build_backbone
+
+    ops = importlib.import_module("deep3dmap_tpu_torch.ops")
+    assert set(jops.__all__) <= set(dir(ops)) and set(jops.__all__) <= set(ops.__all__)
+    for name in jops.__all__:
+        assert callable(getattr(ops, name)), name
+    from deep3dmap_tpu_torch.ops import roi_align
+    assert callable(roi_align) and not isinstance(roi_align, type(ops))
+    build_backbone(dict(type="Encoder", cout=4, nf=4))
+    assert set(JAX_BACKBONES.module_dict) <= set(BACKBONES.module_dict)
+
+
+def test_op_zoo_raises_without_gpu():
+    """Numpy inputs go to the card unless ``device="cpu"`` is passed; the
+    result then lies on the CPU."""
+    _no_gpu()
+    import deep3dmap_tpu_torch.ops as ops
+
+    rs = np.random.RandomState(0)
+    f32 = lambda *s: rs.rand(*s).astype(np.float32)  # noqa: E731
+    feat, rois = f32(1, 2, 8, 8), np.array([[0, 1, 1, 5, 6]], np.float32)
+    pts, boxes = f32(1, 20, 3), np.array([[[0.5, 0.5, 0, 1, 1, 1, 0]]], np.float32)
+    calls = [
+        lambda **kw: ops.sigmoid_focal_loss(f32(4, 3), rs.randint(0, 3, 4), **kw),
+        lambda **kw: ops.softmax_focal_loss(f32(4, 3), rs.randint(0, 3, 4), **kw),
+        lambda **kw: ops.roi_align(feat, rois, 2, **kw),
+        lambda **kw: ops.roi_pool(feat, rois, 2, **kw),
+        lambda **kw: ops.roi_align_rotated(feat, np.array([[0, 4, 4, 3, 3, 0.3]], np.float32), 2,
+                                           **kw),
+        lambda **kw: ops.deform_conv2d(feat, np.zeros((1, 18, 6, 6), np.float32),
+                                       f32(3, 2, 3, 3), **kw),
+        lambda **kw: ops.modulated_deform_conv2d(feat, np.zeros((1, 18, 6, 6), np.float32),
+                                                 np.ones((1, 9, 6, 6), np.float32),
+                                                 f32(3, 2, 3, 3), **kw),
+        lambda **kw: ops.deform_roi_pool(feat, rois, None, 2, **kw),
+        lambda **kw: ops.ms_deform_attn(f32(1, 5, 1, 2), [(1, 5)], [0], f32(1, 3, 1, 1, 2, 2),
+                                        f32(1, 3, 1, 1, 2), **kw),
+        lambda **kw: ops.square_distance(pts, pts, **kw),
+        lambda **kw: ops.knn(3, pts, pts, **kw),
+        lambda **kw: ops.ball_query(0.5, 4, pts, pts, **kw),
+        lambda **kw: ops.furthest_point_sample(pts, 4, **kw),
+        lambda **kw: ops.gather_points(f32(1, 2, 20), np.zeros((1, 3), np.int64), **kw),
+        lambda **kw: ops.group_points(f32(1, 2, 20), np.zeros((1, 3, 2), np.int64), **kw),
+        lambda **kw: ops.three_nn(pts, pts, **kw),
+        lambda **kw: ops.three_interpolate(f32(1, 2, 20), np.zeros((1, 5, 3), np.int64),
+                                           f32(1, 5, 3), **kw),
+        lambda **kw: ops.three_interpolate_weights(pts, pts, **kw),
+        lambda **kw: ops.voxelize(f32(30, 4), (0.5, 0.5, 0.5), (0, 0, 0, 1, 1, 1), 4, 8, **kw),
+        lambda **kw: ops.voxelize_host(f32(30, 4), (0.5, 0.5, 0.5), (0, 0, 0, 1, 1, 1), 4, 8,
+                                       **kw),
+        lambda **kw: ops.dynamic_scatter(f32(10, 2), rs.randint(0, 3, (10, 3)), **kw),
+        lambda **kw: ops.points_in_boxes(pts, boxes, **kw),
+        lambda **kw: ops.boxes_iou_bev(boxes[0], boxes[0], **kw),
+        lambda **kw: ops.boxes_overlap_bev(boxes[0], boxes[0], **kw),
+        lambda **kw: ops.boxes_iou3d(boxes[0], boxes[0], **kw),
+        lambda **kw: ops.nms3d(boxes[0], np.ones(1, np.float32), 0.5, **kw),
+        lambda **kw: ops.nms3d_normal(boxes[0], np.ones(1, np.float32), 0.5, **kw),
+        lambda **kw: ops.roiaware_pool3d(boxes[0], pts[0], f32(20, 2), (2, 2, 2), **kw),
+        lambda **kw: ops.roipoint_pool3d(pts, f32(1, 20, 2), boxes, 4, **kw),
+        lambda **kw: ops.carafe(feat, f32(1, 25, 16, 16), **kw),
+        lambda **kw: ops.carafe_naive(feat, f32(1, 25, 16, 16), **kw),
+        lambda **kw: ops.masked_conv2d(feat, f32(1, 8, 8), f32(3, 2, 3, 3), **kw),
+        lambda **kw: ops.correlation(feat, feat, **kw),
+        lambda **kw: ops.tin_shift(f32(1, 4, 4, 3), np.ones((1, 2), np.int64), **kw),
+        lambda **kw: ops.psamask(f32(1, 9, 4, 4), "collect", 3, 3, **kw),
+        lambda **kw: ops.border_align(f32(1, 8, 8, 8), np.array([[[1, 1, 5, 5]]], np.float32),
+                                      **kw),
+        lambda **kw: ops.corner_pool(feat, "top", **kw),
+    ]
+    for call in calls:
+        for kw in ({}, {"device": "cuda"}):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call(**kw)
+        out = call(device="cpu")
+        leaves = out if isinstance(out, (tuple, list)) else [out]
+        assert {t.device.type if isinstance(t, torch.Tensor) else "host"
+                for t in leaves} <= {"cpu", "host"}
+
+
+def test_host_ops_import_no_torch():
+    """``ops/host.py`` (text detection's post-processing) runs in a process
+    without torch, and takes numpy there."""
+    import subprocess
+    import sys
+    code = ("import sys, numpy as np; from deep3dmap_tpu_torch.ops import host; "
+            "lab = np.zeros((6, 6), np.int32); lab[2:4, 2:4] = 1; "
+            "assert host.contour_expand(np.ones((2, 6, 6), np.uint8), lab, 1, 2)[0][0] == 1; "
+            "assert 'torch' not in sys.modules, sorted(m for m in sys.modules if 'torch' in m)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr
