@@ -77,7 +77,7 @@ Phases; any error ends the run with a nonzero exit and no result line:
    B = 4 input against its plain version.
 12. full width (Gan2Shape training): celeba's model (128², z_dim 512,
    n_mlp 8, nf 32, batchsize 4, Adam 1e-4) in hard raster mode with seeded
-   weights: 2 warm-up and 10 synced ``train_step`` calls per mode (raster
+   weights: 2 warm-up and 6 synced ``train_step`` calls per mode (raster
    launches 1 / 1 / 2 per step), only the mode's heads move, finite
    gradients, one ``fit_instance`` at cut stage_iters, the peak memory, the
    frozen generator and discriminator bitwise unchanged, one step of each
@@ -101,7 +101,7 @@ Phases; any error ends the run with a nonzero exit and no result line:
    checkpoint with ``evaluate`` (the host C++ op built and used).
 15. learning check: the port's quality twin
    (``deep3dmap_tpu_torch/tools/quality_regression.py``: the JAX tool's
-   template, fixture and both arms, FUSION_ON True and False) at 80
+   template, fixture and both arms, FUSION_ON True and False) at 40
    epochs each (the tool's default 120); the trained fusion model must beat
    the untrained one by its
    condition (F-score + 0.05, AbsRel lower, an untrained NaN AbsRel
@@ -158,7 +158,7 @@ Phases; any error ends the run with a nonzero exit and no result line:
 20. full width (GNeRF): ``configs/gnerf/blender.py``'s model (400², patch
    64, inv 64, 8x256 MLP, 64 + 64 samples, ndf 64, inv_depth 5, B 2, Adam
    2e-4 with betas (0, 0.99)) on a Blender-layout fixture written at 800²
-   RGBA (the reader composites and resizes): 2 warm-up and 10 synced
+   RGBA (the reader composites and resizes): 2 warm-up and 3 synced
    steps of each of the seven sequences through ``StateMachineRunner``
    (five Adams), the generator step again with TF32 matmuls, launches,
    device ms and busy share from torch.profiler over 2 ``ABAB``
@@ -203,7 +203,7 @@ Phases; any error ends the run with a nonzero exit and no result line:
 24. LERF through the CLIs: ``tools/train.py`` on ``lerf_synthetic.py``
    (16 iterations, checkpoints at 8 and 16, the cosine lr read from the
    JSON log), ``--resume-from auto`` to 24, ``tools/test.py``; ``lerf.py``
-   for 200 iterations on the fixture with the seeded ``.npz`` files (the
+   for 120 iterations on the fixture with the seeded ``.npz`` files (the
    learning check: its RGB and CLIP losses fall) and ``tools/test.py`` on
    a test split given by ``--cfg-options`` (``lerf.py`` deletes
    ``data.test``).  Phase 13 trains LERF's small hash-grid config twice
@@ -280,7 +280,7 @@ Phases; any error ends the run with a nonzero exit and no result line:
    ``batched_nms`` on 1,000 and 5,000 scored boxes over 80 classes,
    ``soft_nms`` linear and gaussian on 1,000, ``box_iou_rotated`` and
    ``nms_rotated`` on 1,000 rotated boxes: equal keep sets, scores and IoUs
-   within 1e-5; ms per call (median of 10 after warm-up, CUDA events),
+   within 1e-5; ms per call (median of 5 after warm-up, CUDA events),
    launches and device ms per call (torch.profiler over 5 calls), host
    syncs of a call after a warm-up one, the top device ops; (d) detections made from the fixture's GT
    (jittered copies and false positives) through ``batched_nms`` on the
@@ -315,15 +315,51 @@ Phases; any error ends the run with a nonzero exit and no result line:
    For each: the card's result against the port's own CPU run of the same
    function on the same inputs (a cut, named, where the CPU would take
    long): index outputs equal, floats within 1e-4 and gradients within 1e-3
-   of the largest CPU value; ms per call (median of 10 after warm-up, CUDA
+   of the largest CPU value; ms per call (median of 3 after warm-up, CUDA
    events), forward and forward plus backward; launches, device ms and the
    top device ops of one call (torch.profiler); host syncs of one call;
    peak bytes.  No op of the zoo launches a kernel of the repo.
 
-The raster's launches in the kernels line are phases 7's, 12's and 16's
-main paths together; the fused loss's are phase 4's (forward) or phase 10's
-(backward), phase 14's, phase 25's (both attempts, train and val) and
-phase 26's two training steps.  The backward's ms, plain_ms and bound_ms are per
+30. NeuralRecon's published training config and ``BP_GRAD_FRAC``: (a)
+   ``configs/neural_recon/scannet.py``'s model as published (fpn-mnas-1,
+   float32, dense, ``GLOBAL_DIMS`` [64, 128, 256], ``BACKBONE2D.MODE``
+   "scan" and ``REMAT`` by default: the port runs the views as one
+   checkpointed batch) on the bench fragment (9 x 480x640, 96³), TF32 off:
+   1 warm-up and 2 timed ``train_step`` calls, then the same with
+   ``REMAT=False`` from the same weights and fragment; every step's loss
+   and the first step's worst gradient leaf within 1e-5 relative
+   (bit-equal expected), ms per step (CUDA events, median and max) and
+   ``max_memory_allocated`` of each; (b) the ``bench.py`` config with
+   ``BP_GRAD_FRAC`` 0.25 (a no-op in the port), two ``train_step`` calls
+   twice against the same steps without it: gradients within 1e-6 (float32
+   summation order; bit-equal expected), the two runs bitwise equal, ms
+   per step.
+31. the face leftovers and the importers: (a) seeded StyleGAN2 (celeba.py's
+   generator: 128², z 512, 8 mapping layers, channel multiplier 1), VGG16
+   ``features`` and 19-class BiSeNet checkpoints in their published
+   layouts through ``python -m deep3dmap_tpu_torch.tools.import_weights``,
+   then Gan2Shape ``forward_test`` on the card with that ``gan_ckpt`` (hard
+   raster, one launch a call) and ``parse_mask`` with that
+   ``parsing_ckpt``, ``PerceptualLoss`` with that ``weights_path``: finite
+   outputs, ms per call; (b) ``FaceAlignment`` at its defaults (2 modules,
+   68 landmarks, 256²) on 8 face boxes, the card against the port's CPU run
+   with the same weights and TF32 off: heatmaps within 1e-4, decoded
+   landmarks within 1e-3 px but where the CPU's heatmap has a near-tie
+   (argmax lead or a sub-pixel neighbour difference within 2e-4), ms per
+   batch; (c) ``data_gen_prnet --synthetic-bfm`` on 16 300W-LP-layout
+   images, ``tools/train.py`` on ``configs/prnet/prnet_300wlp.py`` with its
+   output for one epoch, ``tools/test.py`` on an AFLW2000 fixture given by
+   ``--cfg-options`` (the NME); (d) ``FaceTexUVAsyncDataset`` with 2
+   producers over (c)'s maps, in a process whose main module imports no
+   torch: batches/s over 20 ``get()`` calls, then ``FaceImagesAsyncDataset``
+   with one (state ``sup_unsup``), and no producer held torch; (e)
+   ``data_gen_multipie organize`` on a 64-line label file (the indexes),
+   and ``get-lmk`` failing with the FAN quirk's ``TypeError``, as JAX's.
+
+The raster's launches in the kernels line are phases 7's, 12's, 16's and
+31's main paths together; the fused loss's are phase 4's (forward) or
+phase 10's (backward), phase 14's, phase 25's (both attempts, train and
+val), phase 26's two training steps and phase 30's steps.  The backward's ms, plain_ms and bound_ms are per
 train step on phase 10's own inputs: its one launch over the three levels.
 Before the last line it prints one
 ``{"kernels": [...]}`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -1805,7 +1841,7 @@ def phase_g2s_train_cpu_vs_card(g2s_module, runner_mod, raster, dataset_cls):
 
 
 # ---------------------------------------------------------------- phase 12 --
-G2S_TRAIN_WARMUP, G2S_TRAIN_TIMED = 2, 10
+G2S_TRAIN_WARMUP, G2S_TRAIN_TIMED = 2, 6
 G2S_FIT_ITERS = (20, 20, 20)        # celeba: (600, 600, 400) x 4 stages
 RASTER_PER_STEP = dict(step1=1, step2=1, step3=2)
 # the configuration without use_mask, whose mask comes from the parsing model
@@ -2233,10 +2269,10 @@ def phase_cli_full_width(fused_loss, train_mod, card, work, bare_step_ms, tools,
 
 # ---------------------------------------------------------------- phase 15 --
 # the port's quality twin (tools/quality_regression.py's template, fixture
-# and pass rule): both arms, FUSION_ON True and False, in this process, at 80
+# and pass rule): both arms, FUSION_ON True and False, in this process, at 40
 # epochs each (the JAX tool's default is 120: both arms at 120 took 111.1 s,
-# more than twice the one arm's 40.8-47.3 s this phase took before)
-QUALITY_EPOCHS = 80
+# at 80 92.5 s; 40 keeps the whole script's slowest run under ~1,050 s)
+QUALITY_EPOCHS = 40
 
 
 def phase_learning(card, work, quality_mod):
@@ -2896,7 +2932,7 @@ def phase_imgs2mesh(card, work, tools):
 GNERF_SYN_CFG = os.path.join("configs", "gnerf", "gnerf_synthetic.py")
 GNERF_BLENDER_CFG = os.path.join("configs", "gnerf", "blender.py")
 GNERF_DTU_CFG = os.path.join("configs", "gnerf", "dtu.py")
-GNERF_WARMUP, GNERF_TIMED, GNERF_PROFILED = 2, 10, 2
+GNERF_WARMUP, GNERF_TIMED, GNERF_PROFILED = 2, 3, 2
 GNERF_VIEW_WARMUP, GNERF_VIEW_TIMED = 1, 3
 BLENDER_FIXTURE = (("train", 4), ("test", 2))   # 2 steps an epoch at B 2
 BLENDER_SRC_WH = (800, 800)            # NeRF-synthetic's size: the reader resizes
@@ -3374,7 +3410,7 @@ LERF_HASH_SMALL = dict(clip_n_dims=64, dino_n_dims=32, N_samples=8, N_importance
 LERF_PHRASES = ("a chair", "a red sphere")
 LERF_WARMUP, LERF_TIMED, LERF_PROFILED = 2, 10, 2
 LERF_VIEW_WARMUP, LERF_VIEW_TIMED = 1, 5
-LERF_FIT_ITERS = 200
+LERF_FIT_ITERS = 120
 LERF_SCALE_SEED = 1
 # CPU vs card (phase 22): losses and maps as phase 19's limits.  Gradients:
 # the worst leaf on an H100 (700 W) sat 3.5e-7 (MLP, samples shared) and
@@ -4555,7 +4591,7 @@ DET_FIXTURE = dict(n_images=64, img_wh=(640, 480), n_classes=80, mean_boxes=7.3)
 DET_TEST_IMAGES = 16
 DET_NMS_IOU, DET_MAX_PER_IMG = 0.5, 100
 DET_PROPOSALS = (100, 300, 1000)
-DET_REPS = 10                 # timed calls per box op (median), after 2 warm-up
+DET_REPS = 5                  # timed calls per box op (median), after 2 warm-up
 TOL_DET = 1e-5                # scores and IoUs, card against the CPU
 
 
@@ -4860,7 +4896,7 @@ def phase_detection(card, work):
 # --------------------------------------------------------------- phase 29 --
 # The op zoo at the sizes of the published models that use each op
 # (mmdetection / mmdetection3d / mmcv configs named in each case's label).
-ZOO_REPS = 10                 # timed calls per op (median), after 2 warm-up
+ZOO_REPS = 3                  # timed calls per op (median), after 2 warm-up
 ZOO_HOST_REPS = 3             # for the host ops (numpy breadth-first searches),
                               # warmed by the comparison's call
 # calls per profiler window, and sleep kernels on each side of it: late in
@@ -5385,6 +5421,422 @@ def phase_zoo(card):
     print(f"zoo: phase 29 took {time.perf_counter() - t0:.3f} s card={card!r}", flush=True)
 
 
+# ---------------------------------------------------------------- phase 30 --
+SCANNET_CFG = os.path.join("configs", "neural_recon", "scannet.py")
+TRUNK_WARMUP, TRUNK_TIMED = 1, 2      # train_steps per trunk setting
+# REMAT against none from the same weights, every step's loss and the first
+# step's gradient: the recompute runs the forward's deterministic cuDNN
+# algorithms on the same inputs, so bit-equal is expected; 1e-5 is the bound
+TOL_REMAT_RTOL = 1e-5
+# BP_GRAD_FRAC against none: a no-op in the port, so bit-equal is expected;
+# the bound is float32 summation order
+TOL_FRAC_GRAD_RTOL = 1e-6
+
+
+def _events_step(step) -> float:
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    step()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def _nr_train_run(nr_module, train_mod, cfg, batch, n_steps, grads_at=(0,)):
+    """``n_steps`` train_steps of a fresh framework (seed 0) on one device
+    batch: per step the loss, the CUDA-event ms and, at ``grads_at``, every
+    parameter's gradient (host copies); the peak bytes from the framework's
+    build on."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fw = nr_module.NeuralRecon(cfg)
+    state = train_mod.init_train_state(fw, 0, batch, ADAM, CLIP)
+    dev = fw.batch_to_device(batch)
+    box, losses, ms, grads = [state], [], [], {}
+    for i in range(n_steps):
+        log = {}
+
+        def step():
+            box[0], out = train_mod.train_step(fw, box[0], dev)
+            log.update(out)
+        ms.append(_events_step(step))
+        losses.append(float(log["loss"]))
+        if i in grads_at:
+            grads[i] = {n: p.grad.detach().cpu().clone()
+                        for n, p in box[0].net.named_parameters()}
+    peak = torch.cuda.max_memory_allocated()
+    return dict(fw=fw, losses=losses, ms=ms, grads=grads, peak=peak)
+
+
+def _worst_leaf(a: dict, b: dict):
+    """The leaf of ``b`` farthest from ``a`` (relative to ``a``'s norm), its
+    error, the whole gradient's error, and whether every leaf is equal."""
+    rel = {n: float((a[n].double() - b[n].double()).norm()
+                    / max(float(a[n].double().norm()), 1e-30)) for n in a}
+    name = max(rel, key=rel.get)
+    flat_a = torch.cat([a[n].double().ravel() for n in a])
+    flat_b = torch.cat([b[n].double().ravel() for n in a])
+    whole = float((flat_a - flat_b).norm() / flat_a.norm())
+    return name, rel[name], whole, all(torch.equal(a[n], b[n]) for n in a)
+
+
+def phase_published_trunk(nr_module, fused_loss, train_mod, stack, make_sample, card,
+                          make_deterministic):
+    phase("NeuralRecon's published training config (configs/neural_recon/scannet.py: "
+          "fpn-mnas-1, fp32, dense, MODE scan, REMAT) against REMAT off, and BP_GRAD_FRAC "
+          "at the bench config; 9x480x640, 96^3")
+    from deep3dmap_tpu_torch.utils.config import Config
+
+    t_phase = time.perf_counter()
+    make_deterministic()
+    set_tf32(cudnn=False, matmul=False)   # the two settings compared at float32
+    batch = stack([make_sample(seed=0, n_views=N_VIEWS, img_size=IMG_HW, n_vox=N_VOX,
+                               voxel_size=0.04, device="cuda")])
+    cfg = dict(Config.fromfile(SCANNET_CFG).model["model_cfgs"])
+    bb = dict(cfg["BACKBONE2D"])
+    check("MODE" not in bb and "REMAT" not in bb and "DTYPE" not in bb
+          and cfg.get("SPARSE_MODE", "dense") == "dense",
+          f"{SCANNET_CFG} changed: {cfg}")
+    fused_loss.launches = fused_loss.bwd_launches = 0   # this path starts here
+    runs = {}
+    # the config as published (the defaults: MODE "scan", REMAT on), then
+    # REMAT off from the same weights and fragment
+    for remat, mcfg in ((True, cfg), (False, dict(cfg, BACKBONE2D=dict(bb, REMAT=False)))):
+        r = _nr_train_run(nr_module, train_mod, mcfg, batch, TRUNK_WARMUP + TRUNK_TIMED)
+        check(r["fw"].net.backbone_remat == remat,
+              f"REMAT={remat}: the framework runs {r['fw'].net.backbone_remat}")
+        check(all(np.isfinite(v) for v in r["losses"]), f"REMAT={remat}: losses {r['losses']}")
+        del r["fw"]
+        runs[remat] = r
+        timed = r["ms"][TRUNK_WARMUP:]
+        print(f"trunk30 (a) REMAT={remat}: card={card!r} train_step_ms_median="
+              f"{statistics.median(timed):.6f} train_step_ms_max={max(timed):.6f} "
+              f"(CUDA events, {TRUNK_TIMED} steps after {TRUNK_WARMUP}) "
+              f"max_memory_allocated_bytes={r['peak']} losses={r['losses']!r}", flush=True)
+    on, off = runs[True], runs[False]
+    rel = [abs(a - b) / abs(b) for a, b in zip(on["losses"], off["losses"])]
+    name, worst, whole, equal = _worst_leaf(off["grads"][0], on["grads"][0])
+    print(f"trunk30 (a) REMAT on against off: card={card!r} loss_rel_err={rel!r} "
+          f"(bound {TOL_REMAT_RTOL}) losses_bitwise_equal={on['losses'] == off['losses']} "
+          f"first_step_worst_grad_leaf={name} rel={worst:.3e} whole_grad_rel={whole:.3e} "
+          f"(bound {TOL_REMAT_RTOL}) grads_bitwise_equal={equal} "
+          f"peak_bytes remat/no_remat={on['peak']}/{off['peak']}", flush=True)
+    check(max(rel) <= TOL_REMAT_RTOL, f"REMAT on against off, losses: {rel}")
+    check(worst <= TOL_REMAT_RTOL, f"REMAT on against off, gradient {name}: {worst}")
+    del runs, on, off
+
+    # (b) BP_GRAD_FRAC at the bench config against none from the same
+    # weights, and twice for repeatability
+    set_tf32(cudnn=True, matmul=False)    # PyTorch's defaults, as phase 10
+    plain = _nr_train_run(nr_module, train_mod, BENCH_CFGS, batch, 2, grads_at=(0, 1))
+    fracs = [_nr_train_run(nr_module, train_mod, dict(BENCH_CFGS, BP_GRAD_FRAC=0.25), batch,
+                           2, grads_at=(0, 1)) for _ in range(2)]
+    for r in [plain] + fracs:
+        del r["fw"]
+    for i in (0, 1):
+        name, worst, _, equal = _worst_leaf(plain["grads"][i], fracs[0]["grads"][i])
+        repeat = _worst_leaf(fracs[0]["grads"][i], fracs[1]["grads"][i])[3]
+        print(f"trunk30 (b) BP_GRAD_FRAC=0.25 step {i}: card={card!r} "
+              f"worst_grad_leaf_vs_none={name} rel={worst:.3e} (bound {TOL_FRAC_GRAD_RTOL}) "
+              f"bitwise_equal_to_none={equal} two_runs_bitwise_equal={repeat} "
+              f"loss={fracs[0]['losses'][i]!r} loss_without={plain['losses'][i]!r}", flush=True)
+        check(worst <= TOL_FRAC_GRAD_RTOL, f"BP_GRAD_FRAC step {i}: {name} {worst}")
+        check(repeat, f"BP_GRAD_FRAC step {i}: two runs differ")
+    print(f"trunk30 (b) BP_GRAD_FRAC=0.25: card={card!r} train_step_ms="
+          f"{[r['ms'] for r in fracs]!r} without_ms={plain['ms']!r} "
+          f"max_memory_allocated_bytes={fracs[0]['peak']} (without {plain['peak']})",
+          flush=True)
+    launches = (fused_loss.launches, fused_loss.bwd_launches)   # ... and ends here
+    print(f"trunk30: phase 30 took {time.perf_counter() - t_phase:.3f} s; loss launches "
+          f"(forward, backward) {launches} card={card!r}", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------- phase 31 --
+FAN_B, FAN_BOXES_SEED = 8, 31
+TOL_FAN_HEATMAP = 1e-4
+TOL_FAN_LMK_PX = 1e-3
+FAN_TIMED = 5
+PRNET_DATAGEN_IMAGES, AFLW_IMAGES = 16, 8
+ASYNC_GETS = 20
+MULTIPIE_LABELS = 64
+
+
+def _run_module(args, timeout=600) -> float:
+    """``python -m <module> args`` from the repository's root, as a user
+    runs it; the wall seconds."""
+    return _run_modules([args], timeout)[0]
+
+
+def _run_modules(arg_lists, timeout=600) -> list:
+    """``python -m`` of each argument list, all at once; each one's wall
+    seconds (to its own exit)."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", *args], cwd=os.path.dirname(
+        os.path.abspath(__file__)), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for args in arg_lists]
+    walls = []
+    for args, p in zip(arg_lists, procs):
+        try:
+            out, err = p.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+        walls.append(time.perf_counter() - t0)
+        check(p.returncode == 0, f"python -m {' '.join(args)}: exit {p.returncode}\n"
+              f"{out[-2000:]}\n{err[-4000:]}")
+    return walls
+
+
+def _lmk_near_tie(hm, b, lm, tol) -> bool:
+    """Whether landmark ``lm`` of crop ``b`` is decided within ``tol`` on
+    the heatmap: the argmax's lead over the runner-up, and the sub-pixel
+    step's two neighbour differences."""
+    m = hm[b, :, :, lm]
+    flat = np.sort(m.ravel())
+    if flat[-1] - flat[-2] <= tol:
+        return True
+    y, x = np.unravel_index(int(m.argmax()), m.shape)
+    H, W = m.shape
+    return ((0 < x < W - 1 and abs(m[y, x + 1] - m[y, x - 1]) <= tol)
+            or (0 < y < H - 1 and abs(m[y + 1, x] - m[y - 1, x]) <= tol))
+
+
+def phase_face_leftovers(card, work, tools, g2s_module, raster):
+    phase("the face leftovers and the importers: stylegan2/vgg16/bisenet through "
+          "import_weights into Gan2Shape and PerceptualLoss; FaceAlignment card vs CPU; "
+          "data_gen_prnet, PRNet's CLIs and AFLW2000; FaceTexUVAsyncDataset")
+    from deep3dmap_tpu_torch.datasets.gan_faces import SyntheticGanFaceDataset
+    from deep3dmap_tpu_torch.datasets.synthetic import (seeded_bisenet_state_dict,
+                                                        seeded_stylegan2_state_dict,
+                                                        seeded_vgg16_state_dict,
+                                                        write_300wlp_fixture,
+                                                        write_aflw2000_fixture)
+    from deep3dmap_tpu_torch.models import face_alignment as fa_mod
+    from deep3dmap_tpu_torch.models.losses.perceptual_loss import PerceptualLoss
+
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "face31")
+    os.makedirs(root, exist_ok=True)
+
+    # (a) the importers, as a user runs them, into their consumers
+    g = CELEBA_MODEL_CFGS
+    ckpts = dict(
+        stylegan2=seeded_stylegan2_state_dict(0, size=g["gan_size"], style_dim=g["z_dim"],
+                                              n_mlp=g["n_mlp"],
+                                              channel_multiplier=g["channel_multiplier"]),
+        vgg16=seeded_vgg16_state_dict(1), bisenet=seeded_bisenet_state_dict(2))
+    npz, imports = {}, {}
+    for kind, sd in ckpts.items():
+        src = os.path.join(root, f"{kind}.pth")
+        tens = {k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()} \
+            if kind != "stylegan2" else {
+                part: {k: torch.from_numpy(v) for k, v in d.items()} for part, d in sd.items()}
+        torch.save(tens, src)
+        npz[kind] = os.path.join(root, f"{kind}.npz")
+        flags = (["--size", str(g["gan_size"]), "--n-mlp", str(g["n_mlp"]),
+                  "--channel-multiplier", str(g["channel_multiplier"]),
+                  "--style-dim", str(g["z_dim"])] if kind == "stylegan2" else [])
+        imports[kind] = ["deep3dmap_tpu_torch.tools.import_weights", kind, src, npz[kind],
+                         *flags]
+    # the three conversions as three users' processes, at once
+    import_s = dict(zip(imports, _run_modules(list(imports.values()))))
+    data = SyntheticGanFaceDataset(n_samples=1, image_size=128, z_dim=512).setup_input(0)
+    fw = g2s_module.Gan2Shape(dict(g, gan_ckpt=npz["stylegan2"], parsing_ckpt=npz["bisenet"]))
+    net, state = fw.init(0, data)
+    batch = fw.batch_to_device(data)
+    raster.launches = 0                           # this path starts here
+    outs = []
+    g2s_ms = _synced_ms(lambda: outs.append(fw.forward_test(net, state, batch)[0]),
+                        FWD_WARMUP, FWD_TIMED)
+    g2s_launches = raster.launches                # ... and ends here
+    check(g2s_launches == FWD_WARMUP + FWD_TIMED,
+          f"forward_test with the imported gan_ckpt: {g2s_launches} raster launches")
+    check(all(torch.isfinite(v).all().item() for v in outs[-1].values()
+              if isinstance(v, torch.Tensor)), "non-finite Gan2Shape output")
+    with torch.no_grad():
+        w = fw.generator.mapping(torch.zeros((1, g["z_dim"]), device="cuda"))
+    check(torch.isfinite(w).all().item(), "the imported mapping gives non-finite styles")
+    mask_ms = _synced_ms(lambda: fw.parse_mask(data["input_im"]), 1, FWD_TIMED)
+    mask = fw.parse_mask(data["input_im"])
+    check(mask.shape == (1, 128, 128, 1) and torch.isfinite(mask).all().item(),
+          f"parse_mask with the imported BiSeNet: {tuple(mask.shape)}")
+    perc = PerceptualLoss(weights_path=npz["vgg16"])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a, b = (torch.rand((4, 128, 128, 3), device="cuda", generator=gen) * 2 - 1
+            for _ in range(2))
+    perc_ms = _synced_ms(lambda: perc(a, b), 2, FWD_TIMED)
+    d = perc(a, b)
+    check(d.shape == (4,) and torch.isfinite(d).all().item() and bool((d > 0).all()),
+          f"PerceptualLoss with the imported VGG16: {d}")
+    print(f"face31 (a) importers: card={card!r} import_s={import_s!r} "
+          f"g2s_forward_test_ms_median={statistics.median(g2s_ms):.6f} "
+          f"g2s_forward_test_ms_max={max(g2s_ms):.6f} raster_launches={g2s_launches} "
+          f"parse_mask_ms_median={statistics.median(mask_ms):.6f} "
+          f"perceptual_ms_median={statistics.median(perc_ms):.6f} (B 4, 128²) "
+          f"perceptual={d.tolist()!r}", flush=True)
+    del fw, net, state, perc, outs
+
+    # (b) FaceAlignment at its defaults, the card against the CPU, TF32 off
+    set_tf32(cudnn=False, matmul=False)
+    rs = np.random.RandomState(FAN_BOXES_SEED)
+    img = rs.rand(480, 640, 3).astype(np.float32)
+    boxes = []
+    for _ in range(FAN_B):
+        x1, y1, s = rs.uniform(40, 400), rs.uniform(40, 240), rs.uniform(100, 200)
+        boxes.append([x1, y1, x1 + s, y1 + s])
+    fa, fa_cpu = fa_mod.FaceAlignment(), fa_mod.FaceAlignment(device="cpu")
+    crops, centers, scales = [], [], []
+    for (x1, y1, x2, y2) in boxes:
+        c = np.array([(x1 + x2) / 2.0, (y1 + y2) / 2.0 - (y2 - y1) * 0.12])
+        s = (x2 - x1 + y2 - y1) / 195.0
+        crops.append(fa_mod.crop_face(img, c, s, fa.resolution))
+        centers.append(c)
+        scales.append(s)
+    crops = np.stack(crops)
+    hm = fa.heatmaps(crops).float().cpu().numpy()
+    hm_cpu = fa_cpu.heatmaps(crops).numpy()
+    fan_ms = _synced_ms(lambda: fa.heatmaps(crops), 2, FAN_TIMED)
+    hm_err = float(np.abs(hm - hm_cpu).max())
+    _, lmk = fa_mod.get_preds_from_heatmaps(hm, centers, scales)
+    _, lmk_cpu = fa_mod.get_preds_from_heatmaps(hm_cpu, centers, scales)
+    diff = np.abs(lmk - lmk_cpu).max(axis=-1)                       # (B, 68)
+    off = [(b_, lm) for b_, lm in zip(*np.nonzero(diff > TOL_FAN_LMK_PX))]
+    ties = [k for k in off if _lmk_near_tie(hm_cpu, *k, 2 * TOL_FAN_HEATMAP)]
+    decided = diff[diff <= TOL_FAN_LMK_PX]
+    print(f"face31 (b) FaceAlignment (2 modules, 68 landmarks, 256², B {FAN_B}, TF32 off): "
+          f"card={card!r} heatmap_max_abs_err={hm_err:.3e} (bound {TOL_FAN_HEATMAP}) "
+          f"landmark_max_px_err={float(decided.max()) if decided.size else 0.0:.3e} "
+          f"(bound {TOL_FAN_LMK_PX}) landmarks_off={len(off)} of {diff.size} "
+          f"(near-ties of the CPU heatmap: {len(ties)}) heatmaps_ms_median="
+          f"{statistics.median(fan_ms):.6f} heatmaps_ms_max={max(fan_ms):.6f}", flush=True)
+    check(hm_err <= TOL_FAN_HEATMAP, f"FAN heatmaps card vs CPU {hm_err}")
+    check(len(ties) == len(off), f"landmarks off beyond the near-tie rule: {off}")
+    lms = fa.get_landmarks_from_image((img * 255).astype(np.uint8), boxes[:2])
+    check(len(lms) == 2 and all(np.isfinite(x).all() and x.shape == (68, 2) for x in lms),
+          "get_landmarks_from_image")
+    set_tf32(cudnn=True, matmul=False)
+    del fa, fa_cpu
+
+    # (c) the PRNet data path: data-gen, one epoch of the config, AFLW2000
+    wlp_in, wlp = os.path.join(root, "300wlp_in"), os.path.join(root, "300wlp")
+    write_300wlp_fixture(wlp_in, n_images=PRNET_DATAGEN_IMAGES, seed=31)
+    gen_s = _run_module(["deep3dmap_tpu_torch.tools.data_gen_prnet", "-i", wlp_in, "-o", wlp,
+                         "--synthetic-bfm"])
+    names = open(os.path.join(wlp, "list.txt")).read().split()
+    check(len(names) == PRNET_DATAGEN_IMAGES and all(
+        np.load(os.path.join(wlp, n.replace(".jpg", ".npy"))).shape == (256, 256, 3)
+        for n in names), f"data_gen_prnet wrote {names}")
+    kpt = os.path.join(wlp, "uv_kpt_ind.txt")
+    split = {s: [f"data.{s}.{k}={v}" for k, v in (
+        ("datapath", os.path.join(wlp, "list.txt")), ("img_prefix", wlp),
+        ("uv_kpt_ind_file", kpt))] for s in ("train", "test")}
+    opts = split["train"] + split["test"] + [f"model.model_cfgs.uv_kpt_ind_file={kpt}"]
+    wd = os.path.join(root, "prnet_wd")
+    t0 = time.perf_counter()
+    runner = tools.train.main([PRNET_CFG, "--work-dir", wd, "--max-epochs", "1",
+                               "--cfg-options", *opts])
+    train_s = time.perf_counter() - t0
+    check(runner.epoch == 1 and runner.state.step == 1,
+          f"PRNet on the data-gen's output: epoch {runner.epoch} step {runner.state.step}")
+    aflw = write_aflw2000_fixture(os.path.join(root, "aflw2000"), n_images=AFLW_IMAGES, seed=31)
+    # the test split replaced whole, the batch the fixture's size (the
+    # loader drops a last partial batch)
+    aflw_opts = [f"data.samples_per_gpu={AFLW_IMAGES}",
+                 "data.test._delete_=True", "data.test.type=AFLW2000Dataset",
+                 f"data.test.datapath={aflw}", f"data.test.img_prefix={os.path.dirname(aflw)}",
+                 "data.test.pipeline=[{'type': 'FaceLandmarkCrop', 'resolution_inp': 256}]"]
+    t0 = time.perf_counter()
+    res = tools.test.main([PRNET_CFG, "--work-dir", wd, "--checkpoint", "auto", "--eval", "nme",
+                           "--cfg-options", *split["train"],
+                           f"model.model_cfgs.uv_kpt_ind_file={kpt}", *aflw_opts])
+    test_s = time.perf_counter() - t0
+    check(res is not None and np.isfinite(res["nme"]), f"AFLW2000 NME: {res}")
+    print(f"face31 (c) PRNet data path: card={card!r} data_gen_prnet_s={gen_s:.3f} "
+          f"({PRNET_DATAGEN_IMAGES} images at 450², synthetic BFM, 256² maps) "
+          f"train_cli_s={train_s:.3f} (1 epoch, 1 step at B 16) test_cli_s={test_s:.3f} "
+          f"aflw2000_images={AFLW_IMAGES} nme={res['nme']!r}", flush=True)
+
+    # (d) the async producers over the face-UV data, in a process whose main
+    # module imports no torch (spawned producers re-import the parent's main)
+    code = (
+        "import json, sys, time\n"
+        "from deep3dmap_tpu_torch.datasets import build_dataset\n"
+        "ds = build_dataset(dict(type='FaceTexUVAsyncDataset', batch_size=4, nthread=2,\n"
+        f"    n_slots=4, dataset=dict(type='ThreeHundredWLPDataset', datapath={os.path.join(wlp, 'list.txt')!r},\n"
+        f"    img_prefix={wlp!r}, resolution=256)))\n"
+        "ds.get()\n"
+        "t0 = time.perf_counter()\n"
+        f"shapes = [ds.get()['faceimg'].shape for _ in range({ASYNC_GETS})]\n"
+        "dt = time.perf_counter() - t0\n"
+        "flags = ds.producers_imported_torch()\n"
+        "ds.close()\n"
+        "img = build_dataset(dict(type='FaceImagesAsyncDataset', batch_size=2, nthread=1,\n"
+        "    n_slots=2, dataset=ds._cfg))\n"
+        "img_shape, img_state = list(img.get()['faceimg'].shape), img.state\n"
+        "flags += img.producers_imported_torch()\n"
+        "img.close()\n"
+        "print(json.dumps(dict(batches_per_s=len(shapes) / dt, shape=list(shapes[0]),\n"
+        "    images_shape=img_shape, images_state=img_state, producers_imported_torch=flags,\n"
+        "    main_imported_torch='torch' in sys.modules)))\n")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code], cwd=os.path.dirname(os.path.abspath(
+        __file__)), capture_output=True, text=True, timeout=300)
+    check(r.returncode == 0, f"the async producers: {r.stderr[-4000:]}")
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    print(f"face31 (d) FaceTexUVAsyncDataset (2 producers, B 4, 256² 300W-LP maps): "
+          f"card={card!r} batches_per_s={out['batches_per_s']:.6f} over {ASYNC_GETS} get()s "
+          f"producers_imported_torch={out['producers_imported_torch']} "
+          f"main_imported_torch={out['main_imported_torch']} process_s="
+          f"{time.perf_counter() - t0:.3f}", flush=True)
+    check(out["shape"] == [4, 256, 256, 3] and out["images_shape"] == [2, 256, 256, 3]
+          and out["images_state"] == "sup_unsup"
+          and out["producers_imported_torch"] == [False, False, False]
+          and not out["main_imported_torch"], f"the async producers: {out}")
+
+    # (e) MultiPIE's indexes through the tool, and its FAN step failing as
+    # JAX's does
+    mp = os.path.join(root, "multipie")
+    os.makedirs(mp, exist_ok=True)
+    rs = np.random.RandomState(31)
+    labels, uvtex = [], []
+    for _ in range(MULTIPIE_LABELS):
+        fid, sess = rs.randint(1, 9), rs.choice(["01", "02", "03", "04"])
+        rec, cam, illum = f"0{rs.randint(1, 4)}", rs.randint(0, 13), rs.choice(["10", "05"])
+        labels.append(f"images/{fid:03d}_{sess}_{rec}_{cam:02d}_{illum}.png {fid - 1} {cam}")
+        uvtex.append(f"uv/{fid:03d}_{sess}_{rec}.png")
+    for name, lines in (("labels.txt", labels), ("uvtex.txt", uvtex[::4])):
+        with open(os.path.join(mp, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    org_s = _run_module(["deep3dmap_tpu_torch.tools.data_gen_multipie", "organize", "--labels",
+                         os.path.join(mp, "labels.txt"), "--uvtex-list",
+                         os.path.join(mp, "uvtex.txt"), "--out", mp])
+    import pickle
+    with open(os.path.join(mp, "multipie_idillumexp2poseimgpaths.pkl"), "rb") as f:
+        index = pickle.load(f)
+    with open(os.path.join(mp, "multipie_uvtex2poseimgs.pkl"), "rb") as f:
+        uv_index = pickle.load(f)
+    n_paths = sum(len(v) for ill in index.values() for ex in ill.values() for po in ex.values()
+                  for v in po.values())
+    r = subprocess.run([sys.executable, "-m", "deep3dmap_tpu_torch.tools.data_gen_multipie",
+                        "get-lmk", "--list", os.path.join(mp, "labels.txt"), "--out", mp],
+                       cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                       text=True, timeout=300)
+    quirk = r.returncode != 0 and "TypeError" in r.stderr and "no weights_path" in r.stderr
+    print(f"face31 (e) data_gen_multipie: card={card!r} organize_s={org_s:.3f} "
+          f"ids={len(index)} image_paths={n_paths} uvtex_keys={len(uv_index)} "
+          f"get_lmk_exit={r.returncode} fan_quirk_raised={quirk}", flush=True)
+    check(n_paths == MULTIPIE_LABELS and len(uv_index) > 0 and quirk,
+          f"data_gen_multipie: {n_paths} paths, {len(uv_index)} uvtex keys, "
+          f"get-lmk exit {r.returncode}: {r.stderr[-2000:]}")
+    print(f"face31: phase 31 took {time.perf_counter() - t_phase:.3f} s card={card!r}",
+          flush=True)
+    return g2s_launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -5492,6 +5944,13 @@ def main():
     phase_zoo(card)
     check((fused_loss.launches, fused_loss.bwd_launches, raster.launches) == counts,
           "the op zoo launched a kernel of the repo")
+    trunk_launches = phase_published_trunk(nr_module, fused_loss, train_mod, _stack_samples,
+                                           make_fragment_sample, card, make_deterministic)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_face_") as work:
+        counts = (fused_loss.launches, fused_loss.bwd_launches)
+        face_launches = phase_face_leftovers(card, work, tools, g2s_module, raster)
+        check((fused_loss.launches, fused_loss.bwd_launches) == counts,
+              "the face leftovers launched a loss kernel")
     print(f"phases took {time.perf_counter() - t0:.3f} s", flush=True)
 
     print(json.dumps({"kernels": [{
@@ -5499,7 +5958,8 @@ def main():
         "route": "triton",
         "source": "deep3dmap_tpu_torch/ops/fused_loss.py",
         "replaces": "deep3dmap_tpu/ops/pallas_loss.py:32",
-        "launches": launches + cli_launches[0] + runtime["launches"][0] + demo_launches[0],
+        "launches": (launches + cli_launches[0] + runtime["launches"][0] + demo_launches[0]
+                     + trunk_launches[0]),
         "max_abs_err": loss["max_abs_err"],
         "ms": loss["ms"],
         "plain_ms": loss["plain_ms"],
@@ -5512,7 +5972,7 @@ def main():
         "source": "deep3dmap_tpu_torch/ops/fused_loss.py",
         "replaces": "deep3dmap_tpu/ops/pallas_loss.py:112",
         "launches": (bwd["launches"] + cli_launches[1] + runtime["launches"][1]
-                     + demo_launches[1]),
+                     + demo_launches[1] + trunk_launches[1]),
         "max_abs_err": max(loss_bwd["max_abs_err"], bwd["max_abs_err"]),
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],
@@ -5524,7 +5984,8 @@ def main():
         "route": "cuda",
         "source": "deep3dmap_tpu_torch/ops/csrc/raster_hard.cu",
         "replaces": "deep3dmap_tpu/ops/raster_pallas.py:76",
-        "launches": g2s["launches"] + g2s_train["launches"] + g2s_cli["launches"],
+        "launches": (g2s["launches"] + g2s_train["launches"] + g2s_cli["launches"]
+                     + face_launches),
         "max_abs_err": max(raster_err, g2s["max_abs_err"], g2s_train["max_abs_err"]),
         "ms": g2s["ms"],
         "plain_ms": g2s["plain_ms"],

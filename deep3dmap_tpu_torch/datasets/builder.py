@@ -14,7 +14,6 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
-import torch
 
 from ..utils.registry import Registry
 
@@ -27,8 +26,7 @@ def build_dataset(cfg, default_args=None):
     names (JAX's ``build_dataset``)."""
     import copy
 
-    from . import (custom, face_tuple, face_uv, gan_faces, lerf_rays,  # noqa: F401  (register)
-                   nerf_synthetic, pipelines, real_files, scannet, synthetic, wrappers)
+    from . import wrappers
 
     if isinstance(cfg, (list, tuple)):
         return wrappers.ConcatDataset([build_dataset(c, default_args) for c in cfg])
@@ -46,7 +44,31 @@ def build_dataset(cfg, default_args=None):
         cp_cfg["dataset"] = build_dataset(cp_cfg["dataset"], default_args)
         cp_cfg.pop("type")
         return wrappers.MultiImageMixDataset(**cp_cfg)
+    _register(cfg["type"])
     return DATASETS.build(dict(cfg), **(default_args or {}))
+
+
+def _register(dataset_type) -> None:
+    """Fill ``DATASETS`` and ``PIPELINES`` as JAX's ``build_dataset`` does
+    (every registering submodule), except in a process without torch (an
+    async producer): there only the submodule that registers
+    ``dataset_type``, so a torch-free dataset builds without torch.  A name
+    the package does not export (an alias such as ``Blender``) imports every
+    registering submodule."""
+    import importlib
+    import sys
+
+    from . import _HOME, _REGISTERING
+
+    home = _HOME.get(dataset_type) if isinstance(dataset_type, str) else None
+    if "torch" not in sys.modules and home is not None:
+        mods = (home,)
+    elif "torch" not in sys.modules and DATASETS.get(dataset_type) is not None:
+        return
+    else:
+        mods = _REGISTERING
+    for mod in mods:
+        importlib.import_module(f"{__package__}.{mod}")
 
 
 def _stack_samples(samples):
@@ -137,11 +159,15 @@ class NumpyLoader:
 
 
 def _is_numeric(v) -> bool:
+    import torch
+
     return (isinstance(v, torch.Tensor)
             or (isinstance(v, (np.ndarray, np.generic)) and v.dtype.kind in "biuf"))
 
 
-def _host_tensor(v) -> torch.Tensor:
+def _host_tensor(v):
+    import torch
+
     if isinstance(v, torch.Tensor):
         return v
     a = np.asarray(v)
@@ -154,6 +180,8 @@ def upload_batch(batch: dict, device, non_blocking: bool = False) -> dict:
     """Numeric arrays (and lists of them) of a batch -> tensors on
     ``device``; strings and other metadata stay as they are.  With
     ``non_blocking`` on a CUDA device the host copies are pinned first."""
+    import torch
+
     dev = torch.device(device)
     pin = non_blocking and dev.type == "cuda"
 
@@ -184,6 +212,8 @@ def prefetch_to_device(iterable, device, depth: int = 2, host_check=None):
     tensor is marked as used on the consumer's stream so the allocator does
     not reuse it early.  On the CPU the batch is converted to tensors.
     """
+    import torch
+
     dev = torch.device(device)
     if dev.type != "cuda":
         for batch in iterable:

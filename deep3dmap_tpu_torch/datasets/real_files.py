@@ -24,7 +24,6 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..core.evaluation.face_eval import eval_nme
-from ..utils.device import resolve_device
 from ..utils.image_io import imread, resize_float, resize_uint8_area
 from .builder import DATASETS
 
@@ -72,6 +71,8 @@ class BlenderDataset:
 
     def __init__(self, data_dir: str, split: str = "train", img_wh=(400, 400),
                  white_background: bool = True, pipeline=None, sort_key=None, device=None):
+        from ..utils.device import resolve_device
+
         self.device = resolve_device(device)
         self.data_dir, self.split = data_dir, split
         self.img_wh = tuple(img_wh)
@@ -116,6 +117,8 @@ class DTUDataset:
 
     def __init__(self, data_dir: str, split: str = "train", img_wh=(400, 300),
                  pipeline=None, sort_key=None, trans_scale: float = 200.0, device=None):
+        from ..utils.device import resolve_device
+
         self.device = resolve_device(device)
         self.data_dir, self.split = data_dir, split
         self.img_wh = tuple(img_wh)
@@ -316,3 +319,73 @@ class ThreeHundredWLPDataset:
         gt = np.stack([it["gt_uvimg"][ind[1], ind[0], :2].T * 255.0 for it in items])
         tforms = np.stack([it["tform_mat"] for it in items])
         return {"nme": eval_nme(kpt[:n], tforms, gt)}
+
+
+@DATASETS.register_module()
+class AFLW2000Dataset:
+    """AFLW2000-3D, PRNet's published evaluation set: each line of
+    ``datapath`` names an image under ``img_prefix``, beside a ``.mat`` file
+    of the same stem holding ``pt3d_68`` (lines without both are skipped).
+    Items: ``img`` (float32), ``pt3d_68`` (68, 3) and ``gt_kpt_proj2d``
+    (2, 68), through ``pipeline`` (typically ``FaceLandmarkCrop``, which adds
+    the cropped ``faceimg`` and ``tform_mat``).  ``pipeline`` is a callable,
+    as in JAX, or a list of transform configs.  ``evaluate`` gives the
+    landmark NME in image space, normalised by the GT box size.  ``device``
+    is the keyword the CLIs pass every dataset."""
+
+    CLASSES = ("face",)
+
+    def __init__(self, datapath: str, img_prefix: str = "", pipeline=None,
+                 test_mode: bool = True, device=None):
+        self.img_prefix = img_prefix
+        self.test_mode = test_mode
+        if isinstance(pipeline, (list, tuple)):
+            from .pipelines import Compose
+            pipeline = Compose(pipeline)
+        self.pipeline = pipeline
+        self.data_infos: List[Dict] = []
+        with open(datapath) as f:
+            for line in f:
+                name = line.strip()
+                if not name:
+                    continue
+                mat_file = name.rsplit(".", 1)[0] + ".mat"
+                if (osp.exists(osp.join(img_prefix, name))
+                        and osp.exists(osp.join(img_prefix, mat_file))):
+                    self.data_infos.append(dict(filename=name, mat_file=mat_file))
+
+    def __len__(self):
+        return len(self.data_infos)
+
+    def _load_kpt(self, idx: int) -> np.ndarray:
+        import scipy.io as sio
+
+        mat = sio.loadmat(osp.join(self.img_prefix, self.data_infos[idx]["mat_file"]))
+        return np.asarray(mat["pt3d_68"], np.float32)  # (3, 68)
+
+    def __getitem__(self, idx: int) -> Dict:
+        img = imread_rgb(osp.join(self.img_prefix, self.data_infos[idx]["filename"]))
+        kpt = self._load_kpt(idx)
+        item = dict(img=img.astype(np.float32), pt3d_68=kpt.T, gt_kpt_proj2d=kpt[:2])
+        return self.pipeline(item) if self.pipeline is not None else item
+
+    def evaluate(self, results, metric: str = "nme", logger=None, **kwargs):
+        """``results["kpt"]`` as ``tools/test.py`` collects it ((B, 3, 68)
+        per batch) and ``results["tform_mat"]`` ((B, 3, 3)).  The frameworks'
+        ``forward_test`` gives no ``tform_mat``, so without it the crops'
+        transforms come from the dataset's own items (the pipeline is
+        deterministic); JAX's ``evaluate`` raises ``KeyError`` there."""
+        if not isinstance(metric, str):
+            if len(metric) != 1:
+                raise ValueError(f"one metric, got {metric}")
+            metric = metric[0]
+        if metric not in ("nme", "rmse"):
+            raise KeyError(f"metric {metric} is not supported")
+        kpt = np.concatenate([np.asarray(r) for r in results["kpt"]], axis=0)
+        n = min(kpt.shape[0], len(self))
+        if "tform_mat" in results:
+            tforms = np.concatenate([np.asarray(r) for r in results["tform_mat"]], axis=0)[:n]
+        else:
+            tforms = np.stack([self[i]["tform_mat"] for i in range(n)])
+        gts = np.stack([self._load_kpt(i)[:2] for i in range(n)])
+        return {"nme": eval_nme(kpt[:n], tforms, gts)}

@@ -20,6 +20,7 @@ detection data path.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -406,6 +407,220 @@ def seeded_mnasnet_state_dict(seed: int = 0, alpha: float = 1.0) -> Dict[str, np
             bn(f"{p}.4", mid)
             conv(f"{p}.6", cout, mid, 1)
             bn(f"{p}.7", cout)
+    return sd
+
+
+def write_300wlp_fixture(root, n_images: int = 16, img_size: int = 450, seed: int = 0,
+                         n_shape: int = 199, n_exp: int = 29):
+    """``n_images`` 300W-LP inputs for ``tools/data_gen_prnet.py``: seeded
+    noise images of ``img_size``² (PNG bytes under ``<name>.jpg``) and
+    ``<name>.mat`` files holding ``Pose_Para`` (1, 7) (small rotations, the
+    face at the image centre, scale 1e-3: the synthetic BFM's 1e5-radius
+    mean shape about 100 px across), ``Shape_Para`` (n_shape, 1) and
+    ``Exp_Para`` (n_exp, 1).  Returns the image paths."""
+    import scipy.io as sio
+
+    from ..utils.image_io import imwrite_png
+
+    os.makedirs(root, exist_ok=True)
+    rs = np.random.RandomState(seed)
+    paths = []
+    for i in range(n_images):
+        path = os.path.join(root, f"IBUG_image_{i:03d}_{i % 4}.jpg")
+        imwrite_png(path, rs.randint(0, 256, (img_size, img_size, 3)).astype(np.uint8))
+        pose = np.concatenate([rs.uniform(-0.3, 0.3, 3),
+                               [img_size / 2 + rs.uniform(-10, 10),
+                                img_size / 2 + rs.uniform(-10, 10), 0.0,
+                                1e-3 * rs.uniform(0.9, 1.1)]])
+        sio.savemat(path[:-4] + ".mat", {
+            "Pose_Para": pose[None].astype(np.float32),
+            "Shape_Para": (50 * rs.randn(n_shape, 1)).astype(np.float32),
+            "Exp_Para": (50 * rs.randn(n_exp, 1)).astype(np.float32)})
+        paths.append(path)
+    return paths
+
+
+def write_aflw2000_fixture(root, n_images: int = 4, img_size: int = 450, seed: int = 0):
+    """An AFLW2000-3D-shaped evaluation set for ``AFLW2000Dataset``: seeded
+    noise images (PNG bytes under ``image<k>.jpg``), ``image<k>.mat`` files
+    holding ``pt3d_68`` (3, 68) landmarks spread over a face-sized box at
+    the image centre, and ``list.txt`` naming the images.  Returns the list
+    file's path."""
+    import scipy.io as sio
+
+    from ..utils.image_io import imwrite_png
+
+    os.makedirs(root, exist_ok=True)
+    rs = np.random.RandomState(seed)
+    names = []
+    for i in range(n_images):
+        name = f"image{i:05d}.jpg"
+        imwrite_png(os.path.join(root, name),
+                    rs.randint(0, 256, (img_size, img_size, 3)).astype(np.uint8))
+        c = img_size / 2 + rs.uniform(-20, 20, 2)
+        half = rs.uniform(60, 110)
+        pts = np.stack([c[0] + rs.uniform(-half, half, 68), c[1] + rs.uniform(-half, half, 68),
+                        rs.uniform(-50, 50, 68)])
+        sio.savemat(os.path.join(root, name[:-4] + ".mat"),
+                    {"pt3d_68": pts.astype(np.float32)})
+        names.append(name)
+    list_path = os.path.join(root, "list.txt")
+    with open(list_path, "w") as f:
+        f.write("\n".join(names) + "\n")
+    return list_path
+
+
+def _stylegan2_channels(cm: int) -> Dict[int, int]:
+    return {4: 512, 8: 512, 16: 512, 32: 512, 64: 256 * cm, 128: 128 * cm, 256: 64 * cm,
+            512: 32 * cm, 1024: 16 * cm}
+
+
+def seeded_stylegan2_state_dict(seed: int = 0, size: int = 128, style_dim: int = 512,
+                                n_mlp: int = 8, channel_multiplier: int = 2) -> Dict:
+    """A seeded checkpoint in rosinality stylegan2-pytorch's layout,
+    ``{"g_ema": generator, "d": discriminator}`` state dicts of float32
+    numpy, for ``import_weights.py stylegan2``.  Weights are drawn as that
+    code draws them (``randn``, the mapping's divided by its lr multiplier
+    0.01, the modulations' biases 1), so the equalised layers keep unit
+    scale; the blur kernels and noise buffers are there, as in a published
+    checkpoint."""
+    rs = np.random.RandomState(seed)
+    ch = _stylegan2_channels(channel_multiplier)
+    log_size = int(np.log2(size))
+    blur = (np.outer([1, 3, 3, 1], [1, 3, 3, 1]) / 64.0).astype(np.float32)
+
+    def randn(*shape, scale=1.0):
+        return (rs.randn(*shape) * scale).astype(np.float32)
+
+    g: Dict[str, np.ndarray] = {}
+    for i in range(n_mlp):
+        g[f"style.{i + 1}.weight"] = randn(style_dim, style_dim, scale=100.0)
+        g[f"style.{i + 1}.bias"] = np.zeros(style_dim, np.float32)
+    g["input.input"] = randn(1, ch[4], 4, 4)
+
+    def styled(prefix, cin, cout, up):
+        g[f"{prefix}.conv.weight"] = randn(1, cout, cin, 3, 3)
+        g[f"{prefix}.conv.modulation.weight"] = randn(cin, style_dim)
+        g[f"{prefix}.conv.modulation.bias"] = np.ones(cin, np.float32)
+        if up:
+            g[f"{prefix}.conv.blur.kernel"] = blur * 4
+        g[f"{prefix}.noise.weight"] = np.zeros(1, np.float32)
+        g[f"{prefix}.activate.bias"] = np.zeros(cout, np.float32)
+
+    def to_rgb(prefix, cin, up):
+        if up:
+            g[f"{prefix}.upsample.kernel"] = blur * 4
+        g[f"{prefix}.conv.weight"] = randn(1, 3, cin, 1, 1)
+        g[f"{prefix}.conv.modulation.weight"] = randn(cin, style_dim)
+        g[f"{prefix}.conv.modulation.bias"] = np.ones(cin, np.float32)
+        g[f"{prefix}.bias"] = np.zeros((1, 3, 1, 1), np.float32)
+
+    styled("conv1", ch[4], ch[4], False)
+    to_rgb("to_rgb1", ch[4], False)
+    cin = ch[4]
+    for j, i in enumerate(range(3, log_size + 1)):
+        cout = ch[2 ** i]
+        styled(f"convs.{2 * j}", cin, cout, True)
+        styled(f"convs.{2 * j + 1}", cout, cout, False)
+        to_rgb(f"to_rgbs.{j}", cout, True)
+        cin = cout
+    for k in range(2 * (log_size - 2) + 1):
+        res = 2 ** ((k + 5) // 2)
+        g[f"noises.noise_{k}"] = randn(1, 1, res, res)
+
+    d: Dict[str, np.ndarray] = {"convs.0.0.weight": randn(ch[size], 3, 1, 1),
+                                "convs.0.1.bias": np.zeros(ch[size], np.float32)}
+    cin = ch[size]
+    for n, i in enumerate(range(log_size, 2, -1)):
+        cout = ch[2 ** (i - 1)]
+        p = f"convs.{n + 1}"
+        d[f"{p}.conv1.0.weight"] = randn(cin, cin, 3, 3)
+        d[f"{p}.conv1.1.bias"] = np.zeros(cin, np.float32)
+        d[f"{p}.conv2.0.kernel"] = blur
+        d[f"{p}.conv2.1.weight"] = randn(cout, cin, 3, 3)
+        d[f"{p}.conv2.2.bias"] = np.zeros(cout, np.float32)
+        d[f"{p}.skip.0.kernel"] = blur
+        d[f"{p}.skip.1.weight"] = randn(cout, cin, 1, 1)
+        cin = cout
+    d["final_conv.0.weight"] = randn(ch[4], cin + 1, 3, 3)
+    d["final_conv.1.bias"] = np.zeros(ch[4], np.float32)
+    d["final_linear.0.weight"] = randn(ch[4], ch[4] * 16)
+    d["final_linear.0.bias"] = np.zeros(ch[4], np.float32)
+    d["final_linear.1.weight"] = randn(1, ch[4])
+    d["final_linear.1.bias"] = np.zeros(1, np.float32)
+    return {"g_ema": g, "d": d}
+
+
+def seeded_vgg16_state_dict(seed: int = 0) -> Dict[str, np.ndarray]:
+    """A seeded state dict in torchvision VGG16's ``features.N`` layout
+    (the 13 convs the perceptual loss keeps; the 124M-parameter classifier
+    is left out), He-scaled, for ``import_weights.py vgg16``."""
+    rs = np.random.RandomState(seed)
+    chans = (64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512, 512)
+    sd: Dict[str, np.ndarray] = {}
+    cin = 3
+    for idx, cout in zip((0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28), chans):
+        sd[f"features.{idx}.weight"] = (rs.randn(cout, cin, 3, 3)
+                                        * np.sqrt(2.0 / (cin * 9))).astype(np.float32)
+        sd[f"features.{idx}.bias"] = (0.01 * rs.randn(cout)).astype(np.float32)
+        cin = cout
+    return sd
+
+
+def seeded_bisenet_state_dict(seed: int = 0, n_classes: int = 19) -> Dict[str, np.ndarray]:
+    """A seeded state dict in face-parsing.PyTorch's BiSeNet layout (the
+    ``cp.resnet`` ResNet-18, the attention refinements, the feature fusion,
+    ``conv_out`` and the aux heads ``conv_out16``/``conv_out32``), convs
+    scaled by 1/sqrt(fan-in), BatchNorm statistics near 1, for
+    ``import_weights.py bisenet``."""
+    rs = np.random.RandomState(seed)
+    sd: Dict[str, np.ndarray] = {}
+
+    def conv(key, o, i, k, bias=False):
+        sd[f"{key}.weight"] = (rs.randn(o, i, k, k) / np.sqrt(i * k * k)).astype(np.float32)
+        if bias:
+            sd[f"{key}.bias"] = (0.1 * rs.randn(o)).astype(np.float32)
+
+    def bn(key, n):
+        sd[f"{key}.weight"] = (1 + 0.1 * rs.randn(n)).astype(np.float32)
+        sd[f"{key}.bias"] = (0.1 * rs.randn(n)).astype(np.float32)
+        sd[f"{key}.running_mean"] = (0.1 * rs.randn(n)).astype(np.float32)
+        sd[f"{key}.running_var"] = rs.uniform(0.5, 2.0, n).astype(np.float32)
+        sd[f"{key}.num_batches_tracked"] = np.zeros((), np.int64)
+
+    conv("cp.resnet.conv1", 64, 3, 7)
+    bn("cp.resnet.bn1", 64)
+    chans = {1: 64, 2: 128, 3: 256, 4: 512}
+    for L in (1, 2, 3, 4):
+        c, prev = chans[L], chans.get(L - 1, 64)
+        for B in range(2):
+            p = f"cp.resnet.layer{L}.{B}"
+            conv(f"{p}.conv1", c, prev if (B == 0 and L > 1) else c, 3)
+            bn(f"{p}.bn1", c)
+            conv(f"{p}.conv2", c, c, 3)
+            bn(f"{p}.bn2", c)
+            if L > 1 and B == 0:
+                conv(f"{p}.downsample.0", c, prev, 1)
+                bn(f"{p}.downsample.1", c)
+    for arm, cin in (("arm16", 256), ("arm32", 512)):
+        conv(f"cp.{arm}.conv.conv", 128, cin, 3)
+        bn(f"cp.{arm}.conv.bn", 128)
+        conv(f"cp.{arm}.conv_atten", 128, 128, 1)
+        bn(f"cp.{arm}.bn_atten", 128)
+    conv("cp.conv_avg.conv", 128, 512, 1)
+    bn("cp.conv_avg.bn", 128)
+    for head in ("conv_head16", "conv_head32"):
+        conv(f"cp.{head}.conv", 128, 128, 3)
+        bn(f"cp.{head}.bn", 128)
+    conv("ffm.convblk.conv", 256, 256, 1)
+    bn("ffm.convblk.bn", 256)
+    conv("ffm.conv1", 64, 256, 1)
+    conv("ffm.conv2", 256, 64, 1)
+    for head, cin, mid in (("conv_out", 256, 256), ("conv_out16", 128, 64),
+                           ("conv_out32", 128, 64)):
+        conv(f"{head}.conv.conv", mid, cin, 3)
+        bn(f"{head}.conv.bn", mid)
+        conv(f"{head}.conv_out", n_classes, mid, 1)
     return sd
 
 

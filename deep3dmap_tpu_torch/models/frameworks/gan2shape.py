@@ -91,7 +91,7 @@ class Gan2ShapeHeads(nn.Module):
         self.encoder_head = Encoder(cout=z_dim, nf=nf, activation="none")
 
 
-@RECONSTRUCTORS.register_module()
+@RECONSTRUCTORS.register_module(name=["Gan2Shape", "gan2shape"])
 class Gan2Shape(BaseFramework):
     def __init__(self, model_cfgs: dict, train_cfg=None, test_cfg=None,
                  device=None):

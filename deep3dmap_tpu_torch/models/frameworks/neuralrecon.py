@@ -12,10 +12,16 @@ Ported: streaming inference (``forward_test``), validation (``val_fn``)
 and the training loss (``loss_fn``, differentiable by autograd; its
 per-level loss runs the fused-loss kernels, forward and backward, on CUDA).
 ``BACKBONE2D.CKPT`` (or ``pretrained``) grafts an imported MNASNet trunk
-(``tools/import_weights.py mnasnet``) at ``init``.  Not ported yet:
-``set_mesh``/spatial GRU sharding, ``BP_GRAD_FRAC`` (a backward-only option)
-and the scanned and rematerialised trunk (the batched-views trunk gives the
-same numbers).
+(``tools/import_weights.py mnasnet``) at ``init``.  The 2D trunk runs all
+V views as one conv batch; with ``BACKBONE2D.REMAT`` (default on) its
+activations are recomputed in the backward (``torch.utils.checkpoint``).
+``BACKBONE2D.MODE`` and ``INFER_MODE`` (JAX's per-view scan against the
+batch) are accepted and checked, but both run the batch: GroupNorm is per
+image, so the scan gives the same numbers, and on the card it measured
+slower at the same peak memory, which the dense 3D nets set (PERF.md).
+``BP_GRAD_FRAC`` is accepted as a no-op: the port's one sorted scatter
+already gives its gradient (``ops/back_project.py``).  Not ported yet:
+``set_mesh`` and the spatial GRU sharding (the multi-GPU slice).
 
 Batch layout as in the JAX package: imgs (B, V, H, W, 3) NHWC, volumes
 NDHWC, dict keys unchanged.
@@ -28,6 +34,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ...datasets.builder import upload_batch
 from ...ops.back_project import (_voxel_world_from_flat, back_project_batch,
@@ -65,12 +72,24 @@ def apply_log_transform(x: torch.Tensor) -> torch.Tensor:
 
 
 class _FPNBatch(nn.Module):
-    """All views through the FPN as one conv batch (flax scope
-    ``backbone2d/fpn``)."""
+    """The 2D trunk (flax scope ``backbone2d/fpn``, the one parameter tree of
+    JAX's scanned ``_FPNStep`` and batched ``_FPNBatch``)."""
 
     def __init__(self, **kw):
         super().__init__()
         self.fpn = MnasFPN(**kw)
+
+    def forward(self, imgs, remat: bool = True):
+        """imgs (B, V, H, W, 3) -> pyramid [(B, V, h_s, w_s, C_s)], all views
+        as one conv batch; ``remat`` checkpoints the call when autograd
+        records."""
+        B, V = imgs.shape[0], imgs.shape[1]
+        x = imgs.reshape((B * V,) + imgs.shape[2:])
+        if remat and torch.is_grad_enabled():
+            pyramid = checkpoint(self.fpn, x, use_reentrant=False)
+        else:
+            pyramid = self.fpn(x)
+        return [f.reshape((B, V) + f.shape[1:]) for f in pyramid]
 
 
 class NeuralReconNet(nn.Module):
@@ -80,7 +99,8 @@ class NeuralReconNet(nn.Module):
                  voxel_size: float = 0.04, alpha: float = 1.0,
                  backbone_norm: str = "gn", backbone_torch_pad: bool = False,
                  backbone_freeze: bool = False,
-                 backbone_dtype: Optional[str] = None, fusion_on: bool = True,
+                 backbone_dtype: Optional[str] = None,
+                 backbone_remat: bool = True, fusion_on: bool = True,
                  out_channels: Sequence[int] = (96, 48, 24),
                  thresholds: Sequence[float] = (0.0, 0.0, 0.0),
                  num_sample: Sequence = (None, None, None),
@@ -91,6 +111,7 @@ class NeuralReconNet(nn.Module):
         super().__init__()
         self.n_vox, self.n_layers, self.voxel_size = n_vox, n_layers, voxel_size
         self.backbone_freeze = backbone_freeze
+        self.backbone_remat = backbone_remat
         self.fusion_on = fusion_on
         self.add_coord_feats = True
         self.out_channels = tuple(out_channels)
@@ -140,11 +161,10 @@ class NeuralReconNet(nn.Module):
                 world_to_aligned_camera, hidden_windows: Optional[List] = None):
         """Returns per-level lists 'tsdf' (B,d,d,d,1), 'occ' (logits),
         'count_mask', 'sparse_mask' and the 'new_hidden' windows."""
-        B, V = imgs.shape[0], imgs.shape[1]
+        B = imgs.shape[0]
         n_scales = self.n_layers - 1
-        pyramid = self.backbone2d.fpn(imgs.reshape((B * V,) + imgs.shape[2:]))
         # pyramid[s]: (B, V, H/4/2^s, W/4/2^s, C_s)
-        pyramid = [f.reshape((B, V) + f.shape[1:]) for f in pyramid]
+        pyramid = self.backbone2d(imgs, self.backbone_remat)
         if self.backbone_freeze:
             pyramid = [f.detach() for f in pyramid]
         w2ac = world_to_aligned_camera
@@ -310,9 +330,11 @@ class NeuralRecon(BaseFramework):
 
     ``model_cfgs`` keys as in the JAX package (N_LAYER, N_VOX, VOXEL_SIZE,
     FUSION, LW, THRESHOLDS, POS_WEIGHT, BACKBONE2D, TRAIN_NUM_SAMPLE,
-    SPARSE_MODE, BLOCK_SIZE, MAX_BLOCKS, BLOCK_DTYPE, GLOBAL_DIMS,
-    GLOBAL_DTYPE, IMG_NORM).  ``device`` defaults to CUDA and raises without
-    a GPU unless ``"cpu"`` is asked for.
+    SPARSE_MODE, BLOCK_SIZE, MAX_BLOCKS, BLOCK_DTYPE, BP_GRAD_FRAC (a no-op
+    here), GLOBAL_DIMS, GLOBAL_DTYPE, IMG_NORM; BACKBONE2D's MODE, REMAT and
+    INFER_MODE among its keys, MODE and INFER_MODE checked but run batched).
+    ``device`` defaults to CUDA and raises without a GPU unless ``"cpu"`` is
+    asked for.
     """
 
     def __init__(self, model_cfgs: dict, train_cfg=None, test_cfg=None,
@@ -332,6 +354,10 @@ class NeuralRecon(BaseFramework):
         # an .npz from `tools/import_weights.py mnasnet`; `pretrained` and
         # BACKBONE2D.CKPT both name it, CKPT winning
         self.backbone_ckpt = bb2d.get("CKPT", pretrained)
+        for key in ("MODE", "INFER_MODE"):
+            if bb2d.get(key, "scan") not in ("scan", "batch"):
+                raise ValueError(f"BACKBONE2D.{key} must be 'scan' or 'batch', "
+                                 f"got {bb2d[key]!r}")
         self.out_channels = tuple(cfg.get("CHANNELS", (96, 48, 24)))
         # per-level active-voxel capacity: a TRAIN_NUM_SAMPLE list of
         # n_layers entries is a per-level budget (neucon_network.py:190-194);
@@ -364,7 +390,8 @@ class NeuralRecon(BaseFramework):
             alpha=alpha, backbone_norm=bb2d.get("NORM", "gn"),
             backbone_torch_pad=bool(bb2d.get("TORCH_PAD", False)),
             backbone_freeze=bool(bb2d.get("FREEZE", False)),
-            backbone_dtype=bb2d.get("DTYPE"), fusion_on=self.fusion_on,
+            backbone_dtype=bb2d.get("DTYPE"),
+            backbone_remat=bool(bb2d.get("REMAT", True)), fusion_on=self.fusion_on,
             out_channels=self.out_channels, thresholds=self.thresholds,
             num_sample=self.num_sample, sparse_mode=self.sparse_mode,
             block_size=self.block_size, max_blocks=self.max_blocks,

@@ -13,14 +13,15 @@ the masked, detached target.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Mapping, Sequence
+from typing import Callable, List, Mapping, Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ...utils.device import DeviceLike, resolve_device
-from ...utils.from_flax import load_flax_params
+from ...utils.from_flax import load_flax_npz, load_flax_params
+from ..builder import LOSSES
 from ..layers import Conv, init_flax_defaults
 
 _STAGES = ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3))
@@ -49,15 +50,22 @@ class _VGGFeatures(nn.Module):
         return feats
 
 
+@LOSSES.register_module()
 class PerceptualLoss:
     """Callable: ``loss(pred, target)`` -> (B,) distances.  ``net`` holds
     the VGG weights on ``device`` (``None``: the GPU, raising without one;
-    ``"cpu"`` by name)."""
+    ``"cpu"`` by name): ``weights_path``'s ``params`` (the ``.npz`` of
+    ``tools/import_weights.py vgg16``), else the seeded init.  ``model`` and
+    ``net`` name the one variant there is, as in JAX."""
 
-    def __init__(self, seed: int = 0, device: DeviceLike = None):
+    def __init__(self, model: str = "net-lin", net: str = "vgg",
+                 weights_path: Optional[str] = None, seed: int = 0,
+                 device: DeviceLike = None, **kwargs):
         dev = resolve_device(device)
         self.net = _VGGFeatures().eval()
         init_flax_defaults(self.net, torch.Generator().manual_seed(int(seed)))
+        if weights_path:
+            load_flax_npz(self.net, weights_path)
         self.net.to(dev)
 
     def load_flax(self, flax_params: Mapping) -> None:
@@ -78,6 +86,7 @@ class PerceptualLoss:
         return total
 
 
+@LOSSES.register_module()
 class DiscriminatorLoss:
     """Feature matching on discriminator activations: ``loss(features_fn,
     pred, target, mask=None)`` with ``features_fn`` image -> list of

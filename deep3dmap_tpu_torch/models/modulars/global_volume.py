@@ -78,3 +78,16 @@ def write_windows_batch(volume: torch.Tensor, window_data: torch.Tensor,
     out = volume.clone()
     out[_window_index(volume, rel_origin_vox, w)] = data
     return out
+
+
+def read_window(volume: torch.Tensor, rel_origin_vox: torch.Tensor,
+                window: int) -> torch.Tensor:
+    """One sample's window: volume (G, G, G, C), rel_origin_vox (3,) ->
+    (window, window, window, C)."""
+    return read_windows_batch(volume[None], rel_origin_vox[None], window)[0]
+
+
+def write_window(volume: torch.Tensor, window_data: torch.Tensor,
+                 rel_origin_vox: torch.Tensor) -> torch.Tensor:
+    """One sample's ``write_windows_batch``."""
+    return write_windows_batch(volume[None], window_data[None], rel_origin_vox[None])[0]

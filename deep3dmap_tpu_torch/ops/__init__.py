@@ -3,9 +3,7 @@
 Each is imported from its module at first use, so importing a submodule
 alone (the host C++ op in the evaluation's torch-free workers, or the host
 post-processing of ``ops/host.py``) imports no torch."""
-import importlib
-import sys
-import types
+from .._lazy import export
 
 _MODULES = {
     "back_project": ("back_project_dense",),
@@ -27,32 +25,4 @@ _MODULES = {
               "roiaware_pool3d", "roipoint_pool3d"),
     "host": ("pixel_group", "contour_expand"),
 }
-_HOME = {name: mod for mod, names in _MODULES.items() for name in names}
-
-__all__ = list(_HOME)
-
-
-class _Ops(types.ModuleType):
-    def __setattr__(self, name, value):
-        # importing the submodule ``roi_align`` binds it on the package:
-        # keep the function of that name there, as the JAX package's eager
-        # import does (the module stays in ``sys.modules``)
-        if (isinstance(value, types.ModuleType) and name in _HOME
-                and value.__name__ == f"{__name__}.{name}"):
-            value = getattr(value, name)
-        super().__setattr__(name, value)
-
-
-sys.modules[__name__].__class__ = _Ops
-
-
-def __getattr__(name):
-    if name in _HOME:
-        value = getattr(importlib.import_module(f"{__name__}.{_HOME[name]}"), name)
-        globals()[name] = value                   # cached
-        return value
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-
-def __dir__():
-    return sorted(set(globals()) | set(__all__))
+__all__, __getattr__, __dir__ = export(__name__, _MODULES)

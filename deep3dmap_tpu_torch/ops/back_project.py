@@ -53,8 +53,13 @@ class _PackedGather(torch.autograd.Function):
     each segment's sums with one call instead of S.  The scatter is
     ``index_put_(accumulate=True)``, which sorts the rows and adds each
     row's terms in a fixed order on the card (``index_add_`` there takes
-    atomics, whose order changes from run to run).  ``BP_GRAD_FRAC``'s
-    compacted scatter is not ported.
+    atomics, whose order changes from run to run).
+
+    ``BP_GRAD_FRAC`` (JAX's ``grad_row_frac``) is accepted by
+    ``NeuralRecon`` as a no-op: JAX compacts each segment's valid rows
+    because the TPU's scatter is bound by its row rate, and its gradient is
+    this full scatter's (invalid rows carry zero cotangents).  The sorted
+    ``index_put_`` here takes all rows in one call either way.
     """
 
     @staticmethod

@@ -1,15 +1,21 @@
 """Torch checkpoints -> the flax ``.npz`` layouts the port reads (port of
-``deep3dmap_tpu/utils/torch_import.py:205-266,284-436``): ``import_clip``
-for OpenAI/OpenCLIP ViT CLIP and ``import_dino`` for DINO ViTs, with the
-shape-sniffing that recovers their configs, and ``import_mnasnet_trunk``
-for torchvision's MNASNet (NeuralRecon's ``BACKBONE2D.CKPT``).  A user
-imports weights with no JAX installed (``tools/import_weights.py
-clip|dino|mnasnet``), and the files are the JAX tool's key for key.
+``deep3dmap_tpu/utils/torch_import.py``): ``import_stylegan2_generator``
+and ``import_stylegan2_discriminator`` for rosinality's StyleGAN2
+(Gan2Shape's ``gan_ckpt``), ``import_vgg16_features`` for torchvision's
+VGG16 (``PerceptualLoss``'s ``weights_path``), ``import_bisenet`` for the
+face-parsing BiSeNet (``parsing_ckpt``), ``import_clip`` for OpenAI/OpenCLIP
+ViT CLIP and ``import_dino`` for DINO ViTs, with the shape-sniffing that
+recovers their configs, and ``import_mnasnet_trunk`` for torchvision's
+MNASNet (NeuralRecon's ``BACKBONE2D.CKPT``).  A user imports every
+checkpoint the repository consumes with no JAX installed
+(``tools/import_weights.py``), and the files are the JAX tool's key for
+key.
 
 Conventions (as the JAX importers'):
 
   torch conv weight   (O, I, kH, kW) -> flax (kH, kW, I, O)
   torch linear weight (O, I)         -> flax (I, O)
+  NCHW constant tensors              -> NHWC
 
 Each tree is checked against the port's module of the recovered config (on
 the ``meta`` device, no memory): a leaf missing, extra or of another shape
@@ -53,7 +59,7 @@ def _nest(flat: Dict[str, np.ndarray]) -> Dict:
         parts = key.split("/")
         for p in parts[:-1]:
             node = node.setdefault(p, {})
-        node[parts[-1]] = np.ascontiguousarray(v, np.float32)
+        node[parts[-1]] = np.array(v, np.float32)  # keeps 0-d leaves 0-d
     return {"params": tree}
 
 
@@ -173,6 +179,136 @@ def import_dino(sd: Mapping):
     return cfg, _checked(DinoViT, cfg, _nest(flat))
 
 
+def _styled_conv(sd: Mapping, src: str, dst: str, out: Dict[str, np.ndarray]) -> None:
+    """rosinality StyledConv ``src.*`` -> the port's StyledConv ``dst/*``."""
+    w = to_numpy(sd[f"{src}.conv.weight"])  # (1, O, I, k, k)
+    out[f"{dst}/conv/weight"] = np.transpose(w[0], (2, 3, 1, 0))
+    out[f"{dst}/conv/modulation/weight"] = linear_kernel(sd[f"{src}.conv.modulation.weight"])
+    # the modulation adds +1.0 after its bias; rosinality stores bias_init=1
+    # in the bias itself -> subtract the shift once here
+    out[f"{dst}/conv/modulation/bias"] = to_numpy(sd[f"{src}.conv.modulation.bias"]) - 1.0
+    out[f"{dst}/noise_strength"] = to_numpy(sd[f"{src}.noise.weight"]).reshape(())
+    out[f"{dst}/bias"] = to_numpy(sd[f"{src}.activate.bias"])
+
+
+def _to_rgb(sd: Mapping, src: str, dst: str, out: Dict[str, np.ndarray]) -> None:
+    w = to_numpy(sd[f"{src}.conv.weight"])  # (1, 3, I, 1, 1)
+    out[f"{dst}/conv/weight"] = np.transpose(w[0], (2, 3, 1, 0))
+    out[f"{dst}/conv/modulation/weight"] = linear_kernel(sd[f"{src}.conv.modulation.weight"])
+    out[f"{dst}/conv/modulation/bias"] = to_numpy(sd[f"{src}.conv.modulation.bias"]) - 1.0
+    out[f"{dst}/bias"] = to_numpy(sd[f"{src}.bias"]).reshape(3)
+
+
+def import_stylegan2_generator(sd: Mapping, size: int = 128,
+                               n_mlp: int = 8) -> Dict[str, np.ndarray]:
+    """rosinality stylegan2-pytorch Generator state dict -> a flat dict
+    keyed ``params/<module>/<leaf>`` for ``modulars/stylegan2.Generator``."""
+    sd = _strip_module(sd)
+    out: Dict[str, np.ndarray] = {}
+    # mapping MLP: style.0 is PixelNorm (no params), style.1..n_mlp EqualLinear
+    for i in range(n_mlp):
+        out[f"mapping/dense_{i}/weight"] = linear_kernel(sd[f"style.{i + 1}.weight"])
+        out[f"mapping/dense_{i}/bias"] = to_numpy(sd[f"style.{i + 1}.bias"])
+    out["input_const"] = np.transpose(to_numpy(sd["input.input"]), (0, 2, 3, 1))
+    _styled_conv(sd, "conv1", "conv1", out)
+    _to_rgb(sd, "to_rgb1", "to_rgb1", out)
+    for j in range(int(math.log2(size)) - 2):
+        res = 8 * (2 ** j)
+        _styled_conv(sd, f"convs.{2 * j}", f"conv_{res}_up", out)
+        _styled_conv(sd, f"convs.{2 * j + 1}", f"conv_{res}", out)
+        _to_rgb(sd, f"to_rgbs.{j}", f"to_rgb_{res}", out)
+    return {"params/" + k: v for k, v in out.items()}
+
+
+def import_stylegan2_discriminator(sd: Mapping, size: int = 128,
+                                   channel_multiplier: int = 2) -> Dict[str, np.ndarray]:
+    """rosinality Discriminator state dict -> a flat dict for
+    ``modulars/stylegan2.StyleDiscriminator``."""
+    sd = _strip_module(sd)
+    out: Dict[str, np.ndarray] = {}
+    out["from_rgb_weight"] = conv_kernel(sd["convs.0.0.weight"])
+    out["frgb_b"] = to_numpy(sd["convs.0.1.bias"])
+    res = size
+    for i in range(1, int(math.log2(size)) - 1):
+        dst = f"block_{res}"
+        out[f"{dst}/conv1_weight"] = conv_kernel(sd[f"convs.{i}.conv1.0.weight"])
+        out[f"{dst}/b1"] = to_numpy(sd[f"convs.{i}.conv1.1.bias"])
+        out[f"{dst}/conv2_weight"] = conv_kernel(sd[f"convs.{i}.conv2.1.weight"])
+        out[f"{dst}/b2"] = to_numpy(sd[f"convs.{i}.conv2.2.bias"])
+        out[f"{dst}/skip_weight"] = conv_kernel(sd[f"convs.{i}.skip.1.weight"])
+        res //= 2
+    out["final_conv_weight"] = conv_kernel(sd["final_conv.0.weight"])
+    out["fc_b"] = to_numpy(sd["final_conv.1.bias"])
+    # torch flattens (C, 4, 4) row-major, the port (4, 4, C): permute rows
+    w0 = to_numpy(sd["final_linear.0.weight"])  # (O, C*16)
+    ch4 = w0.shape[1] // 16
+    w0 = w0.reshape(-1, ch4, 4, 4).transpose(0, 2, 3, 1).reshape(w0.shape[0], -1)
+    out["final_dense/weight"] = w0.T
+    out["final_dense/bias"] = to_numpy(sd["final_linear.0.bias"])
+    out["out/weight"] = linear_kernel(sd["final_linear.1.weight"])
+    out["out/bias"] = to_numpy(sd["final_linear.1.bias"])
+    return {"params/" + k: v for k, v in out.items()}
+
+
+# torchvision vgg16 ``features.`` conv indices, in trunk order
+_VGG16_CONV_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+def import_vgg16_features(sd: Mapping) -> Dict[str, np.ndarray]:
+    """torchvision vgg16 state dict (``features.N.weight/bias``) -> a flat
+    dict for ``losses/perceptual_loss._VGGFeatures`` (13 convs)."""
+    sd = _strip_module(sd)
+    prefix = "features." if any(k.startswith("features.") for k in sd) else ""
+    out: Dict[str, np.ndarray] = {}
+    for n, idx in enumerate(_VGG16_CONV_IDX):
+        out[f"params/Conv_{n}/kernel"] = conv_kernel(sd[f"{prefix}{idx}.weight"])
+        out[f"params/Conv_{n}/bias"] = to_numpy(sd[f"{prefix}{idx}.bias"])
+    return out
+
+
+def import_bisenet(sd: Mapping, n_classes: int = 19) -> Dict:
+    """The face-parsing BiSeNet checkpoint (Gan2Shape's face parser) -> the
+    flax tree ``{"params": ...}`` of ``parsing/bisenet_fp.BiSeNetFP``.
+    BatchNorms fold into the convs before them (exact in eval mode); the aux
+    training heads (``conv_out16``/``conv_out32``) are dropped."""
+    from ..models.parsing.bisenet_fp import BiSeNetFP
+
+    sd = _strip_module(sd)
+    out: Dict[str, np.ndarray] = {}
+
+    def put(dst, conv_key, bn_key):
+        out[f"{dst}/kernel"], out[f"{dst}/bias"] = _fold_bn(sd, conv_key, bn_key)
+
+    put("resnet/conv1", "cp.resnet.conv1", "cp.resnet.bn1")
+    for L in (1, 2, 3, 4):
+        for B in range(2):
+            src, dst = f"cp.resnet.layer{L}.{B}", f"resnet/layer{L}_{B}"
+            put(f"{dst}/conv1", f"{src}.conv1", f"{src}.bn1")
+            put(f"{dst}/conv2", f"{src}.conv2", f"{src}.bn2")
+            if L > 1 and B == 0:
+                put(f"{dst}/downsample", f"{src}.downsample.0", f"{src}.downsample.1")
+    for arm in ("arm16", "arm32"):
+        put(f"{arm}/conv", f"cp.{arm}.conv.conv", f"cp.{arm}.conv.bn")
+        put(f"{arm}/conv_atten", f"cp.{arm}.conv_atten", f"cp.{arm}.bn_atten")
+    put("conv_avg", "cp.conv_avg.conv", "cp.conv_avg.bn")
+    put("conv_head16", "cp.conv_head16.conv", "cp.conv_head16.bn")
+    put("conv_head32", "cp.conv_head32.conv", "cp.conv_head32.bn")
+    put("ffm_convblk", "ffm.convblk.conv", "ffm.convblk.bn")
+    out["ffm_conv1/kernel"] = conv_kernel(sd["ffm.conv1.weight"])
+    out["ffm_conv2/kernel"] = conv_kernel(sd["ffm.conv2.weight"])
+    put("out_conv", "conv_out.conv.conv", "conv_out.conv.bn")
+    out["out_cls/kernel"] = conv_kernel(sd["conv_out.conv_out.weight"])
+    out["out_cls/bias"] = (to_numpy(sd["conv_out.conv_out.bias"])
+                           if "conv_out.conv_out.bias" in sd
+                           else np.zeros(sd["conv_out.conv_out.weight"].shape[0], np.float32))
+    return _checked(BiSeNetFP, dict(n_classes=n_classes), _nest(out))
+
+
+def _unflat(flat: Dict[str, np.ndarray]) -> Dict:
+    """``params/``-keyed flat dict -> the nested ``{"params": ...}`` tree."""
+    return _nest({k[len("params/"):]: v for k, v in flat.items()})
+
+
 def _fold_bn(sd: Mapping, conv_key: str, bn_key: str, eps: float = 1e-5):
     """Eval-mode BatchNorm folded into the conv before it: the flax-layout
     (kernel HWIO, bias), exact for inference (BN(x*w) == x*w' + b')."""
@@ -250,7 +386,13 @@ def import_npz_entries(kind: str, sd: Mapping, **kw) -> Dict[str, np.ndarray]:
     ``clip`` -> ``vision``, ``text`` (flax trees) and ``meta`` (the configs,
     the logit scale); ``dino`` -> ``params`` and ``meta`` (the config);
     ``mnasnet`` -> ``params`` (``import_mnasnet_trunk``'s tree; ``kw``:
-    ``alpha``, ``device``)."""
+    ``alpha``, ``device``); ``stylegan2`` -> ``g`` and ``d`` from a
+    checkpoint holding ``g_ema`` (or ``g``) and ``d``, ``stylegan2_g`` /
+    ``stylegan2_d`` one of them (``kw``: ``size``, ``n_mlp``,
+    ``channel_multiplier``, ``style_dim``); ``vgg16`` and ``bisenet`` ->
+    ``params``."""
+    if kind.startswith("stylegan2"):
+        return _stylegan2_entries(kind, sd, **kw)
     sd = {k: to_numpy(v) for k, v in sd.items() if hasattr(v, "shape")}
     if kind == "clip":
         vision_cfg, text_cfg, vision, text, logit_scale = import_clip(sd)
@@ -262,4 +404,36 @@ def import_npz_entries(kind: str, sd: Mapping, **kw) -> Dict[str, np.ndarray]:
         return {"params": np.array(params, dtype=object), "meta": np.array(cfg, dtype=object)}
     if kind == "mnasnet":
         return {"params": np.array(import_mnasnet_trunk(sd, **kw), dtype=object)}
-    raise ValueError(f"unknown import kind {kind!r} (clip, dino, mnasnet)")
+    if kind == "vgg16":
+        from ..models.losses.perceptual_loss import _VGGFeatures
+
+        tree = _checked(_VGGFeatures, {}, _unflat(import_vgg16_features(sd)))
+        return {"params": np.array(tree, dtype=object)}
+    if kind == "bisenet":
+        return {"params": np.array(import_bisenet(sd), dtype=object)}
+    raise ValueError(f"unknown import kind {kind!r} "
+                     "(clip, dino, mnasnet, stylegan2, stylegan2_g, stylegan2_d, vgg16, bisenet)")
+
+
+def _stylegan2_entries(kind: str, raw: Mapping, size: int = 128, n_mlp: int = 8,
+                       channel_multiplier: int = 2, style_dim: int = 512) -> Dict:
+    from ..models.modulars.stylegan2 import Generator, StyleDiscriminator
+
+    def host(d):
+        return {k: to_numpy(v) for k, v in d.items() if hasattr(v, "shape")}
+
+    out = {}
+    if kind in ("stylegan2", "stylegan2_g"):
+        flat = import_stylegan2_generator(host(raw.get("g_ema", raw.get("g", raw))),
+                                          size=size, n_mlp=n_mlp)
+        cfg = dict(size=size, style_dim=style_dim, n_mlp=n_mlp,
+                   channel_multiplier=channel_multiplier, device="meta")
+        out["g"] = np.array(_checked(Generator, cfg, _unflat(flat)), dtype=object)
+    if kind in ("stylegan2", "stylegan2_d"):
+        flat = import_stylegan2_discriminator(host(raw.get("d", raw)), size=size,
+                                              channel_multiplier=channel_multiplier)
+        cfg = dict(size=size, channel_multiplier=channel_multiplier, device="meta")
+        out["d"] = np.array(_checked(StyleDiscriminator, cfg, _unflat(flat)), dtype=object)
+    if not out:
+        raise ValueError(f"unknown import kind {kind!r}")
+    return out

@@ -142,3 +142,81 @@ def test_packed_gather_clamps_out_of_range_rows():
                                   table.detach().numpy()[[0, 1, 5, 5]])
     out.sum().backward()
     np.testing.assert_array_equal(table.grad.numpy()[:, 0], [1, 1, 0, 0, 0, 2])
+
+
+def _capped_case():
+    """JAX's ``test_packed_gather_capped_vjp_exact`` segments: few valid rows
+    (compacted), all valid (overflow: the full scatter), every other row,
+    and exactly the cap."""
+    rs = np.random.RandomState(1)
+    S, HW, K, C = 4, 40, 24, 8
+    table = rs.randn(S * HW, C).astype(np.float32)
+    local = rs.randint(0, HW, (S, K))
+    valid = np.zeros((S, K), bool)
+    valid[0, :5] = True
+    valid[1, :] = True
+    valid[2, ::2] = True
+    valid[3, :12] = True
+    # the contract: invalid rows carry a zero cotangent
+    cot = (rs.randn(S * K, C) * valid.reshape(S * K, 1)).astype(np.float32)
+    return table, local, valid, cot, HW
+
+
+@pytest.mark.parametrize("cap", [8, 12, 24, None])
+def test_packed_gather_capped_vjp_matches_jax_and_full(cap):
+    """``BP_GRAD_FRAC`` is a no-op in the port: its one full scatter gives
+    the gradient of JAX's capped ``_packed_gather`` VJP, float32 summation
+    order (1e-6).  cap 8 and 12 leave segments both under and over the cap
+    (JAX's compacted and full branches); 24 is every row; None the full
+    scatter."""
+    import jax
+
+    table, local, valid, cot, HW = _capped_case()
+    S = local.shape[0]
+    idx = (local + np.arange(S)[:, None] * HW).astype(np.int32)
+    _, vjp = jax.vjp(lambda t: J._packed_gather(t, jnp.asarray(idx), jnp.asarray(valid),
+                                                HW, cap), jnp.asarray(table))
+    (want,) = vjp(jnp.asarray(cot))
+    tt = torch.from_numpy(table).requires_grad_()
+    out = T._packed_gather(tt, torch.from_numpy(local), HW)
+    np.testing.assert_array_equal(out.detach().numpy(), table[idx.reshape(-1)])
+    out.backward(torch.from_numpy(cot))
+    np.testing.assert_allclose(tt.grad.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+    if cap is not None:
+        n_full = int((valid.sum(1) > cap).sum())
+        assert n_full == {8: 3, 12: 1, 24: 0}[cap]
+
+
+@pytest.mark.parametrize("frac", [0.25, 0.75, 1.0])
+def test_back_project_grad_row_frac_matches_jax_and_unfracced(scene, frac):
+    """``back_project_sparse_batch``'s gradient in the features (the port
+    has no ``grad_row_frac``) against JAX's with it and without it
+    (``tests/test_back_project.py``'s
+    ``test_back_project_grad_row_frac_matches_unfracced``), 1e-5, float32
+    summation order.  The three views hold 41, 43 and 41 valid rows of
+    K = 60: 0.25 gives JAX cap 16, which every view overflows (the full
+    scatter); 0.75 cap 48, which every view holds (the compacted scatter);
+    1.0 is no cap."""
+    import jax
+
+    feats, proj, origin = scene
+    rng = np.random.RandomState(5)
+    K = 60
+    flat_idx = rng.randint(0, DIM ** 3, (1, K)).astype(np.int32)
+    slot_valid = rng.rand(1, K) > 0.2
+
+    def jloss(f, fr):
+        feat, cnt = J.back_project_sparse_batch(
+            f, jnp.asarray(proj), jnp.asarray(origin), jnp.asarray(flat_idx),
+            jnp.asarray(slot_valid), DIM, VS, INTERVAL, grad_row_frac=fr)
+        return (feat ** 2).sum() + cnt.sum()
+
+    wants = [np.asarray(jax.grad(lambda f: jloss(f, fr))(jnp.asarray(feats)))
+             for fr in (frac, None)]
+    f = torch.from_numpy(feats).requires_grad_()
+    feat, cnt = T.back_project_sparse_batch(
+        f, *_t(proj, origin, flat_idx.astype(np.int64), slot_valid), DIM, VS, INTERVAL)
+    ((feat ** 2).sum() + cnt.sum()).backward()
+    assert np.abs(wants[0]).max() > 0
+    for want in wants:
+        np.testing.assert_allclose(f.grad.numpy(), want, rtol=1e-5, atol=1e-5)

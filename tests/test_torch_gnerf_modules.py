@@ -38,7 +38,6 @@ from deep3dmap_tpu_torch.core.renderer.samples import patch_sampler as TP
 from deep3dmap_tpu_torch.core.renderer.samples import ray_sampler as TS
 from deep3dmap_tpu_torch.models import layers as TL
 from deep3dmap_tpu_torch.models.backbones.nerf import NeRF as TNeRF
-from deep3dmap_tpu_torch.models.function_utils import diff_augment as TA
 from deep3dmap_tpu_torch.models.modulars import embeddings as TE
 from deep3dmap_tpu_torch.models.modulars.dynamic_patch_discriminator import \
     Discriminator as TDisc
@@ -47,7 +46,9 @@ from deep3dmap_tpu_torch.models.modulars.inversion_net import InversionNet as TI
 from deep3dmap_tpu_torch.utils.from_flax import load_flax_params
 from gnerf_helpers import SharedSamples, leaf_errors, np_tree, rel
 
+# the packages export the function ``diff_augment``, which shadows its module
 JA = importlib.import_module("deep3dmap_tpu.models.function_utils.diff_augment")
+TA = importlib.import_module("deep3dmap_tpu_torch.models.function_utils.diff_augment")
 torch.set_num_threads(2)
 MOVE = 1e-6
 SUM = 1e-5

@@ -19,7 +19,12 @@
 - the port's ``ops`` exports every name of the JAX package's
   ``ops.__all__`` and its ``BACKBONES`` every name JAX registers; the op
   zoo puts numpy inputs on the card unless ``device="cpu"`` is passed, and
-  ``ops/host.py`` imports no torch.
+  ``ops/host.py`` imports no torch;
+- every package exports its JAX twin's names (lazily) and fills its
+  registries as JAX's import does, but for the multi-GPU slice's names
+  (``SyncBatchNorm``, ``lm_solve_sharded``, the ``parallel`` package); the
+  async producers' path and the torch-free utilities import no torch;
+  ``FaceAlignment`` defaults to the card.
 """
 import ast
 import os
@@ -549,3 +554,152 @@ def test_host_ops_import_no_torch():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                        timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+# names of the JAX package still waiting for the multi-GPU slice (ROADMAP.md
+# Queue 1, multi-GPU): SyncBatchNorm (models/modulars/norm.py) and the
+# parallel package
+MULTI_GPU = {"models.modulars": {"SyncBatchNorm"}}
+PACKAGES = ("datasets", "models", "models.frameworks", "models.losses", "models.modulars",
+            "models.function_utils", "runners", "utils", "core.all3dmm", "core.all3dtrans",
+            "core.renderer", "core.tsdf", "core.utils", "ops", "core.evaluation", "core.sfm",
+            "datasets.pipelines")
+
+
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_package_exports_cover_jax(pkg):
+    """Every name of the JAX package's ``__all__`` and every name its
+    ``__init__`` imports (modules aside) imports from the port's twin, but
+    the multi-GPU slice's; the port's ``__all__`` holds JAX's."""
+    import importlib
+    import types
+
+    jax_pkg = importlib.import_module(f"deep3dmap_tpu.{pkg}")
+    port = importlib.import_module(f"deep3dmap_tpu_torch.{pkg}")
+    waiting = MULTI_GPU.get(pkg, set())
+    imported = {n for n in dir(jax_pkg) if not n.startswith("_")
+                and not isinstance(getattr(jax_pkg, n), types.ModuleType)}
+    if pkg == "core.sfm":
+        waiting = {"lm_solve_sharded"}
+    assert set(jax_pkg.__all__) - waiting <= set(port.__all__), \
+        set(jax_pkg.__all__) - waiting - set(port.__all__)
+    missing = [n for n in sorted((imported | set(jax_pkg.__all__)) - waiting)
+               if not hasattr(port, n)]
+    assert not missing, f"{pkg}: {missing}"
+    for n in waiting:
+        assert not hasattr(port, n)
+
+
+def test_registries_cover_jax():
+    """Importing a package fills its registries with every name the JAX
+    package's import registers: ``DATASETS``, ``PIPELINES``, ``RUNNERS``,
+    ``HOOKS``, ``BACKBONES``, ``LOSSES``, ``RECONSTRUCTORS``, ``METRICS``
+    and the optimizers of ``runners/optim.py``."""
+    import deep3dmap_tpu.core.evaluation.evaluator as jeval
+    import deep3dmap_tpu.datasets as jd
+    import deep3dmap_tpu.models as jm
+    import deep3dmap_tpu.runners as jr
+    import deep3dmap_tpu_torch.core.evaluation.evaluator as teval
+    import deep3dmap_tpu_torch.datasets as td
+    import deep3dmap_tpu_torch.models as tm
+    import deep3dmap_tpu_torch.runners as tr
+
+    pairs = [(jd.DATASETS, td.DATASETS), (jd.PIPELINES, td.PIPELINES),
+             (jr.RUNNERS, tr.RUNNERS), (jr.HOOKS, tr.HOOKS), (jm.BACKBONES, tm.BACKBONES),
+             (jm.LOSSES, tm.LOSSES), (jm.RECONSTRUCTORS, tm.RECONSTRUCTORS),
+             (jeval.METRICS, teval.METRICS)]
+    for want, got in pairs:
+        # the package's own names: other tests register toys into JAX's
+        # registries in this process
+        names = {k for k, v in want.module_dict.items()
+                 if getattr(v, "__module__", "").startswith("deep3dmap_tpu.")}
+        assert names and names <= set(got.module_dict), (want.name, names - set(got.module_dict))
+    assert set(jr.OPTIMIZERS.module_dict) <= set(tr.OPTIMIZERS)
+    from deep3dmap_tpu_torch.runners import EpochBasedRunner
+    from deep3dmap_tpu_torch.utils import Config, fileio
+    from deep3dmap_tpu_torch.models import build_backbone
+    from deep3dmap_tpu_torch.models.losses import L1Loss
+    from deep3dmap_tpu_torch.datasets import build_dataset
+    assert tr.RUNNERS.get("EpochBasedRunner") is EpochBasedRunner
+    assert callable(build_backbone) and callable(build_dataset) and L1Loss and Config and fileio
+
+
+def test_torch_free_modules_import_no_torch():
+    """The package exports are lazy: the async producers' path (the
+    datasets package, its builder, the async datasets, the face-UV and
+    real-file readers), the utilities' registry and config, and the
+    multipie tool's index step run without torch."""
+    import subprocess
+    import sys
+    code = ("import sys\n"
+            "import deep3dmap_tpu_torch.datasets as d, deep3dmap_tpu_torch.utils\n"
+            "from deep3dmap_tpu_torch.datasets import async_producer, face_uv, real_files\n"
+            "from deep3dmap_tpu_torch.utils import registry, config\n"
+            "from deep3dmap_tpu_torch.tools import data_gen_multipie\n"
+            "import deep3dmap_tpu_torch.models, deep3dmap_tpu_torch.runners\n"
+            "import deep3dmap_tpu_torch.core.all3dtrans, deep3dmap_tpu_torch.core.utils\n"
+            "d.build_dataset(dict(type='SyntheticFaceUVDataset', n_samples=1, resolution=8))[0]\n"
+            "assert 'torch' not in sys.modules, sorted(m for m in sys.modules if 'torch' in m)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_face_leftovers_raise_without_gpu(tmp_path):
+    """``FaceAlignment`` defaults to the card; the data-gen tools, the
+    importers' host kinds and the async producers use no card."""
+    _no_gpu()
+    from deep3dmap_tpu_torch.models.face_alignment import FaceAlignment
+    from deep3dmap_tpu_torch.tools import import_weights
+
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            FaceAlignment(n_modules=1, n_landmarks=5, resolution=64, **kw)
+    fa = FaceAlignment(n_modules=1, n_landmarks=5, resolution=64, device="cpu")
+    assert {p.device.type for p in fa.net.parameters()} == {"cpu"}
+    from deep3dmap_tpu_torch.datasets.synthetic import seeded_vgg16_state_dict
+    torch.save({k: torch.from_numpy(v) for k, v in seeded_vgg16_state_dict().items()},
+               tmp_path / "vgg.pth")
+    import_weights.main(["vgg16", str(tmp_path / "vgg.pth"), str(tmp_path / "vgg.npz")])
+    assert (tmp_path / "vgg.npz").exists()
+
+
+def test_new_exports_match_jax():
+    """The names the exports brought in: ``parse_losses``, the one-sample
+    global-volume windows and the landmark pose helpers, against JAX's on
+    the same inputs (float32 rounding: 1e-6; the host numpy helpers
+    bit-equal)."""
+    import jax.numpy as jnp
+
+    from deep3dmap_tpu.core import all3dtrans as jtrans
+    from deep3dmap_tpu.models.frameworks import parse_losses as jparse
+    from deep3dmap_tpu.models.modulars import read_window as jread, write_window as jwrite
+    from deep3dmap_tpu_torch.core import all3dtrans as ttrans
+    from deep3dmap_tpu_torch.models.frameworks import parse_losses
+    from deep3dmap_tpu_torch.models.modulars import read_window, write_window
+
+    rs = np.random.RandomState(0)
+    losses = {"loss_a": rs.rand(3).astype(np.float32), "acc": rs.rand(2).astype(np.float32),
+              "loss_b": np.float32(0.25)}
+    jl, jlog = jparse({k: jnp.asarray(v) for k, v in losses.items()})
+    tl, tlog = parse_losses({k: torch.from_numpy(np.asarray(v)) for k, v in losses.items()})
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-6)
+    assert sorted(tlog) == sorted(jlog)
+    vol = rs.randn(8, 8, 8, 2).astype(np.float32)
+    win = rs.randn(4, 4, 4, 2).astype(np.float32)
+    origin = np.array([1.4, 5.6, -2.0], np.float32)
+    np.testing.assert_array_equal(
+        read_window(torch.from_numpy(vol), torch.from_numpy(origin), 4).numpy(),
+        np.asarray(jread(jnp.asarray(vol), jnp.asarray(origin), 4)))
+    np.testing.assert_array_equal(
+        write_window(torch.from_numpy(vol), torch.from_numpy(win), torch.from_numpy(origin)).numpy(),
+        np.asarray(jwrite(jnp.asarray(vol), jnp.asarray(win), jnp.asarray(origin))))
+    lmk, tpl = rs.rand(68, 2) * 200, rs.randn(68, 3) * 50
+    for a, b in zip(ttrans.project_param(lmk, tpl), jtrans.project_param(lmk, tpl)):
+        np.testing.assert_array_equal(a, b)
+    R = jtrans.P2sRt(jtrans.estimate_affine_matrix_3d22d(tpl[:10], lmk[:10]))[1]
+    for a, b in zip(ttrans.R2radangle(R), jtrans.R2radangle(R)):
+        np.testing.assert_array_equal(a, b)
+    five = list(rs.rand(10) * 100)
+    assert ttrans.face_orientation(five) == jtrans.face_orientation(five)
+    assert ttrans.is_rotation_matrix(np.eye(3)) and not ttrans.is_rotation_matrix(2 * np.eye(3))
