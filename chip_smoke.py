@@ -92,7 +92,7 @@ Phases; any error ends the run with a nonzero exit and no result line:
    runners' cuDNN flags; a probe step of each under
    ``use_deterministic_algorithms(warn_only=True)`` lists any op PyTorch
    knows to be nondeterministic.
-14. the CLIs at full width: a 480x640 fixture scene (36 frames, 4 fragments
+14. the CLIs at full width: a 480x640 fixture scene (27 frames, 3 fragments
    of 9 keyframes) through the port's data-gen, ``tools/train.py`` at the
    ``bench.py`` config on ``ScanNetDataset`` for one epoch (the runner's
    synced step time beside phase 10's bare step, the loader's time per
@@ -101,7 +101,7 @@ Phases; any error ends the run with a nonzero exit and no result line:
    checkpoint with ``evaluate`` (the host C++ op built and used).
 15. learning check: the port's quality twin
    (``deep3dmap_tpu_torch/tools/quality_regression.py``: the JAX tool's
-   template, fixture and both arms, FUSION_ON True and False) at 40
+   template, fixture and both arms, FUSION_ON True and False) at 25
    epochs each (the tool's default 120); the trained fusion model must beat
    the untrained one by its
    condition (F-score + 0.05, AbsRel lower, an untrained NaN AbsRel
@@ -356,10 +356,35 @@ Phases; any error ends the run with a nonzero exit and no result line:
    ``data_gen_multipie organize`` on a 64-line label file (the indexes),
    and ``get-lmk`` failing with the FAN quirk's ``TypeError``, as JAX's.
 
+32. multi-GPU on ``torch.distributed`` (``deep3dmap_tpu_torch/parallel/``),
+   its ranks spawned as processes of this script (``--phase32-rank``),
+   which reuse the kernels already built: (a) one NCCL rank at the bench
+   config, 3 ``train_step``s from the seeded weights through the
+   data-parallel path (the loss's sums and the gradients all-reduced)
+   against the same 3 with no process group: losses and parameters
+   bit-equal, 3 + 1 loss launches and the all-reduces counted per step,
+   ms per step both ways (median, CUDA events), no host sync in a
+   distributed step; (b) two gloo ranks sharing the card (gloo's
+   collectives copy through pinned host memory): the data-parallel step
+   on a global batch of 2 bench fragments against one rank on the same
+   batch, at the bench config's bf16 (the loss within 1e-3, the whole
+   gradient within 0.25, the loss's masks compared) and all float32 (the
+   loss within 1e-5, the whole gradient 2e-3, its worst leaf 2e-2: a
+   backward fed a rank's own sums is ~1 off), and on each rank the
+   backward kernel on its level inputs and the all-reduced sums against
+   plain; ``configs/neural_recon/scannet.py``'s dense model over
+   ("data", "model") = (1, 2): the halo ConvGRU at the finest window
+   against the whole cell within 2e-5 (TF32 off), each rank's
+   global-volume bytes half of one rank's, one spatial ``train_step``
+   against the unsharded step (the loss, the gradient within 1e-4 whole
+   and 1e-3 a leaf, the weights after it printed); ``lm_solve_sharded`` against
+   ``lm_solve`` at phase 27's ring scene in float64.
+
 The raster's launches in the kernels line are phases 7's, 12's, 16's and
 31's main paths together; the fused loss's are phase 4's (forward) or
 phase 10's (backward), phase 14's, phase 25's (both attempts, train and
-val), phase 26's two training steps and phase 30's steps.  The backward's ms, plain_ms and bound_ms are per
+val), phase 26's two training steps, phase 30's steps and phase 32's
+distributed steps ((a)'s NCCL arm, (b)'s ranks).  The backward's ms, plain_ms and bound_ms are per
 train step on phase 10's own inputs: its one launch over the three levels.
 Before the last line it prints one
 ``{"kernels": [...]}`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -2091,7 +2116,7 @@ def phase_determinism(nr_module, train_mod, g2s_module, runner_mod, stack, make_
 
 
 # ---------------------------------------------------------------- phase 14 --
-CLI_FRAMES = 36            # 4 fragments of 9 keyframes at 480x640
+CLI_FRAMES = 27            # 3 fragments of 9 keyframes at 480x640
 CLI_LOG_INTERVAL = 50      # no logging iteration inside the epoch
 
 
@@ -2272,7 +2297,7 @@ def phase_cli_full_width(fused_loss, train_mod, card, work, bare_step_ms, tools,
 # and pass rule): both arms, FUSION_ON True and False, in this process, at 40
 # epochs each (the JAX tool's default is 120: both arms at 120 took 111.1 s,
 # at 80 92.5 s; 40 keeps the whole script's slowest run under ~1,050 s)
-QUALITY_EPOCHS = 40
+QUALITY_EPOCHS = 25
 
 
 def phase_learning(card, work, quality_mod):
@@ -5393,8 +5418,9 @@ def _zoo_backbone_and_utils(ops, g, card):
     del vol, co
     # the bench fragment's first level: 9 views at 480x640, 96^3 at 0.04 m,
     # level 0 = 24^3 voxels at interval 4 over the stride-16 features (80 ch)
-    s = make_fragment_sample(seed=ZOO_SEED, n_views=9, img_size=(480, 640), n_vox=96,
-                             voxel_size=0.04, device="cuda")
+    # the fragment phases 4 and 10 build (seed 0), shared
+    s = shared_samples(make_fragment_sample)(seed=0, n_views=N_VIEWS, img_size=IMG_HW,
+                                             n_vox=N_VOX, voxel_size=0.04, device="cuda")
     proj = torch.from_numpy(s["proj_matrices"][:, 2]).cuda()
     origin = torch.from_numpy(s["vol_origin_partial"]).cuda()
     feats = torch.randn(9, 30, 40, 80, device="cuda", generator=g)
@@ -5837,6 +5863,525 @@ def phase_face_leftovers(card, work, tools, g2s_module, raster):
     return g2s_launches
 
 
+# ---------------------------------------------------------------- phase 32 --
+_SAMPLES = {}
+
+
+def shared_samples(make_sample):
+    """``make_sample`` with its results kept: phases that build the same
+    seeded fragment share one build (a bench fragment traces 9 views at
+    480x640 on the host, ~15 s).  Each call gets its own dict of the
+    shared (read-only) arrays."""
+    def call(**kw):
+        key = tuple(sorted(kw.items()))
+        if key not in _SAMPLES:
+            _SAMPLES[key] = make_sample(**kw)
+        return dict(_SAMPLES[key])
+    return call
+
+
+P32_STEPS = 3            # train_steps per arm of (a)
+P32_BA_ITERS = 20
+TOL_P32_HALO = 2e-5      # the halo cell against the whole cell: JAX's own bound
+                         # (tests/test_halo_fusion.py:48-50), TF32 off
+P32_TIMEOUT = 240        # seconds for each rank group
+# (b)'s data-parallel step against one rank on the same global batch, TF32
+# off.  The float32 arm (the back-projection's gather table too) holds the
+# gradient: its loss, whole gradient and worst leaf (relative to the leaf's
+# norm); on an H100 (700 W) 1.0e-7, 3.5e-4 and 4.9e-3.  A backward fed each
+# rank's own sums in place of the global ones is ~1 off (each rank's mask
+# count is about half the global one), far past these bounds.  With the
+# model's bf16 gather table the float32 arm's gradient sat 7.0e-3 / 6.8e-2
+# off: cuDNN rounds a batch of one and of two differently, and a bf16 cast
+# turns some of those last-bit differences into whole bf16 steps.
+TOL_P32_DP_F32 = dict(loss=1e-5, whole=2e-3, leaf=2e-2)
+# The bf16 arm (the bench config as bench.py runs it): its bf16 block convs
+# move some occupancy logits across the threshold as well, so the finest
+# level's mask differs from one rank's in a few hundred of ~36,000 voxels
+# (printed) and the gradient by 9.7e-2 (its worst leaf 1.1); the loss
+# within 1e-3, the whole gradient within 0.25 (the own-sums fault is ~1)
+TOL_P32_DP_BF16 = dict(loss=1e-3, whole=0.25)
+# the spatial step's gradient against the unsharded step's (the halo conv
+# sums the GRU's weight gradient over two slabs): whole and worst leaf
+TOL_P32_SPATIAL_GRAD = dict(whole=1e-4, leaf=1e-3)
+# (b)'s data parallel arms (name, config, whether the back-projection's
+# gather table is float32 rather than the model's bf16): the bench config
+# as it is, and at float32
+_P32_F32 = dict(BENCH_CFGS, GLOBAL_DTYPE="float32", BLOCK_DTYPE="float32",
+                BACKBONE2D=dict(BENCH_CFGS["BACKBONE2D"], DTYPE="float32"))
+P32_DP_ARMS = (("bf16", BENCH_CFGS, False), ("f32", _P32_F32, True))
+TOL_P32_DP = {"bf16": TOL_P32_DP_BF16, "f32": TOL_P32_DP_F32}
+
+
+def _p32_framework(nr, cfg, f32_gather):
+    fw = nr.NeuralRecon(cfg)
+    if f32_gather:
+        fw.net.bp_gather_dtype = None
+    return fw
+
+
+@contextlib.contextmanager
+def _p32_capture(nr):
+    """The level inputs (detached) and ``pos_weight`` of every fused loss
+    call ``NeuralRecon.loss_fn`` makes inside the block."""
+    seen, real = [], nr.fused_tsdf_occ_loss_levels
+
+    def capture(levels, pos_weight=1.0, group=None):
+        seen.append(([tuple(a.detach() for a in lv) for lv in levels], pos_weight))
+        return real(levels, pos_weight, group)
+    nr.fused_tsdf_occ_loss_levels = capture
+    try:
+        yield seen
+    finally:
+        nr.fused_tsdf_occ_loss_levels = real
+
+
+def _p32_bwd_check(fused_loss, collectives, levels, pos_weight, group):
+    """The backward kernel on this rank's level inputs from the data-parallel
+    step, fed the all-reduced sums (as the step feeds it), against the plain
+    backward on the same sums, at phase 8's tolerances.  Returns the max abs
+    difference, and how far (relative to the gradient's largest value) the
+    plain backward fed this rank's own sums lands from it: the fault the
+    all-reduce prevents, which the gradient bounds must see."""
+    loc = torch.stack([fused_loss.fused_tsdf_occ_loss_cuda(*lv, pos_weight=pos_weight)
+                       for lv in levels])
+    glob = torch.cat([loc[:, :3], collectives.all_reduce(loc[:, 3:8].contiguous(), group)], 1)
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    g = torch.rand((len(levels), 3), generator=gen, device="cuda") + 0.5
+    got = fused_loss.fused_tsdf_occ_loss_bwd_cuda(levels, glob, g, pos_weight)
+    err, fault = 0.0, 0.0
+    for i, (lv, pair, gl) in enumerate(zip(levels, got, g)):
+        want = fused_loss.fused_tsdf_occ_loss_bwd_plain(*lv, glob[i, 3:5], gl, pos_weight)
+        own = fused_loss.fused_tsdf_occ_loss_bwd_plain(*lv, loc[i, 3:5], gl, pos_weight)
+        for what, a, c, f in zip(("d_tsdf", "d_occ"), pair, want, own):
+            tol = TOL_LOSS_BWD[a.dtype]
+            a, c, f = a.float(), c.float(), f.float()
+            check(torch.allclose(a, c, **tol),
+                  f"(b) level {i} {what}: the backward kernel on the global sums vs plain, "
+                  f"max abs diff {(a - c).abs().max().item()} (tol {tol})")
+            err = max(err, (a - c).abs().max().item())
+            fault = max(fault, ((f - c).abs().max() / c.abs().max().clamp_min(1e-30)).item())
+    return err, fault
+
+
+def _p32_nccl_one(rank, work):
+    """(a): the bench config's train_step, ``P32_STEPS`` times from the seeded
+    weights with no process group, then the same steps through the
+    data-parallel path at one NCCL rank; one more step under the sync
+    debug mode."""
+    from deep3dmap_tpu_torch.models.frameworks import neuralrecon as nr
+    from deep3dmap_tpu_torch.ops import fused_loss
+    from deep3dmap_tpu_torch.parallel import collectives, make_mesh
+    from deep3dmap_tpu_torch.runners import train_state as tm
+    from deep3dmap_tpu_torch.utils.device import make_deterministic
+
+    set_tf32(cudnn=True, matmul=False)    # PyTorch's defaults, as phase 10
+    make_deterministic()
+    batch = torch.load(os.path.join(work, "p32_bench.pt"), weights_only=False)
+    mesh = make_mesh(device="cuda")
+    out, kept, t0 = {"s": {}}, {}, time.perf_counter()
+    for arm, m in (("no_group", None), ("nccl", mesh)):
+        fw = nr.NeuralRecon(BENCH_CFGS)
+        if m is not None:
+            fw.set_mesh(m)
+        box = [tm.init_train_state(fw, 0, batch, ADAM, CLIP)]
+        dev = fw.batch_to_device(batch)
+        losses, ms, launches, counts = [], [], [], []
+        for _ in range(P32_STEPS):
+            fused_loss.launches = fused_loss.bwd_launches = 0
+            collectives.reset_counts()
+            log = {}
+
+            def step():
+                box[0], o = tm.train_step(fw, box[0], dev)
+                log.update(o)
+            ms.append(_events_step(step))
+            losses.append(log["loss"].detach().clone())
+            launches.append([fused_loss.launches, fused_loss.bwd_launches])
+            counts.append(dict(collectives.counts))
+        kept[arm] = (losses, [p.detach().clone() for p in box[0].net.parameters()])
+        out[arm] = dict(losses=[float(x) for x in losses], ms=ms, launches=launches,
+                        counts=counts)
+        if m is not None:
+            def one():
+                box[0], _ = tm.train_step(fw, box[0], dev)
+            out["syncs"] = _count_syncs(one)[1]
+            torch.cuda.synchronize()
+        del fw, box, dev
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["s"][arm] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    a, b = kept["no_group"], kept["nccl"]
+    out["losses_equal"] = all(torch.equal(x, y) for x, y in zip(a[0], b[0]))
+    out["params_equal"] = all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+    del kept, a, b
+    # (a)'s timed steps are done: (b)'s ranks take the card now, and its
+    # references run beside their data-parallel arms: one rank, no group,
+    # on (b)'s global batch of 2, TF32 off as (b) runs; each arm's loss,
+    # gradient and the loss's masks
+    open(os.path.join(work, "p32_go"), "w").close()
+    set_tf32(cudnn=False, matmul=False)
+    pair = torch.load(os.path.join(work, "p32_gloo.pt"), weights_only=False)["pair"]
+    refs = {}
+    for arm, cfg, f32_gather in P32_DP_ARMS:
+        fw = _p32_framework(nr, cfg, f32_gather)
+        net, ms = fw.init(0, pair)
+        with _p32_capture(nr) as seen:
+            loss, _ = fw.loss_fn(net, ms, pair)
+        loss.backward()
+        refs[arm] = dict(loss=float(loss), grads=_p32_grads(net),
+                         masks=[lv[4].cpu() for lv in seen[0][0]])
+        del fw, net, ms, seen, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.save(refs, os.path.join(work, "p32_dp_ref.tmp"))
+    os.replace(os.path.join(work, "p32_dp_ref.tmp"), os.path.join(work, "p32_dp_ref.pt"))
+    out["s"]["dp_ref"] = time.perf_counter() - t0
+    return out
+
+
+def _p32_grads(net) -> dict:
+    return {n: p.grad.detach().cpu().clone() for n, p in net.named_parameters()}
+
+
+def _p32_gloo_two(rank, work):
+    """(b) on each of two gloo ranks sharing the card: the data-parallel
+    step on a global batch of 2 at each of ``P32_DP_ARMS`` against (a)'s one
+    rank on the whole (the gradient, the loss's masks), the backward kernel
+    on the rank's level inputs and the global sums against plain;
+    scannet.py's dense model over ("data", "model") = (1, 2): the halo GRU
+    at the finest window against the whole cell, the global volumes' bytes,
+    one spatial train_step (and on rank 0 the unsharded one);
+    ``lm_solve_sharded`` (and on rank 0 ``lm_solve``) at phase 27's ring."""
+    from deep3dmap_tpu_torch.core import sfm
+    from deep3dmap_tpu_torch.models.frameworks import neuralrecon as nr
+    from deep3dmap_tpu_torch.ops import fused_loss
+    from deep3dmap_tpu_torch.parallel import (collectives, conv_gru3d_halo, make_mesh,
+                                              shard_batch)
+    from deep3dmap_tpu_torch.runners import train_state as tm
+    from deep3dmap_tpu_torch.runners.optim import build_optimizer
+    from deep3dmap_tpu_torch.utils.config import Config
+    from deep3dmap_tpu_torch.utils.device import make_deterministic
+
+    set_tf32(cudnn=False, matmul=False)   # the comparisons are at float32
+    make_deterministic()
+    data = torch.load(os.path.join(work, "p32_gloo.pt"), weights_only=False)
+    out = {"launches": [0, 0], "s": {}}
+    t0 = [time.perf_counter()]
+
+    def lap(name):
+        torch.cuda.synchronize()
+        out["s"][name] = time.perf_counter() - t0[0]
+        t0[0] = time.perf_counter()
+
+    def count(fn):
+        fused_loss.launches = fused_loss.bwd_launches = 0
+        r = fn()
+        out["launches"][0] += fused_loss.launches
+        out["launches"][1] += fused_loss.bwd_launches
+        return r
+
+    # data parallel, the bench config as it is and at float32, one fragment
+    # a rank, against (a)'s one rank on the same global batch
+    mesh = make_mesh(device="cuda")
+    group = mesh.group("data")
+    local = shard_batch(data["pair"], mesh, global_batch=True)
+    out["dp"], mine = {}, {}
+    for arm, cfg, f32_gather in P32_DP_ARMS:
+        fw = _p32_framework(nr, cfg, f32_gather)
+        fw.set_mesh(mesh)
+        net, ms = fw.init(0, local)
+
+        def dp():
+            loss, _ = fw.loss_fn(net, ms, local)
+            loss.backward()
+            collectives.reduce_gradients(net.parameters(), group)
+            return loss
+        with _p32_capture(nr) as seen:
+            loss = float(count(dp))
+        levels, pos_weight = seen[0]
+        bwd_err, fault = _p32_bwd_check(fused_loss, collectives, levels, pos_weight, group)
+        out["dp"][arm] = dict(loss=loss, bwd_err=bwd_err, own_sums_rel=fault)
+        mine[arm] = (_p32_grads(net), [lv[4][0].cpu() for lv in levels])
+        del fw, net, ms, seen, levels
+        gc.collect()
+        torch.cuda.empty_cache()
+    lap("dp")
+    refs = torch.load(_p32_wait_file(os.path.join(work, "p32_dp_ref.pt")),
+                      weights_only=False)
+    for arm, (grads, masks) in mine.items():
+        ref = refs[arm]
+        name, worst, whole, _ = _worst_leaf(ref["grads"], grads)
+        out["dp"][arm].update(
+            ref_loss=ref["loss"], worst_leaf=name, worst_rel=worst, whole_rel=whole,
+            mask_voxels=[int(m[rank].sum()) for m in ref["masks"]],
+            mask_diff=[int((m0 != m[rank]).sum()) for m0, m in zip(masks, ref["masks"])])
+    del refs, mine
+    lap("dp_vs_one_rank")
+
+    # the spatial path: scannet.py's dense model, the volumes in X slabs
+    cfg = dict(Config.fromfile(SCANNET_CFG).model["model_cfgs"])
+    mesh2 = make_mesh(("data", "model"), (1, 2), device="cuda")
+    fw = nr.NeuralRecon(cfg)
+    out["spatial_on"] = fw.set_mesh(mesh2)
+    net, ms = fw.init(0, data["frag"])
+    vols = ms["global_hidden"].volumes
+    out["volume_bytes"] = sum(v.numel() * v.element_size() for v in vols)
+    out["whole_volume_bytes"] = sum(g ** 3 * c * vols[0].element_size()
+                                    for g, c in zip(fw.global_dims, fw.out_channels))
+    gru, w = net.gru2, fw._window_dims()[-1]
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    h = torch.randn((1, w, w, w, gru.hidden_dim), generator=gen, device="cuda")
+    x = torch.randn((1, w, w, w, gru.hidden_dim), generator=gen, device="cuda")
+    r, k = mesh2.coordinate("model"), w // 2
+    with torch.no_grad():
+        y = conv_gru3d_halo(gru, h[:, r * k:(r + 1) * k], x[:, r * k:(r + 1) * k], mesh2)
+        spatial, gru.spatial = gru.spatial, None
+        whole = gru(h, x)
+        gru.spatial = spatial
+    out["halo_err"] = float((y - whole[:, r * k:(r + 1) * k]).abs().max())
+    del h, x, y, whole
+    lap("spatial_init_halo")
+    state = tm.TrainState(net=net, model_state=ms,
+                          optimizer=build_optimizer(ADAM, net.parameters(), CLIP))
+    dev = fw.batch_to_device(data["frag"])
+    collectives.reset_counts()
+    box, log = [state], {}
+    lap("spatial_state")
+
+    def spatial_step():
+        box[0], o = tm.train_step(fw, box[0], dev)
+        log.update(o)
+    out["spatial_ms"] = count(lambda: _events_step(spatial_step))
+    out["spatial_loss"] = float(log["loss"])
+    out["spatial_counts"] = dict(collectives.counts)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    # the gradient the step took (summed over the model axis) and the weights after it
+    sp_grads = _p32_grads(net)
+    sp_params = {n: p.detach().cpu().clone() for n, p in net.named_parameters()}
+    lap("spatial_step")
+    del fw, net, ms, state, box
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("spatial_free")
+    if rank == 0:
+        ref = nr.NeuralRecon(cfg)
+        st = tm.init_train_state(ref, 0, data["frag"], ADAM, CLIP)
+        st, rlog = tm.train_step(ref, st, ref.batch_to_device(data["frag"]))
+        out["spatial_ref_loss"] = float(rlog["loss"])
+        name, worst, whole, equal = _worst_leaf(_p32_grads(st.net), sp_grads)
+        out.update(spatial_grad_worst_leaf=name, spatial_grad_worst_rel=worst,
+                   spatial_grad_whole_rel=whole, spatial_grad_equal=equal,
+                   spatial_param_max_abs=max(
+                       float((p.detach().cpu() - sp_params[n]).abs().max())
+                       for n, p in st.net.named_parameters()))
+        del ref, st
+        gc.collect()
+        torch.cuda.empty_cache()
+    lap("spatial_ref")
+
+    # the sharded LM at phase 27's ring scene, float64
+    rng = np.random.RandomState(0)
+    K, Rs, ts, X, ci, pi, uv = _ring_scene(rng, 6, 64, SFM_SIGMA)
+    xi = rng.randn(6, 6) * 0.02
+    xi[:2] = 0.0
+    dR = _rodrigues(xi[:, 3:])
+    start = _on("cuda", torch.float64, dR @ Rs, np.einsum("nij,nj->ni", dR, ts) + xi[:, :3],
+                X + rng.randn(*X.shape) * 0.05)
+    K_, uv_, w_ = _on("cuda", torch.float64, K, uv, np.ones(len(ci)))
+    prob = sfm.BAProblem(K=K_, cam_idx=torch.as_tensor(ci, device="cuda"),
+                         pt_idx=torch.as_tensor(pi, device="cuda"), uv=uv_, w=w_,
+                         cam_fixed=torch.arange(6, device="cuda") < 2)
+    collectives.reset_counts()
+    res = sfm.lm_solve_sharded(mesh, *start, prob, iters=P32_BA_ITERS)
+    out["ba_counts"] = dict(collectives.counts)
+    out["ba_cost"] = float(res.cost)
+    if rank == 0:
+        want = sfm.lm_solve(*start, prob, iters=P32_BA_ITERS)
+        out["ba_ref_cost"] = float(want.cost)
+        out["ba_rel"] = max(_rel(getattr(want, f), getattr(res, f))
+                            for f in ("R", "t", "X", "cost"))
+    lap("ba")
+    return out
+
+
+def _p32_wait_file(path):
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t0 > P32_TIMEOUT:
+            raise TimeoutError(f"{os.path.basename(path)} did not come")
+        time.sleep(0.2)
+    return path
+
+
+def _phase32_rank(job, rank, world, init, work):
+    """One rank of phase 32's groups (``--phase32-rank``).  (b)'s ranks start
+    while (a) runs, import what they need and wait for (a)'s go file,
+    written when its timed steps are done, before they touch the card."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    rank, world = int(rank), int(world)
+    if job == "gloo2":
+        import deep3dmap_tpu_torch.core.sfm  # noqa: F401
+        import deep3dmap_tpu_torch.models.frameworks.neuralrecon  # noqa: F401
+        import deep3dmap_tpu_torch.parallel.spatial  # noqa: F401
+        _p32_wait_file(os.path.join(work, "p32_go"))
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl" if job == "nccl1" else "gloo", init_method=init,
+                            rank=rank, world_size=world)
+    try:
+        out = (_p32_nccl_one if job == "nccl1" else _p32_gloo_two)(rank, work)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(work, f"p32_{job}_{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _p32_start(job, world, work) -> list:
+    """``world`` ranks of ``job`` as processes of this script."""
+    init = "file://" + os.path.join(work, f"p32_{job}_store")
+    return [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phase32-rank",
+                              job, str(r), str(world), init, work],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(world)]
+
+
+def _p32_wait(job, procs, work) -> list:
+    """Each rank's exit (a failure or the timeout ends the run); their JSON."""
+    errs = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                _, err = p.communicate(timeout=P32_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                errs.append(f"rank {r} of {job} passed {P32_TIMEOUT} s")
+                continue
+            if p.returncode:
+                errs.append(f"rank {r} of {job} exited {p.returncode}: {err[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    check(not errs, "; ".join(errs))
+    outs = []
+    for r in range(len(procs)):
+        with open(os.path.join(work, f"p32_{job}_{r}.json")) as f:
+            outs.append(json.load(f))
+    return outs
+
+
+def _p32_check_a(card, a):
+    """(a)'s line and checks."""
+    ng, nc = a["no_group"], a["nccl"]
+    print(f"multi32 (a) one NCCL rank: card={card!r} train_step_ms_median nccl="
+          f"{statistics.median(nc['ms']):.6f} no_group={statistics.median(ng['ms']):.6f} "
+          f"(CUDA events, {P32_STEPS} steps each from the seeded weights) "
+          f"losses={nc['losses']!r} losses_bitwise_equal={a['losses_equal']} "
+          f"params_bitwise_equal={a['params_equal']} loss_launches_per_step={nc['launches']!r} "
+          f"collectives_per_step={nc['counts']!r} host_syncs={a['syncs']}", flush=True)
+    check(a["losses_equal"] and a["params_equal"],
+          "(a) one NCCL rank differs from no group")
+    check(nc["launches"] == ng["launches"] == [[3, 1]] * P32_STEPS,
+          f"(a) loss launches {nc['launches']} / {ng['launches']}")
+    check(all(c.get("all_reduce", 0) >= 2 and set(c) == {"all_reduce"} for c in nc["counts"])
+          and all(c == {} for c in ng["counts"]), f"(a) collectives {nc['counts']}")
+    check(a["syncs"] == 0, f"(a) {a['syncs']} host syncs in the distributed step")
+
+
+def phase_multi_gpu(card, stack, make_sample, work):
+    phase("multi-GPU on torch.distributed: (a) the bench config's step at one NCCL rank "
+          "against no group; (b) two gloo ranks on the card: data parallel, scannet.py's "
+          "spatial path over (data, model) = (1, 2), the sharded LM")
+    t_phase = time.perf_counter()
+    samples = [make_sample(seed=s, n_views=N_VIEWS, img_size=IMG_HW, n_vox=N_VOX,
+                           voxel_size=0.04, device="cuda") for s in (0, 1)]
+    walls = {"fragments": time.perf_counter() - t_phase}
+    frag, pair = stack(samples[:1]), stack(samples)
+    torch.save(frag, os.path.join(work, "p32_bench.pt"))
+    torch.save(dict(pair=pair, frag=frag), os.path.join(work, "p32_gloo.pt"))
+    walls["saved"] = time.perf_counter() - t_phase - sum(walls.values())
+
+    b_procs = _p32_start("gloo2", 2, work)      # import while (a) runs
+    try:
+        a = _p32_wait("nccl1", _p32_start("nccl1", 1, work), work)[0]
+        walls["a"] = time.perf_counter() - t_phase - sum(walls.values())
+        _p32_check_a(card, a)
+    except BaseException:                       # a failed check exits: stop (b)
+        for p in b_procs:
+            p.kill()
+            p.communicate()
+        raise
+
+    b = _p32_wait("gloo2", b_procs, work)
+    walls["b"] = time.perf_counter() - t_phase - sum(walls.values())
+    b0 = b[0]
+    for arm, _, _ in P32_DP_ARMS:
+        d = [r["dp"][arm] for r in b]
+        dp_rel = abs(d[0]["loss"] - d[0]["ref_loss"]) / abs(d[0]["ref_loss"])
+        print(f"multi32 (b) data parallel, 2 gloo ranks on the card, bench config at {arm}, "
+              f"global batch 2: card={card!r} loss={d[0]['loss']!r} one_rank_loss="
+              f"{d[0]['ref_loss']!r} rel={dp_rel:.3e} worst_grad_leaf={d[0]['worst_leaf']} "
+              f"rel={d[0]['worst_rel']:.3e} whole_grad_rel={d[0]['whole_rel']:.3e} "
+              f"loss_mask_voxels_per_level={[r['mask_voxels'] for r in d]} "
+              f"differing_from_one_rank={[r['mask_diff'] for r in d]} "
+              f"backward_kernel_on_global_sums_vs_plain_max_abs="
+              f"{[r['bwd_err'] for r in d]} own_sums_backward_rel="
+              f"{[round(r['own_sums_rel'], 4) for r in d]} (TF32 off)", flush=True)
+        check(all(r["loss"] == d[0]["loss"] for r in d), f"(b) {arm}: the ranks' losses differ")
+        check(all(r["worst_rel"] == d[0]["worst_rel"] for r in d),
+              f"(b) {arm}: the ranks' summed gradients differ")
+        tol = TOL_P32_DP[arm]
+        check(min(r["own_sums_rel"] for r in d) > 2 * tol["whole"],
+              f"(b) {arm}: a backward fed one rank's own sums is only "
+              f"{[r['own_sums_rel'] for r in d]} off the global one")
+        check(dp_rel <= tol["loss"], f"(b) {arm}: data parallel loss {dp_rel} from one "
+              f"rank's (bound {tol['loss']})")
+        check(d[0]["whole_rel"] <= tol["whole"], f"(b) {arm}: data parallel gradient "
+              f"{d[0]['whole_rel']} from one rank's (bound {tol['whole']})")
+        check(d[0]["worst_rel"] <= tol.get("leaf", np.inf), f"(b) {arm}: gradient leaf "
+              f"{d[0]['worst_leaf']} {d[0]['worst_rel']} from one rank's (bound {tol})")
+    sp_rel = abs(b0["spatial_loss"] - b0["spatial_ref_loss"]) / abs(b0["spatial_ref_loss"])
+    print(f"multi32 (b) {SCANNET_CFG} spatial over (data, model) = (1, 2): card={card!r} "
+          f"spatial_on={[r['spatial_on'] for r in b]} halo_gru_max_abs_err="
+          f"{[r['halo_err'] for r in b]} (bound {TOL_P32_HALO}) global_volume_bytes_per_rank="
+          f"{[r['volume_bytes'] for r in b]} one_rank={b0['whole_volume_bytes']} "
+          f"train_step_ms={[r['spatial_ms'] for r in b]} loss={b0['spatial_loss']!r} "
+          f"unsharded_loss={b0['spatial_ref_loss']!r} rel={sp_rel:.3e} "
+          f"grad_whole_rel={b0['spatial_grad_whole_rel']:.3e} worst_grad_leaf="
+          f"{b0['spatial_grad_worst_leaf']} rel={b0['spatial_grad_worst_rel']:.3e} "
+          f"grads_bitwise_equal={b0['spatial_grad_equal']} params_after_step_max_abs_diff="
+          f"{b0['spatial_param_max_abs']:.3e} "
+          f"collectives_per_step={b0['spatial_counts']!r} "
+          f"peak_bytes={[r['peak_bytes'] for r in b]}", flush=True)
+    check(all(r["spatial_on"] for r in b), "(b) the spatial path did not switch on")
+    check(max(r["halo_err"] for r in b) <= TOL_P32_HALO, "(b) halo GRU off the whole cell")
+    check(all(2 * r["volume_bytes"] == b0["whole_volume_bytes"] for r in b),
+          "(b) a rank holds more than half the global volumes")
+    check(sp_rel <= 1e-3, f"(b) spatial step's loss {sp_rel} from the unsharded step's")
+    check(b0["spatial_grad_whole_rel"] <= TOL_P32_SPATIAL_GRAD["whole"]
+          and b0["spatial_grad_worst_rel"] <= TOL_P32_SPATIAL_GRAD["leaf"],
+          f"(b) spatial step's gradient from the unsharded step's: whole "
+          f"{b0['spatial_grad_whole_rel']}, {b0['spatial_grad_worst_leaf']} "
+          f"{b0['spatial_grad_worst_rel']} (bounds {TOL_P32_SPATIAL_GRAD})")
+    print(f"multi32 (b) lm_solve_sharded over 2 ranks, phase 27's ring (6 cameras, 64 "
+          f"points, float64, {P32_BA_ITERS} iterations): card={card!r} cost="
+          f"{b0['ba_cost']!r} lm_solve_cost={b0['ba_ref_cost']!r} max_rel={b0['ba_rel']:.3e} "
+          f"collectives={b0['ba_counts']!r}", flush=True)
+    check(all(r["ba_cost"] == b0["ba_cost"] for r in b), "(b) the ranks' LM results differ")
+    check(b0["ba_rel"] <= 1e-8, f"(b) lm_solve_sharded {b0['ba_rel']} from lm_solve")
+    launches = [sum(a["nccl"]["launches"][i][j] for i in range(P32_STEPS)) + sum(
+        r["launches"][j] for r in b) for j in (0, 1)]
+    print(f"multi32: phase 32 took {time.perf_counter() - t_phase:.3f} s (walls "
+          f"{ {k: round(v, 1) for k, v in walls.items()} }, (a)'s arms "
+          f"{ {k: round(v, 1) for k, v in a['s'].items()} }, (b)'s parts "
+          f"{[{k: round(v, 1) for k, v in r['s'].items()} for r in b]}); loss launches "
+          f"(forward, backward) {launches} card={card!r}", flush=True)
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -5844,7 +6389,10 @@ def main():
                          "training step, Gan2Shape forward_test, each "
                          "Gan2Shape training mode, a GNeRF ABAB iteration "
                          "and LERF's training steps into DIR")
+    ap.add_argument("--phase32-rank", nargs=5, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.phase32_rank:
+        return _phase32_rank(*args.phase32_rank)
 
     phase("device")
     if not torch.cuda.is_available():
@@ -5861,6 +6409,7 @@ def main():
     from deep3dmap_tpu_torch.datasets.synthetic import make_fragment_sample
     from deep3dmap_tpu_torch.ops import fused_loss
     from deep3dmap_tpu_torch.runners import train_state as train_mod
+    make_fragment_sample = shared_samples(make_fragment_sample)
 
     import deep3dmap_tpu_torch.core.renderer.renderer_nr as renderer_mod
     import deep3dmap_tpu_torch.models.frameworks.gan2shape as g2s_module
@@ -5951,6 +6500,8 @@ def main():
         face_launches = phase_face_leftovers(card, work, tools, g2s_module, raster)
         check((fused_loss.launches, fused_loss.bwd_launches) == counts,
               "the face leftovers launched a loss kernel")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multi_") as work:
+        multi_launches = phase_multi_gpu(card, _stack_samples, make_fragment_sample, work)
     print(f"phases took {time.perf_counter() - t0:.3f} s", flush=True)
 
     print(json.dumps({"kernels": [{
@@ -5959,7 +6510,7 @@ def main():
         "source": "deep3dmap_tpu_torch/ops/fused_loss.py",
         "replaces": "deep3dmap_tpu/ops/pallas_loss.py:32",
         "launches": (launches + cli_launches[0] + runtime["launches"][0] + demo_launches[0]
-                     + trunk_launches[0]),
+                     + trunk_launches[0] + multi_launches[0]),
         "max_abs_err": loss["max_abs_err"],
         "ms": loss["ms"],
         "plain_ms": loss["plain_ms"],
@@ -5972,7 +6523,7 @@ def main():
         "source": "deep3dmap_tpu_torch/ops/fused_loss.py",
         "replaces": "deep3dmap_tpu/ops/pallas_loss.py:112",
         "launches": (bwd["launches"] + cli_launches[1] + runtime["launches"][1]
-                     + demo_launches[1] + trunk_launches[1]),
+                     + demo_launches[1] + trunk_launches[1] + multi_launches[1]),
         "max_abs_err": max(loss_bwd["max_abs_err"], bwd["max_abs_err"]),
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],

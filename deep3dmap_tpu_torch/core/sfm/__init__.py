@@ -3,10 +3,11 @@
 RANSAC, triangulation, Schur-complement bundle adjustment and pose-graph
 optimization.  The pipelines consume given poses; this layer estimates and
 refines them.  ``deep3dmap_tpu_torch/tools/benchmark_ba.py`` reports BA
-iterations per second.  The observation-sharded ``lm_solve_sharded`` is not
-ported yet (it needs more than one GPU).
+iterations per second; ``lm_solve_sharded`` splits the observations over
+the ranks of a process group.
 """
-from .ba import BAProblem, BAResult, lm_solve, project, reprojection_residuals
+from .ba import BAProblem, BAResult, lm_solve, lm_solve_sharded, project, \
+    reprojection_residuals
 from .features import Keypoints, Matches, detect_keypoints, \
     extract_descriptors, harris_response, match_descriptors, match_images
 from .pose_graph import PoseGraph, compose_chain, edge_residual, graph_cost, \
@@ -18,7 +19,7 @@ from .triangulate import essential_eight_point, essential_ransac, \
     triangulate, triangulate_two_view
 
 __all__ = [
-    "BAProblem", "BAResult", "lm_solve", "project",
+    "BAProblem", "BAResult", "lm_solve", "lm_solve_sharded", "project",
     "reprojection_residuals", "Keypoints", "Matches", "detect_keypoints",
     "extract_descriptors", "harris_response", "match_descriptors",
     "match_images", "PoseGraph", "compose_chain", "edge_residual",

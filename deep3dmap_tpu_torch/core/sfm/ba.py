@@ -1,5 +1,5 @@
 """Bundle adjustment: Levenberg-Marquardt with a Schur complement (port of
-``deep3dmap_tpu/core/sfm/ba.py``; ``lm_solve_sharded`` is not ported yet).
+``deep3dmap_tpu/core/sfm/ba.py``).
 
 - **Static shapes.**  The observation list has a fixed capacity with a
   weight mask: w = 0 slots add nothing to the normal equations.
@@ -17,6 +17,12 @@
 Capacity: ``U`` is [P, C, 6, 3] floats, 75.5 MB in float32 at P = 16,384
 points and C = 64 cameras, the fragment scale this solver targets; larger
 scenes are split into fragments and stitched with :mod:`pose_graph`.
+
+``lm_solve_sharded`` splits the observations over the ranks of a group:
+each rank sums its share into the normal-equation blocks, one
+``all_reduce`` per iteration assembles them, and the cost is all-reduced
+too, so that every rank solves the same system and takes the same accept
+decisions.
 """
 from __future__ import annotations
 
@@ -222,7 +228,8 @@ class BAResult(NamedTuple):
 
 
 def lm_solve(R0, t0, X0, prob: BAProblem, iters: int = 20, lam0=1e-3,
-             huber: Optional[float] = None) -> BAResult:
+             huber: Optional[float] = None, blocks_fn=_normal_blocks,
+             cost_fn=None) -> BAResult:
     """Levenberg-Marquardt bundle adjustment on the inputs' device.
 
     Each of the ``iters`` iterations rebuilds the system at the current
@@ -230,8 +237,15 @@ def lm_solve(R0, t0, X0, prob: BAProblem, iters: int = 20, lam0=1e-3,
     ``torch.where`` (a rejected step raises the damping for the next);
     constant work per iteration and no host sync.  ``lam0`` is a float or a
     0-d tensor (a result's ``lam``, to continue a solve).
+
+    ``blocks_fn(R, t, X, prob, huber)`` builds the normal-equation blocks
+    and ``cost_fn(R, t, X)`` the objective: the sharded solve sums both
+    over its ranks, and both must, or the ranks' accept decisions would
+    part.
     """
     def cost_at(R, t, X):
+        if cost_fn is not None:
+            return cost_fn(R, t, X)
         return robust_cost(reprojection_residuals(R, t, X, prob), huber)
 
     with no_tf32():
@@ -240,7 +254,7 @@ def lm_solve(R0, t0, X0, prob: BAProblem, iters: int = 20, lam0=1e-3,
                else torch.full((), lam0, dtype=X0.dtype, device=X0.device))
         R, t, X, cost = R0, t0, X0, c0
         for _ in range(iters):
-            B, Cp, U, gc, gp, _ = _normal_blocks(R, t, X, prob, huber)
+            B, Cp, U, gc, gp, _ = blocks_fn(R, t, X, prob, huber)
             dxi, dX = _schur_solve(B, Cp, U, gc, gp, lam, prob.cam_fixed)
             R_n, t_n = se3_retract(R, t, dxi)
             X_n = X + dX
@@ -254,3 +268,52 @@ def lm_solve(R0, t0, X0, prob: BAProblem, iters: int = 20, lam0=1e-3,
                               torch.clamp(lam * 4.0, max=1e6))
     iterations = torch.full((), iters, dtype=torch.int32, device=X0.device)
     return BAResult(R, t, X, cost, c0, iterations, lam)
+
+
+def lm_solve_sharded(mesh, R0, t0, X0, prob: BAProblem, axis: str = "data",
+                     iters: int = 20, lam0=1e-3,
+                     huber: Optional[float] = None) -> BAResult:
+    """Multi-GPU LM: the observations split over ``axis`` (a ``Mesh`` axis,
+    or ``mesh`` is that axis's process group itself), one ``all_reduce`` of
+    (B, Cp, U, gc, gp) per iteration and one of each cost.
+
+    Every rank passes the whole problem and the same start; it keeps its
+    contiguous share of the observations, M padded to a multiple of the
+    ranks with w = 0 slots (camera 0 and point 0, which add nothing).  The
+    replicated solve then runs the same on every rank, and each returns
+    the whole result.
+    """
+    from ...parallel import collectives
+    from ...parallel.mesh import Mesh
+
+    group = mesh.group(axis) if isinstance(mesh, Mesh) else mesh
+    n, r = collectives.group_size(group), collectives.group_rank(group)
+    M = prob.cam_idx.shape[0]
+    pad = (-M) % n
+    if pad:
+        prob = prob._replace(
+            cam_idx=torch.cat([prob.cam_idx, prob.cam_idx.new_zeros(pad)]),
+            pt_idx=torch.cat([prob.pt_idx, prob.pt_idx.new_zeros(pad)]),
+            uv=torch.cat([prob.uv, prob.uv.new_zeros((pad, 2))]),
+            w=torch.cat([prob.w, prob.w.new_zeros(pad)]))
+    k = (M + pad) // n
+    shard = prob._replace(cam_idx=prob.cam_idx[r * k:(r + 1) * k],
+                          pt_idx=prob.pt_idx[r * k:(r + 1) * k],
+                          uv=prob.uv[r * k:(r + 1) * k], w=prob.w[r * k:(r + 1) * k])
+
+    def summed_blocks(R, t, X, prob_shard, huber_):
+        parts = _normal_blocks(R, t, X, prob_shard, huber_)
+        flat = torch.cat([p.reshape(-1) for p in parts[:5]])
+        collectives.all_reduce(flat, group)
+        out, off = [], 0
+        for p in parts[:5]:
+            out.append(flat[off:off + p.numel()].view_as(p))
+            off += p.numel()
+        return (*out, parts[5])
+
+    def summed_cost(R, t, X):
+        c = robust_cost(reprojection_residuals(R, t, X, shard), huber)
+        return collectives.all_reduce(c.reshape(1), group)[0]
+
+    return lm_solve(R0, t0, X0, shard, iters=iters, lam0=lam0, huber=huber,
+                    blocks_fn=summed_blocks, cost_fn=summed_cost)

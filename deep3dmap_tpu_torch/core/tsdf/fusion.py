@@ -27,20 +27,22 @@ class TSDFParams(NamedTuple):
         return self.margin * self.voxel_size
 
 
-def _world_coords(params: TSDFParams, origin: torch.Tensor) -> torch.Tensor:
+def _world_coords(params: TSDFParams, origin: torch.Tensor, x0: int = 0) -> torch.Tensor:
     X, Y, Z = params.dim
     kw = dict(dtype=torch.float32, device=origin.device)
-    gx, gy, gz = torch.meshgrid(torch.arange(X, **kw), torch.arange(Y, **kw),
+    gx, gy, gz = torch.meshgrid(torch.arange(x0, x0 + X, **kw), torch.arange(Y, **kw),
                                 torch.arange(Z, **kw), indexing="ij")
     return torch.stack([gx, gy, gz], dim=-1) * params.voxel_size + origin
 
 
 def tsdf_integrate(tsdf, weight, depth_im, cam_intr, cam_pose, origin,
-                   params: TSDFParams, obs_weight: float = 1.0):
+                   params: TSDFParams, obs_weight: float = 1.0, x0: int = 0):
     """Integrate one depth frame.  tsdf, weight (X, Y, Z); depth_im (H, W);
-    cam_intr (3, 3); cam_pose (4, 4) camera-to-world; origin (3,)."""
+    cam_intr (3, 3); cam_pose (4, 4) camera-to-world; origin (3,).  ``x0``
+    offsets the X indices: a slab of a larger volume whose first row is row
+    ``x0`` (``parallel/spatial.py``), with the whole volume's coordinates."""
     H, W = depth_im.shape
-    world = _world_coords(params, origin)
+    world = _world_coords(params, origin, x0)
     w2c = torch.linalg.inv(cam_pose)
     cam = world @ w2c[:3, :3].T + w2c[:3, 3]
     z = cam[..., 2]

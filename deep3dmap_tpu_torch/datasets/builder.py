@@ -202,7 +202,7 @@ def upload_batch(batch: dict, device, non_blocking: bool = False) -> dict:
     return out
 
 
-def prefetch_to_device(iterable, device, depth: int = 2, host_check=None):
+def prefetch_to_device(iterable, device, depth: int = 2, host_check=None, mesh=None):
     """Overlap host batch building and the host -> device copy with the step.
 
     Pulls ``depth`` batches ahead of the consumer.  Each batch is checked by
@@ -210,16 +210,26 @@ def prefetch_to_device(iterable, device, depth: int = 2, host_check=None):
     at once), then copied from pinned memory on a side CUDA stream; the
     consumer's stream waits for that copy before it gets the batch, and each
     tensor is marked as used on the consumer's stream so the allocator does
-    not reuse it early.  On the CPU the batch is converted to tensors.
+    not reuse it early.  On the CPU the batch is converted to tensors.  With
+    a ``mesh`` (a process group's) each batch, the rank's own, goes through
+    ``parallel.mesh.shard_batch``: onto the rank's device, its non-numeric
+    entries dropped.
     """
     import torch
 
     dev = torch.device(device)
+    if mesh is not None:
+        from ..parallel.mesh import shard_batch
+
+        def upload(batch, dev, non_blocking=False):
+            return shard_batch(batch, mesh, non_blocking=non_blocking)
+    else:
+        upload = upload_batch
     if dev.type != "cuda":
         for batch in iterable:
             if host_check is not None:
                 host_check(batch)
-            yield upload_batch(batch, dev)
+            yield upload(batch, dev)
         return
     side = torch.cuda.Stream(device=dev)
     buf = deque()
@@ -228,7 +238,7 @@ def prefetch_to_device(iterable, device, depth: int = 2, host_check=None):
         if host_check is not None:
             host_check(batch)
         with torch.cuda.stream(side):
-            up = upload_batch(batch, dev, non_blocking=True)
+            up = upload(batch, dev, non_blocking=True)
             ev = torch.cuda.Event()
             ev.record(side)
         buf.append((up, ev))

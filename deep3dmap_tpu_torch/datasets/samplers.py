@@ -14,13 +14,11 @@ import numpy as np
 
 
 def get_dist_info():
-    """(rank, world size) of ``torch.distributed``, or (0, 1) when it is
-    not initialised."""
-    import torch.distributed as dist
+    """``parallel.mesh.get_dist_info``, imported at the call: the samplers
+    import no torch until a distributed one asks for its rank."""
+    from ..parallel.mesh import get_dist_info as info
 
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+    return info()
 
 
 class GroupSampler:

@@ -20,8 +20,17 @@ batch) are accepted and checked, but both run the batch: GroupNorm is per
 image, so the scan gives the same numbers, and on the card it measured
 slower at the same peak memory, which the dense 3D nets set (PERF.md).
 ``BP_GRAD_FRAC`` is accepted as a no-op: the port's one sorted scatter
-already gives its gradient (``ops/back_project.py``).  Not ported yet:
-``set_mesh`` and the spatial GRU sharding (the multi-GPU slice).
+already gives its gradient (``ops/back_project.py``).
+
+``set_mesh`` (the runner calls it before ``init``): the fused loss then
+takes its sums over the mesh's ``data`` axis, so every rank's loss is the
+global batch's (``ops/fused_loss.py``).  On the dense path with a
+``FUSION.SPATIAL_AXIS`` (``model``) of more than one rank, whose size
+divides every window and global dim, the global volumes live in X slabs,
+one per rank of that axis (``global_volume.read_windows_sharded`` /
+``write_windows_sharded``), and the GRUs run on the window's slabs with
+halo exchanges (``parallel/spatial.py``); the rest of the net runs
+replicated on the axis's ranks.
 
 Batch layout as in the JAX package: imgs (B, V, H, W, 3) NHWC, volumes
 NDHWC, dict keys unchanged.
@@ -54,8 +63,9 @@ from ..modulars.block_dense3d import BlockConvGRU3D, BlockUNet3D, _up2_block
 from ..modulars.conv_gru3d import ConvGRU3D
 from ..modulars.dense3d import UNet3D, _up2
 from ..modulars.global_volume import (GlobalVolumeState, init_global_volumes,
-                                      read_windows_batch, reset_volumes,
-                                      write_windows_batch)
+                                      read_windows_batch, read_windows_sharded,
+                                      reset_volumes, write_windows_batch,
+                                      write_windows_sharded)
 from .base import BaseFramework
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
@@ -384,6 +394,10 @@ class NeuralRecon(BaseFramework):
         self.img_norm = tuple(cfg.get("IMG_NORM", (0.0, 1.0)))
         self.test_cfg = test_cfg
         self.device = resolve_device(device)
+        # set_mesh: the data axis's group (the loss's sums) and, on the
+        # spatial path, the FUSION.SPATIAL_AXIS group the volumes shard over
+        self.fusion_spatial_axis = fusion.get("SPATIAL_AXIS", "model")
+        self.mesh = self.loss_group = self.spatial_group = None
 
         self.net = NeuralReconNet(
             n_vox=self.n_vox, n_layers=self.n_layers, voxel_size=self.voxel_size,
@@ -433,6 +447,37 @@ class NeuralRecon(BaseFramework):
         check(target, loaded)
         load_flax_params(fpn, loaded)
 
+    def set_mesh(self, mesh) -> bool:
+        """Attach the rank mesh (``parallel/mesh.py``; JAX's
+        ``neuralrecon.py:529-560``).  The loss's sums go over its ``data``
+        axis.  Returns True when the spatial path was activated: the dense
+        pyramid with fusion, a ``FUSION.SPATIAL_AXIS`` axis of more than one
+        rank, and every window and global dim divisible by it (else a
+        warning, and the volumes stay whole)."""
+        self.mesh = mesh
+        self.loss_group = mesh.group("data") if mesh is not None else None
+        self.spatial_group = None
+        grus = [getattr(self.net, f"gru{i}") for i in range(self.n_layers)
+                if hasattr(self.net, f"gru{i}")]
+        for gru in grus:
+            gru.spatial = None
+        axis = self.fusion_spatial_axis
+        if (mesh is None or not self.fusion_on or axis is None
+                or axis not in mesh.axis_names or mesh.shape[axis] <= 1
+                or self.sparse_mode != "dense"):
+            return False
+        n = mesh.shape[axis]
+        bad = [d for d in list(self._window_dims()) + list(self.global_dims) if d % n]
+        if bad:
+            logging.getLogger("deep3dmap_tpu_torch").warning(
+                "NeuralRecon.set_mesh: volume dims %s not divisible by "
+                "mesh['%s']=%d -- spatial GRU sharding disabled", bad, axis, n)
+            return False
+        self.spatial_group = mesh.group(axis)
+        for gru in grus:
+            gru.spatial = self.spatial_group
+        return True
+
     def load_flax(self, flax_params):
         """Load a JAX ``NeuralRecon.init`` param tree (nested numpy arrays)."""
         load_flax_params(self.net.cpu(), flax_params)
@@ -440,11 +485,14 @@ class NeuralRecon(BaseFramework):
         return self.net
 
     def init_state(self, batch_size: int):
+        """Zero global volumes; on the spatial path this rank's X slabs."""
         model_state = {}
         if self.fusion_on:
+            n = (self.mesh.shape[self.fusion_spatial_axis]
+                 if self.spatial_group is not None else 1)
             model_state["global_hidden"] = init_global_volumes(
                 batch_size, self.global_dims, self.out_channels,
-                dtype=self.global_dtype, device=self.device)
+                dtype=self.global_dtype, device=self.device, x_split=n)
         return model_state
 
     # -- helpers -----------------------------------------------------------
@@ -508,6 +556,9 @@ class NeuralRecon(BaseFramework):
         vols = model_state["global_hidden"].volumes
         rels = self._rel_origins(batch)
         dims = self._window_dims()
+        if self.spatial_group is not None:
+            return [read_windows_sharded(vols[i], rels[i], dims[i], self.spatial_group)
+                    for i in range(self.n_layers)]
         return [read_windows_batch(vols[i], rels[i], dims[i])
                 for i in range(self.n_layers)]
 
@@ -518,8 +569,12 @@ class NeuralRecon(BaseFramework):
         rels = self._rel_origins(batch)
         for i in range(self.n_layers):
             # truncate cross-fragment backprop (gru_fusion.py:208-210)
-            vols[i] = write_windows_batch(vols[i], new_windows[i].detach(),
-                                          rels[i])
+            if self.spatial_group is not None:
+                vols[i] = write_windows_sharded(vols[i], new_windows[i].detach(),
+                                                rels[i], self.spatial_group)
+            else:
+                vols[i] = write_windows_batch(vols[i], new_windows[i].detach(),
+                                              rels[i])
         return dict(model_state,
                     global_hidden=GlobalVolumeState(volumes=tuple(vols)))
 
@@ -575,8 +630,9 @@ class NeuralRecon(BaseFramework):
             levels.append((out["tsdf"][i].squeeze(-1), out["occ"][i].squeeze(-1),
                            batch["tsdf_list"][scale], batch["occ_list"][scale],
                            mask))
-        # every level in one Function: one backward launch on the card
-        losses = fused_tsdf_occ_loss_levels(levels, self.pos_weight)
+        # every level in one Function: one backward launch on the card; on a
+        # mesh the sums are the data axis's, in one all-reduce
+        losses = fused_tsdf_occ_loss_levels(levels, self.pos_weight, self.loss_group)
         total = 0.0
         log_vars = {}
         for i in range(self.n_layers):

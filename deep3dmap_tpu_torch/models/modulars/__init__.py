@@ -1,7 +1,6 @@
 """The port's modulars (the names of
-``deep3dmap_tpu/models/modulars/__init__.py``), exported lazily.
-``SyncBatchNorm`` (``norm.py``, cross-device batch statistics) waits for the
-multi-GPU slice."""
+``deep3dmap_tpu/models/modulars/__init__.py``), exported lazily;
+``SyncBatchNorm`` (``norm.py``) takes its batch statistics across ranks."""
 from ..._lazy import export
 
 _MODULES = {
@@ -12,5 +11,6 @@ _MODULES = {
     "dynamic_patch_discriminator": ("Discriminator",),
     "inversion_net": ("InversionNet",),
     "embeddings": ("PoseParameters", "high_dim_embedding", "r6d2mat", "pose_to_d9"),
+    "norm": ("SyncBatchNorm",),
 }
 __all__, __getattr__, __dir__ = export(__name__, _MODULES)

@@ -33,9 +33,20 @@ SMEM.  Here one launch does it all:
     resets the ticket to 0 for the next call.
 The ticket is allocated and zeroed once per (device, stream), so calls on
 one stream are ordered and never share it with another stream.  The last
-program also writes Σm and Σm·y beside the three losses, into one 5-float
-device tensor (a row of the backward's ``(L, 8)`` tensor) that the backward
-reads.
+program also writes the five sums beside the three losses, into one
+8-float device tensor (a row of the backward's ``(L, 8)`` tensor): Σm and
+Σm·y in floats 3-4, which the backward reads, the other three in 5-7.
+
+Across ranks (``group=``, data parallelism): the loss divides by Σm and
+Σm·y over the whole global batch, so a rank's own sums do not give it.
+Each rank's forward launches stay as they are; then one ``all_reduce(SUM)``
+of the ``(L, 5)`` raw sums per call (not per level), ``_combine`` on the
+global sums in PyTorch, and the backward kernel fed the global Σm, Σm·y.
+Each rank's gradient is then the global loss's through its own shard, and
+summing the ranks' parameter gradients gives the global gradient
+(``runners/train_state.py``).  In a group of one rank the all-reduce is the
+identity and the losses stay the kernel's own, so the result is bit-equal
+to no group.
 
 Backward (replaces ``_bwd``, ``pallas_loss.py:112-139``, the custom VJP's
 "second fused pass"): ``loss_bwd_kernel``, one elementwise Triton launch for
@@ -68,7 +79,8 @@ about 7.5 µs at 3.35 TB/s.  Design:
 Elementwise, so two calls give the same bits.
 
 ``fused_tsdf_occ_loss_levels`` is the ``torch.autograd.Function`` over L
-levels (the forward kernel once per level, the backward kernel once);
+levels (the forward kernel once per level, the backward kernel once, and
+with a ``group`` one all-reduce between them);
 ``fused_tsdf_occ_loss`` is the same Function at L = 1.  CUDA tensors always
 launch the kernels and a failure raises; CPU tensors take
 ``partial_sums_plain`` and ``fused_tsdf_occ_loss_bwd_plain`` per level.
@@ -81,6 +93,8 @@ import functools
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel import collectives
 
 _BLOCK = 2048          # elements per tile (16 per thread at 4 warps)
 _MAX_PROGRAMS = 528    # 4 resident programs on each of the H100's 132 SMs
@@ -228,6 +242,9 @@ def _kernel():
             tl.store(out_ptr + 2, tsdf_loss)
             tl.store(out_ptr + 3, n_all)       # read by loss_bwd_kernel
             tl.store(out_ptr + 4, n_p)
+            tl.store(out_ptr + 5, s2)          # all-reduced across ranks
+            tl.store(out_ptr + 6, s3)
+            tl.store(out_ptr + 7, s4)
             tl.atomic_xchg(ticket_ptr, 0, sem="relaxed", scope="gpu")
 
     @triton.jit
@@ -317,9 +334,10 @@ def _flat_for_kernel(a: torch.Tensor) -> torch.Tensor:
 
 def fused_tsdf_occ_loss_cuda(tsdf, occ, tsdf_t, occ_t, mask,
                              pos_weight: float = 1.0, out=None) -> torch.Tensor:
-    """The forward kernel: (total, occ_loss, tsdf_loss, Σm, Σm·y) into the
-    first 5 floats of ``out`` (a contiguous float32 device tensor, e.g. a row
-    of the backward's ``(L, 8)`` tensor), or into a new 5-float tensor."""
+    """The forward kernel: (total, occ_loss, tsdf_loss) and the five sums
+    (Σm, Σm·y, ...) into the first 8 floats of ``out`` (a contiguous float32
+    device tensor, e.g. a row of the backward's ``(L, 8)`` tensor), or into
+    a new 8-float tensor."""
     global launches
     ins = [_flat_for_kernel(a) for a in (tsdf, occ, tsdf_t, occ_t, mask)]
     n = ins[0].numel()
@@ -332,15 +350,14 @@ def fused_tsdf_occ_loss_cuda(tsdf, occ, tsdf_t, occ_t, mask,
     dev = ins[0].device
     part = torch.empty((nprog, 8), device=dev, dtype=torch.float32)
     if out is None:
-        out = torch.empty((5,), device=dev, dtype=torch.float32)
+        out = torch.empty((8,), device=dev, dtype=torch.float32)
     elif not (out.dtype == torch.float32 and out.is_contiguous()
-              and out.numel() >= 5 and out.device == dev):
+              and out.numel() >= 8 and out.device == dev):
         raise ValueError("fused_tsdf_occ_loss: out must be a contiguous float32 "
-                         "tensor of at least 5 elements on the inputs' device")
+                         "tensor of at least 8 elements on the inputs' device")
     loss_kernel[(nprog,)](*ins, part, _ticket(dev), out, n, tiles_per_prog,
                           float(pos_weight), BLOCK=_BLOCK,
-                          NP=max(16, triton.next_power_of_2(nprog)),
-                          num_warps=4)
+                          NP=max(16, triton.next_power_of_2(nprog)), num_warps=4)
     launches += 1
     return out
 
@@ -393,10 +410,11 @@ class FusedTsdfOccLossLevels(torch.autograd.Function):
     """(total, occ_loss, tsdf_loss) of each level as one (L, 3) float32
     tensor, with the ``_bwd`` gradient for each level's two predictions.  The
     forward keeps each level's sums (Σm, Σm·y) that the backward needs, on
-    the device; cotangents autograd does not supply arrive as zeros."""
+    the device; cotangents autograd does not supply arrive as zeros.  With
+    a ``group`` the sums are the group's, all-reduced in one call."""
 
     @staticmethod
-    def forward(ctx, pos_weight, *flat):
+    def forward(ctx, pos_weight, group, *flat):
         levels = [flat[i:i + 5] for i in range(0, len(flat), 5)]
         if flat[0].device.type == "cuda":
             sums = torch.empty((len(levels), 8), device=flat[0].device,
@@ -407,8 +425,14 @@ class FusedTsdfOccLossLevels(torch.autograd.Function):
             rows = []
             for lv in levels:
                 s = partial_sums_plain(*lv)
-                rows.append(torch.cat([torch.stack(_combine(s, pos_weight)), s[:2]]))
+                rows.append(torch.cat([torch.stack(_combine(s, pos_weight)), s]))
             sums = torch.stack(rows)
+        if group is not None:
+            raw = collectives.all_reduce(sums[:, 3:8].contiguous(), group)
+            # one rank: the sums are its own, and so are the losses
+            losses = (sums[:, :3] if collectives.group_size(group) == 1
+                      else torch.stack(_combine(raw.T, pos_weight), 1))
+            sums = torch.cat([losses, raw], 1)
         ctx.pos_weight = pos_weight
         ctx.save_for_backward(*flat, sums)
         return sums[:, :3]
@@ -423,11 +447,12 @@ class FusedTsdfOccLossLevels(torch.autograd.Function):
             grads = [fused_tsdf_occ_loss_bwd_plain(*lv, row[3:5], gl.float(),
                                                    ctx.pos_weight)
                      for lv, row, gl in zip(levels, sums, g)]
-        return (None,) + tuple(d for d_t, d_x in grads
-                               for d in (d_t, d_x, None, None, None))
+        return (None, None) + tuple(d for d_t, d_x in grads
+                                     for d in (d_t, d_x, None, None, None))
 
 
-def fused_tsdf_occ_loss_levels(levels, pos_weight: float = 1.0) -> torch.Tensor:
+def fused_tsdf_occ_loss_levels(levels, pos_weight: float = 1.0,
+                               group=None) -> torch.Tensor:
     """Fused masked loss of several levels at once; returns an (L, 3) float32
     tensor whose row i is level i's (total, occ_loss, tsdf_loss),
     differentiable in each level's ``tsdf`` and ``occ``.
@@ -436,7 +461,9 @@ def fused_tsdf_occ_loss_levels(levels, pos_weight: float = 1.0) -> torch.Tensor:
     tensors of a level have one shape, and every tensor lies on one CUDA
     device or on the CPU.  CUDA tensors launch the forward kernel once per
     level and the backward kernel once for all of them; CPU tensors take the
-    plain versions.
+    plain versions.  ``group`` (a process group of data-parallel ranks, each
+    with its own shard of the batch) makes every level's loss the group's:
+    the sums all-reduced in one call before the combine and the backward.
     """
     levels = [tuple(lv) for lv in levels]
     if not levels or any(len(lv) != 5 for lv in levels):
@@ -450,14 +477,15 @@ def fused_tsdf_occ_loss_levels(levels, pos_weight: float = 1.0) -> torch.Tensor:
     if devs not in ({"cpu"}, {"cuda"}):
         raise ValueError(f"fused_tsdf_occ_loss: inputs on {sorted(devs)}; "
                          "all must be on one CUDA device or all on the CPU")
-    return FusedTsdfOccLossLevels.apply(float(pos_weight),
+    return FusedTsdfOccLossLevels.apply(float(pos_weight), group,
                                         *(a for lv in levels for a in lv))
 
 
-def fused_tsdf_occ_loss(tsdf, occ, tsdf_t, occ_t, mask, pos_weight: float = 1.0):
+def fused_tsdf_occ_loss(tsdf, occ, tsdf_t, occ_t, mask, pos_weight: float = 1.0,
+                        group=None):
     """Fused masked loss of one level; returns (total, occ_loss, tsdf_loss) as
     0-d tensors, differentiable in ``tsdf`` and ``occ``: the levels' Function
     at L = 1."""
     losses = fused_tsdf_occ_loss_levels([(tsdf, occ, tsdf_t, occ_t, mask)],
-                                        pos_weight)[0]
+                                        pos_weight, group)[0]
     return losses[0], losses[1], losses[2]

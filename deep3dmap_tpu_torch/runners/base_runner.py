@@ -6,8 +6,15 @@ schedule and the optimizer chain), ``run_iter`` (``runners/train_state.py``'s
 ``train_step``), ``val``, checkpoints and ``resume``.  The logged values stay
 on the device until a logger reads them, so no step waits for the device.
 Training here is bitwise repeatable on the card (``utils/device.py``'s
-``make_deterministic``).  There is no mesh: data parallelism and the spatial
-GRU are ROADMAP.md Queue 1 (multi-GPU).
+``make_deterministic``).
+
+The mesh (``parallel/mesh.py``, one process per card): ``setup`` hands it to
+the framework's ``set_mesh`` before ``init`` (NeuralRecon then takes the
+fused loss's sums over the ``data`` axis and, with a ``model`` axis, the
+spatially sharded GRU), broadcasts the weights from rank 0 and shards the
+global volumes (``shard_train_state``); ``run_iter`` sums the gradients
+over the ``data`` axis.  Rank 0 logs and saves the checkpoints.  Without a
+process group the mesh is one rank and nothing of this runs.
 
 Framework contract (as in the JAX package, with ``params`` the network
 module):
@@ -28,6 +35,7 @@ from typing import Callable, List, Optional
 
 import torch
 
+from ..parallel.mesh import get_dist_info, make_mesh
 from ..utils.device import make_deterministic
 from ..utils.log_buffer import LogBuffer
 from ..utils.logging import get_root_logger
@@ -39,15 +47,24 @@ class BaseRunner:
     def __init__(self, framework, runner_cfgs=None, work_dir: Optional[str] = None,
                  logger: Optional[logging.Logger] = None, seed: int = 0,
                  max_epochs: Optional[int] = None, max_iters: Optional[int] = None,
-                 meta: Optional[dict] = None):
+                 meta: Optional[dict] = None, mesh=None):
         runner_cfgs = dict(runner_cfgs or {})
         self.framework = framework
         self.work_dir = osp.abspath(work_dir) if work_dir else None
         if self.work_dir:
             os.makedirs(self.work_dir, exist_ok=True)
+        self.rank, self.world_size = get_dist_info()
         self.timestamp = time.strftime("%Y%m%d_%H%M%S", time.localtime())
         self.logger = logger or get_root_logger(
-            log_file=osp.join(self.work_dir, f"{self.timestamp}.log") if self.work_dir else None)
+            log_file=osp.join(self.work_dir, f"{self.timestamp}.log") if self.work_dir else None,
+            rank=self.rank)
+        if self.world_size > 1 and not hasattr(framework, "set_mesh"):
+            # its loss is not a global batch's: summed gradients would be wrong
+            raise NotImplementedError(
+                f"{type(framework).__name__} has no set_mesh: it trains on one rank, "
+                f"not {self.world_size}")
+        self.mesh = mesh if mesh is not None else make_mesh(
+            device=getattr(framework, "device", "cpu"))
         self.meta = meta or {}
 
         self._max_epochs = max_epochs if max_epochs is not None else runner_cfgs.get("max_epochs")
@@ -128,17 +145,38 @@ class BaseRunner:
     def setup(self, sample_batch, optimizer: Optional[dict] = None,
               lr_config: Optional[dict] = None, optimizer_config: Optional[dict] = None,
               iters_per_epoch: int = 1) -> TrainState:
-        """Seeded weights and model state, the schedule and the optimizer."""
+        """Seeded weights and model state, the schedule and the optimizer;
+        on a mesh the framework's ``set_mesh`` first, then the weights from
+        rank 0 and the volumes sharded."""
         make_deterministic()
         make_optimizer = self._optimizer_factory(optimizer, lr_config, optimizer_config,
                                                  iters_per_epoch, dict(type="Adam", lr=1e-3))
+        spatial_on = self._set_mesh()
         net, model_state = self.framework.init(self.seed, sample_batch)
         self.state = TrainState(net=net, model_state=model_state,
                                 optimizer=make_optimizer(net),
                                 rng=self.step_generator()
                                 if hasattr(self.framework, "draws") else None)
+        self._place_state(spatial_on)
         self._log_init(net)
         return self.state
+
+    def _set_mesh(self) -> bool:
+        """The mesh to the framework before ``init`` (JAX's
+        ``base_runner.py:159-164``); True when it took the spatial path."""
+        if not hasattr(self.framework, "set_mesh"):
+            return False
+        return bool(self.framework.set_mesh(self.mesh))
+
+    def _place_state(self, spatial_on: bool) -> None:
+        """On a process group: the weights broadcast from rank 0 and, on the
+        spatial path, the global volumes as this rank's slabs."""
+        if self.mesh.device_mesh is None:
+            return
+        from ..parallel.spatial import shard_train_state
+
+        self.state = shard_train_state(self.state, self.mesh,
+                                       axis="model" if spatial_on else None)
 
     def step_generator(self) -> torch.Generator:
         """The generator of the steps' random draws (JAX's
@@ -176,7 +214,8 @@ class BaseRunner:
     def _log_init(self, net) -> None:
         n_params = sum(p.numel() for p in net.parameters())
         self.logger.info(f"Initialized {type(self.framework).__name__}: "
-                         f"{n_params / 1e6:.2f}M params, device={self.framework.device}")
+                         f"{n_params / 1e6:.2f}M params, device={self.framework.device}, "
+                         f"mesh={self.mesh.shape}")
 
     # -- loops (implemented by subclasses) ---------------------------------
     def run(self, data_loaders, workflow, **kwargs):
@@ -193,7 +232,8 @@ class BaseRunner:
 
         return prefetch_to_device(
             loader, self.framework.device, depth=depth,
-            host_check=getattr(self.framework, "host_check_batch", None))
+            host_check=getattr(self.framework, "host_check_batch", None),
+            mesh=self.mesh if self.mesh.device_mesh is not None else None)
 
     def _host_checked(self, data_batch):
         """The batch, checked by the framework's ``host_check_batch`` unless
@@ -234,7 +274,10 @@ class BaseRunner:
 
     # -- checkpointing -----------------------------------------------------
     def save_checkpoint(self, out_dir=None, meta=None):
+        """Rank 0 saves; the others return None."""
         from .checkpoint import save_checkpoint
+        if self.rank != 0:
+            return None
         return save_checkpoint(out_dir or self.work_dir, self.state,
                                meta=dict(epoch=self.epoch + 1, iter=self.iter, **(meta or {})))
 

@@ -170,6 +170,8 @@ class CheckpointHook(Hook):
 
     def _save(self, runner, completed_iters):
         from .checkpoint import save_checkpoint
+        if getattr(runner, "rank", 0) != 0:     # rank 0 saves
+            return
         save_checkpoint(runner.work_dir, runner.state,
                         meta=dict(epoch=runner.epoch + 1, iter=completed_iters),
                         max_keep=self.max_keep_ckpts)

@@ -5,6 +5,17 @@
 backpropagates, clips and takes an Adam step, and carries the recurrent
 model state on.  Nothing in it waits for the device.  ``BaseRunner.run_iter``
 (``base_runner.py``) calls it.
+
+Data parallelism: a framework on a mesh (``set_mesh``) keeps its data
+group as ``loss_group``; one bucketed ``all_reduce(SUM)`` of the gradients
+over it runs between the backward and the optimizer's step.  SUM, not
+DDP's mean: the framework's loss is the global batch's on every rank (the
+fused loss all-reduces its sums, ``ops/fused_loss.py``), so each rank's
+gradient is the global loss's through its own shard and the sum is the
+global gradient.  The clip and ``grad_norm`` then see it, as
+``clip_by_global_norm`` does in JAX's sharded step.  A plain collective
+after the backward, not a DDP wrapper: the step stays the single-card one,
+and its collectives are counted (``parallel/collectives.py``).
 """
 from __future__ import annotations
 
@@ -13,6 +24,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
+from ..parallel.collectives import reduce_gradients
 from .optim import ClippedAdam, build_optimizer
 
 
@@ -44,12 +56,17 @@ def train_step(framework, state: TrainState, batch
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One step.  Returns the new state and the log: the per-level losses,
     ``loss`` and ``grad_norm`` (before clipping), as device tensors.  A state
-    with a generator hands it to ``loss_fn`` as ``rng``."""
+    with a generator hands it to ``loss_fn`` as ``rng``.  The framework's
+    ``loss_group`` (the data-parallel ranks its loss is the global batch's
+    over) sums the gradients over it before the step."""
     opt = state.optimizer
     opt.zero_grad()
     kw = {} if state.rng is None else {"rng": state.rng}
     loss, aux = framework.loss_fn(state.net, state.model_state, batch, **kw)
     loss.backward()
+    group = getattr(framework, "loss_group", None)
+    if group is not None:
+        reduce_gradients(state.net.parameters(), group)
     grad_norm = opt.step()
     log_vars = {k: v.detach() for k, v in aux["log_vars"].items()}
     log_vars["loss"] = loss.detach()

@@ -11,9 +11,11 @@ cuda``; it raises without a GPU), timed with CUDA events after a warm-up,
 the best of ``--reps``; ``--device cpu`` times it on the host's clock.
 
 Prints one JSON line with the JAX tool's fields (``device`` names the card)
-and the card's ``power_limit_w``.  The observation-sharded variant that the
-JAX tool adds on more than one device is not ported yet: with more than one
-card this tool says so on stderr and times nothing in its place.
+and the card's ``power_limit_w``.  Started by ``torchrun`` on more than one
+rank (``--nproc_per_node N``: one card each, NCCL; with ``--device cpu``
+gloo), it also times ``lm_solve_sharded`` with the observations split over
+the ranks and adds the JAX tool's ``sharded_devices`` and
+``sharded_lm_iters_per_s``; rank 0 prints.
 
 Usage: python -m deep3dmap_tpu_torch.tools.benchmark_ba [--cams 24]
     [--pts 4096] [--obs-per-pt 8] [--iters 30] [--reps 3] [--device cuda]
@@ -122,7 +124,13 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
+    from deep3dmap_tpu_torch.parallel.mesh import get_dist_info, init_dist, make_mesh
+
+    init_dist(device=args.device)
     device = resolve_device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    rank, world = get_dist_info()
 
     rng = np.random.RandomState(0)
     K, Rs, ts, X, prob = make_problem(rng, args.cams, args.pts, args.obs_per_pt,
@@ -143,10 +151,15 @@ def main(argv=None):
                    else device.type),
         "power_limit_w": power_limit_w(device),
     }
-    if device.type == "cuda" and torch.cuda.device_count() > 1:
-        print("benchmark_ba: lm_solve_sharded (the observation-sharded LM) is not ported "
-              "yet; no sharded numbers are reported", file=sys.stderr)
-    print(json.dumps(out), flush=True)
+    if world > 1:
+        mesh = make_mesh(("data",), device=device)
+        dt, _ = time_solve(lambda: sfm.lm_solve_sharded(mesh, R0, t0, X0, prob,
+                                                        iters=args.iters),
+                           device, args.reps)
+        out["sharded_devices"] = world
+        out["sharded_lm_iters_per_s"] = round(args.iters / dt, 2)
+    if rank == 0:
+        print(json.dumps(out), flush=True)
     return out
 
 

@@ -15,7 +15,12 @@ on ``SyntheticFaceUVDataset`` or ``ThreeHundredWLPDataset``, ``--eval nme``)
 and imgs2mesh (``configs/pt3d_demos/``, ``Imgs2Mesh`` on
 ``SyntheticFaceTupleDataset`` or ``MultiPIEFaceTupleDataset``, whose
 per-view outputs are collected as (V, B, ...) arrays; no ``evaluate``).  Without a checkpoint (none given and none in the work dir) it
-evaluates the seeded initial weights.  It runs on the card (``--device cuda``, the
+evaluates the seeded initial weights.  ``--launcher pytorch`` under
+``torchrun``: each rank streams its ``DistributedSampler`` share of the
+test split (the recurrent state carried over that share), the outputs are
+gathered with ``runners/forward_engine.py::collect_results`` and dealt
+back in turn (the split's order at ``samples_per_gpu=1``), and rank 0
+assembles the scenes and evaluates.  It runs on the card (``--device cuda``, the
 default) and raises on a machine without one unless ``--device cpu`` is
 given.
 
@@ -49,6 +54,8 @@ def parse_args(argv=None):
     parser.add_argument("--cfg-options", nargs="+", action=DictAction)
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; raises without a GPU) or cpu")
+    parser.add_argument("--launcher", choices=["none", "pytorch"], default="none",
+                        help="pytorch: torchrun's environment, one process per card")
     return parser.parse_args(argv)
 
 
@@ -93,6 +100,8 @@ def main(argv=None):
 
     from ..datasets.builder import build_dataloader, build_dataset
     from ..models.builder import build_reconstruction
+    from ..parallel.mesh import get_dist_info, init_dist
+    from ..runners.forward_engine import collect_results
     from ..runners.checkpoint import (latest_checkpoint, load_checkpoint_raw,
                                       tree_leaves, tree_unflatten)
     from .train import training_datasets
@@ -103,14 +112,17 @@ def main(argv=None):
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_dict(args.cfg_options)
+    if args.launcher == "pytorch":
+        init_dist(device=args.device)
+    rank, world = get_dist_info()
     device = resolve_device(args.device)
     work_dir = args.work_dir or cfg.get("work_dir", "./work_dir")
-    logger = get_root_logger()
+    logger = get_root_logger(rank=rank)
 
     dataset = build_dataset(cfg.data["test"], default_args=dict(device=device))
     loader = build_dataloader(dataset, samples_per_gpu=cfg.data.get("samples_per_gpu", 1),
                               workers_per_gpu=cfg.data.get("workers_per_gpu", 0),
-                              shuffle=False)
+                              dist=world > 1, shuffle=False)
     framework = build_reconstruction(cfg.model, device=device)
     if cfg.get("need_info_from_datasets") and hasattr(framework, "set_info_from_datasets"):
         framework.set_info_from_datasets(training_datasets(cfg, device))
@@ -136,18 +148,29 @@ def main(argv=None):
             voxel_size=cfg.model["model_cfgs"].get("VOXEL_SIZE", 0.04),
             save_dir=args.out or osp.join(work_dir, "meshes"))
 
-    outputs = {}
+    batches = []
     for i, raw in enumerate(loader):
         batch, meta = split_meta(raw)
         out, mstate = framework.forward_test(net, mstate, batch)
-        out = {k: _to_host(v) for k, v in out.items()}
+        batches.append(({k: _to_host(v) for k, v in out.items()}, meta))
+        logger.info(f"batch {i + 1}/{len(loader)} done")
+    if world > 1:
+        # the sampler deals sample k to rank k % world: at one sample a batch,
+        # batch j of rank r is the split's sample j * world + r (the padding
+        # that evens the ranks' shares repeats the first samples at the end)
+        per_rank = collect_results(batches)
+        batches = [per_rank[r][j] for j in range(len(batches)) for r in range(world)]
+        if rank != 0:
+            return None
+
+    outputs = {}
+    for i, (out, meta) in enumerate(batches):
         for k, v in out.items():
             outputs.setdefault(k, []).append(np.asarray(v))
         if assembler is not None and "tsdf" in out:
             scenes = meta.get("scene", [f"scene{i}"] * len(out["tsdf"]))
             for b in range(len(out["tsdf"])):
                 assembler.update(str(scenes[b]), out["tsdf"][b], out["origin"][b])
-        logger.info(f"batch {i + 1}/{len(loader)} done")
 
     if assembler is not None:
         scene_names = list(assembler.scenes)

@@ -23,8 +23,18 @@ model when ``use_mask`` is set) or ``StateMachineRunner`` (imgs2mesh,
 ``evaluation`` is ignored, as the JAX CLI ignores it (``custom_hooks`` take
 an ``EvalHook``).  With ``D3M_HEARTBEAT_FILE`` set (the elastic supervisor,
 ``tools/run_elastic.py``, sets it) a ``HeartbeatHook`` writes there every
-``D3M_HEARTBEAT_INTERVAL`` iterations (10).  One card: there is no
-``--launcher jax`` (multi-GPU is ROADMAP.md Queue 1).
+``D3M_HEARTBEAT_INTERVAL`` iterations (10).
+
+More than one card: ``--launcher pytorch`` under ``torchrun`` (the twin of
+JAX's ``--launcher jax``), one process per card:
+
+    torchrun --nproc_per_node N -m deep3dmap_tpu_torch.tools.train CONFIG \
+        --launcher pytorch [--work-dir D]
+
+Each rank's loader yields its own batches (``DistributedSampler``), the
+mesh comes from ``cfg.mesh`` (``axes`` and ``shape``, JAX's keys; all
+ranks on ``data`` by default) and the runner takes it (``BaseRunner``);
+rank 0 logs and saves.  ``--device cpu`` runs the ranks on gloo.
 """
 import argparse
 import os
@@ -41,7 +51,8 @@ def parse_args(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--max-epochs", type=int, default=None, help="override epochs")
     parser.add_argument("--no-validate", action="store_true")
-    parser.add_argument("--launcher", choices=["none"], default="none")
+    parser.add_argument("--launcher", choices=["none", "pytorch"], default="none",
+                        help="pytorch: torchrun's environment, one process per card")
     parser.add_argument("--cfg-options", nargs="+", action=DictAction,
                         help="override config entries: key=value")
     parser.add_argument("--device", default="cuda",
@@ -66,6 +77,7 @@ def main(argv=None):
 
     from ..datasets.builder import build_dataloader
     from ..models.builder import build_reconstruction
+    from ..parallel.mesh import get_dist_info, init_dist, make_mesh
     from ..runners.builder import build_runner
     from ..utils.config import Config
     from ..utils.device import make_deterministic, resolve_device
@@ -74,19 +86,26 @@ def main(argv=None):
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_dict(args.cfg_options)
+    if args.launcher == "pytorch":
+        init_dist(device=args.device)
+    rank, world = get_dist_info()
     device = resolve_device(args.device)
     make_deterministic()
 
     work_dir = args.work_dir or cfg.get("work_dir", "./work_dir")
     os.makedirs(work_dir, exist_ok=True)
-    logger = get_root_logger(log_file=osp.join(work_dir, "train.log"))
-    logger.info(f"Config: {args.config}  device={device}")
+    logger = get_root_logger(log_file=osp.join(work_dir, "train.log"), rank=rank)
+    logger.info(f"Config: {args.config}  device={device}  rank={rank}/{world}")
+    mesh_cfg = cfg.get("mesh", {})
+    mesh = make_mesh(axes=mesh_cfg.get("axes", ("data",)), shape=mesh_cfg.get("shape"),
+                     device=device)
 
     datasets = training_datasets(cfg, device, validate=not args.no_validate)
     workflow = [tuple(w) for w in cfg.get("workflow", [("train", 1)])]
     loaders = [build_dataloader(ds, samples_per_gpu=cfg.data.get("samples_per_gpu", 1),
                                 workers_per_gpu=cfg.data.get("workers_per_gpu", 0),
-                                shuffle=True, seed=args.seed) for ds in datasets]
+                                dist=world > 1, shuffle=True, seed=args.seed)
+               for ds in datasets]
 
     framework = build_reconstruction(cfg.model, device=device)
     if cfg.get("need_info_from_datasets") and hasattr(framework, "set_info_from_datasets"):
@@ -99,7 +118,8 @@ def main(argv=None):
         runner_cfgs["max_epochs"] = args.max_epochs
     runner = build_runner(dict(type=runner_type, **runner_cfg),
                           default_args=dict(framework=framework, work_dir=work_dir,
-                                            seed=args.seed, runner_cfgs=runner_cfgs))
+                                            mesh=mesh, seed=args.seed,
+                                            runner_cfgs=runner_cfgs))
 
     sample_batch = next(iter(loaders[0]))
     runner.setup(sample_batch,

@@ -13,6 +13,9 @@ state dicts into flax trees), kept as the port's own copy:
     flipped in both spatial axes (flax's ``transpose_kernel=False`` does not
     flip it; ``torch.conv_transpose2d`` does)
   GroupNorm / BlockGN / LayerNorm scale -> weight; every bias -> bias
+  BatchNorm (``models/modulars/norm.py``, under ``SyncBatchNorm``'s ``bn``)
+    scale and bias as they are; its ``batch_stats`` mean and var are the
+    module's buffers of those names
   DenseGeneral kernel and bias (the attention's query/key/value/out), raw
     leaves (``cls``, ``pos_embed``, ``poses_embed``, the hash grids'
     ``tables``, ``Embed``'s ``embedding``, CLIP's and DINO's class and
@@ -40,6 +43,7 @@ import torch
 import torch.nn as nn
 
 from ..models.layers import Conv, ConvTranspose, Dense, GroupNorm, LayerNorm
+from ..models.modulars.norm import BatchNorm
 from .device import resolve_device
 
 
@@ -64,6 +68,8 @@ def _leaf_map(module: nn.Module):
             names = {"weight": ("kernel", "kernel_t"), "bias": ("bias", "plain")}
         elif isinstance(m, (GroupNorm, LayerNorm)):
             names = {"weight": ("scale", "plain"), "bias": ("bias", "plain")}
+        elif isinstance(m, BatchNorm):
+            names = {"scale": ("scale", "plain"), "bias": ("bias", "plain")}
         elif hasattr(type(m), "FLAX_LEAVES"):
             names = type(m).FLAX_LEAVES
         else:

@@ -20,10 +20,10 @@
   ``ops.__all__`` and its ``BACKBONES`` every name JAX registers; the op
   zoo puts numpy inputs on the card unless ``device="cpu"`` is passed, and
   ``ops/host.py`` imports no torch;
-- every package exports its JAX twin's names (lazily) and fills its
-  registries as JAX's import does, but for the multi-GPU slice's names
-  (``SyncBatchNorm``, ``lm_solve_sharded``, the ``parallel`` package); the
-  async producers' path and the torch-free utilities import no torch;
+- every package exports its JAX twin's names (lazily), the ``parallel``
+  package and ``SyncBatchNorm`` / ``lm_solve_sharded`` among them, and
+  fills its registries as JAX's import does; the async producers' path
+  and the torch-free utilities import no torch;
   ``FaceAlignment`` defaults to the card.
 """
 import ast
@@ -57,6 +57,9 @@ def _imported_roots(path):
 def test_port_imports_no_jax():
     files = _port_files()
     assert len(files) > 10 and os.path.exists(files[0])
+    parallel = os.path.join(ROOT, "deep3dmap_tpu_torch", "parallel")
+    assert {os.path.join(parallel, f"{m}.py") for m in
+            ("__init__", "mesh", "fsdp", "spatial", "collectives")} <= set(files)
     bad = [(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert not bad, f"port files import the JAX side: {bad}"
@@ -376,8 +379,8 @@ def test_sfm_entry_points_raise_without_gpu():
     """The SfM layer's tool and problem builders default to the card: the
     tool's ``main`` and ``make_problem``, and ``from_jax_tuple`` (how the
     tests and the tool carry a JAX problem across).  The functions on
-    tensors follow their inputs' device.  ``lm_solve_sharded`` is not in the
-    port yet; every other name of the JAX package's ``core/sfm`` is."""
+    tensors follow their inputs' device (``lm_solve_sharded`` too, with
+    the observations split over its ranks)."""
     _no_gpu()
     from deep3dmap_tpu_torch.core import sfm
     from deep3dmap_tpu_torch.core.sfm.ba import BAProblem
@@ -398,7 +401,8 @@ def test_sfm_entry_points_raise_without_gpu():
     assert {v.device.type for v in res} == {"cpu"}
     import deep3dmap_tpu_torch.core.sfm as port
     assert set(port.__all__) == {
-        "BAProblem", "BAResult", "lm_solve", "project", "reprojection_residuals", "Keypoints",
+        "BAProblem", "BAResult", "lm_solve", "lm_solve_sharded", "project",
+        "reprojection_residuals", "Keypoints",
         "Matches", "detect_keypoints", "extract_descriptors", "harris_response",
         "match_descriptors", "match_images", "PoseGraph", "compose_chain", "edge_residual",
         "graph_cost", "odometry_graph", "optimize", "se3_compose", "se3_exp", "se3_inverse",
@@ -556,21 +560,20 @@ def test_host_ops_import_no_torch():
     assert r.returncode == 0, r.stderr
 
 
-# names of the JAX package still waiting for the multi-GPU slice (ROADMAP.md
-# Queue 1, multi-GPU): SyncBatchNorm (models/modulars/norm.py) and the
-# parallel package
-MULTI_GPU = {"models.modulars": {"SyncBatchNorm"}}
+# names of the JAX package still waiting for a later slice: none since the
+# multi-GPU slice
+MULTI_GPU = {}
 PACKAGES = ("datasets", "models", "models.frameworks", "models.losses", "models.modulars",
             "models.function_utils", "runners", "utils", "core.all3dmm", "core.all3dtrans",
             "core.renderer", "core.tsdf", "core.utils", "ops", "core.evaluation", "core.sfm",
-            "datasets.pipelines")
+            "datasets.pipelines", "parallel")
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)
 def test_package_exports_cover_jax(pkg):
     """Every name of the JAX package's ``__all__`` and every name its
-    ``__init__`` imports (modules aside) imports from the port's twin, but
-    the multi-GPU slice's; the port's ``__all__`` holds JAX's."""
+    ``__init__`` imports (modules aside) imports from the port's twin; the
+    port's ``__all__`` holds JAX's."""
     import importlib
     import types
 
@@ -579,15 +582,11 @@ def test_package_exports_cover_jax(pkg):
     waiting = MULTI_GPU.get(pkg, set())
     imported = {n for n in dir(jax_pkg) if not n.startswith("_")
                 and not isinstance(getattr(jax_pkg, n), types.ModuleType)}
-    if pkg == "core.sfm":
-        waiting = {"lm_solve_sharded"}
     assert set(jax_pkg.__all__) - waiting <= set(port.__all__), \
         set(jax_pkg.__all__) - waiting - set(port.__all__)
     missing = [n for n in sorted((imported | set(jax_pkg.__all__)) - waiting)
                if not hasattr(port, n)]
     assert not missing, f"{pkg}: {missing}"
-    for n in waiting:
-        assert not hasattr(port, n)
 
 
 def test_registries_cover_jax():
