@@ -202,7 +202,8 @@ def upload_batch(batch: dict, device, non_blocking: bool = False) -> dict:
     return out
 
 
-def prefetch_to_device(iterable, device, depth: int = 2, host_check=None, mesh=None):
+def prefetch_to_device(iterable, device, depth: int = 2, host_check=None, mesh=None,
+                       global_batch: bool = False):
     """Overlap host batch building and the host -> device copy with the step.
 
     Pulls ``depth`` batches ahead of the consumer.  Each batch is checked by
@@ -213,7 +214,8 @@ def prefetch_to_device(iterable, device, depth: int = 2, host_check=None, mesh=N
     not reuse it early.  On the CPU the batch is converted to tensors.  With
     a ``mesh`` (a process group's) each batch, the rank's own, goes through
     ``parallel.mesh.shard_batch``: onto the rank's device, its non-numeric
-    entries dropped.
+    entries dropped; with ``global_batch`` the batch is the global one,
+    alike on every rank, and the rank keeps its slice.
     """
     import torch
 
@@ -222,7 +224,8 @@ def prefetch_to_device(iterable, device, depth: int = 2, host_check=None, mesh=N
         from ..parallel.mesh import shard_batch
 
         def upload(batch, dev, non_blocking=False):
-            return shard_batch(batch, mesh, non_blocking=non_blocking)
+            return shard_batch(batch, mesh, global_batch=global_batch,
+                               non_blocking=non_blocking)
     else:
         upload = upload_batch
     if dev.type != "cuda":

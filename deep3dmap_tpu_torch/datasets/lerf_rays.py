@@ -143,7 +143,11 @@ class PyramidEmbeddings:
 @DATASETS.register_module()
 class LERFRayDataset:
     """An iterable of ray batches over a posed-image dataset (no
-    ``__getitem__``: ``build_dataloader`` passes it through)."""
+    ``__getitem__``: ``build_dataloader`` passes it through).  Every rank
+    iterates the same seeded batches: ``global_batch`` tells the runner to
+    keep each rank's slice of them (``shard_batch(global_batch=True)``)."""
+
+    global_batch = True
 
     def __init__(self, image_dataset: Optional[dict] = None, rays_per_batch: int = 256,
                  n_batches: int = 16, clip_n_dims: int = 512, dino_n_dims: int = 384,

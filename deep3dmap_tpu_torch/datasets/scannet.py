@@ -5,7 +5,8 @@ Samples are keyframe windows listed in ``fragments_<mode>.pkl`` (written by
 ``tools/data_gen_scannet.py``), read frame by frame through
 ``utils/image_io.py``.  ``evaluate`` scores saved scene meshes in a pool of
 ``spawn`` processes, one scene each (``core/evaluation/scene_eval.py``,
-which imports no torch).
+which imports no torch); a single scene, or ``n_proc`` 1, is scored in the
+calling process.
 """
 from __future__ import annotations
 
@@ -102,8 +103,11 @@ class ScanNetDataset:
                 for i, scene in enumerate(scene_names)]
         if not jobs:
             return {}
-        with get_context("spawn").Pool(min(n_proc, len(jobs))) as pool:
-            per_scene = pool.map(eval_one_scene, jobs)
+        if len(jobs) == 1 or n_proc <= 1:   # a worker's start would cost more than it saves
+            per_scene = [eval_one_scene(job) for job in jobs]
+        else:
+            with get_context("spawn").Pool(min(n_proc, len(jobs))) as pool:
+                per_scene = pool.map(eval_one_scene, jobs)
 
         agg: Dict[str, List[float]] = {}
         for m in per_scene:

@@ -44,6 +44,34 @@ def scene_sdf(pts: np.ndarray, spheres: np.ndarray, floor_z: float) -> np.ndarra
     return d
 
 
+TRACE_ROWS = 32     # image rows marched together: their arrays stay in cache
+
+
+def _march_rows(dirs, origin, spheres, floor_z, max_depth, iters):
+    """``sphere_trace_depth``'s march over a block of rows, one array per
+    coordinate: per element the same operations in the same order as
+    ``scene_sdf`` on stacked points (``np.linalg.norm`` sums the squares
+    left to right), so the same bits, without the strided (..., 3) arrays.
+    Returns the ray parameters and the hit mask."""
+    dx, dy, dz = dirs
+    ox, oy, oz = origin[0:1], origin[1:2], origin[2:3]
+    centres = [(s[0:1], s[1:2], s[2:3], s[3]) for s in spheres]
+
+    def sdf(t):
+        px, py, pz = ox + dx * t, oy + dy * t, oz + dz * t
+        d = pz - floor_z
+        for cx, cy, cz, r in centres:
+            ex, ey, ez = px - cx, py - cy, pz - cz
+            d = np.minimum(d, np.sqrt(ex * ex + ey * ey + ez * ez) - r)
+        return d
+
+    t = np.full(dx.shape, 0.05, np.float32)
+    for _ in range(iters):
+        d = sdf(t).astype(np.float32)
+        t = np.minimum(t + np.maximum(d, 1e-4), max_depth * 2)
+    return t, sdf(t) < 2e-2
+
+
 def sphere_trace_depth(intr: np.ndarray, cam_pose: np.ndarray, H: int, W: int,
                        spheres: np.ndarray, floor_z: float, max_depth: float = 6.0,
                        iters: int = 48) -> np.ndarray:
@@ -54,14 +82,11 @@ def sphere_trace_depth(intr: np.ndarray, cam_pose: np.ndarray, H: int, W: int,
     dirs_cam = np.stack([(u - cx) / fx, (v - cy) / fy, np.ones_like(u)], axis=-1)
     dirs_world = dirs_cam @ cam_pose[:3, :3].T
     origin = cam_pose[:3, 3]
-
-    t = np.full((H, W), 0.05, np.float32)
-    for _ in range(iters):
-        pts = origin + dirs_world * t[..., None]
-        d = scene_sdf(pts, spheres, floor_z).astype(np.float32)
-        t = np.minimum(t + np.maximum(d, 1e-4), max_depth * 2)
-    pts = origin + dirs_world * t[..., None]
-    hit = scene_sdf(pts, spheres, floor_z) < 2e-2
+    dirs = [np.ascontiguousarray(dirs_world[..., i]) for i in range(3)]
+    blocks = [_march_rows([c[r:r + TRACE_ROWS] for c in dirs], origin, spheres, floor_z,
+                          max_depth, iters) for r in range(0, H, TRACE_ROWS)]
+    t = np.concatenate([b[0] for b in blocks])
+    hit = np.concatenate([b[1] for b in blocks])
     # camera-z depth = t * z-component of the unit-z camera ray param
     depth = t  # dirs_cam has z == 1, so t parameterizes camera depth directly
     depth = np.where(hit & (depth < max_depth), depth, 0.0)

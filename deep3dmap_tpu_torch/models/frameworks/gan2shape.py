@@ -29,6 +29,13 @@ layouts: ``input_im`` (B, S, S, 3) in [-1, 1], optionally ``input_mask``
 (B, S, S, 1); step 2 adds ``latent_w`` and the canonical ``depth``,
 ``albedo``, ``normal``, ``light``; step 3 ``proj_im`` and ``proj_mask``.
 Random draws come from a ``torch.Generator`` on the framework's device.
+
+On a mesh (``set_mesh``) the framework is placed as JAX places it: the
+fitted batch is one instance, which does not divide over ``data``, so
+``shard_batch`` replicates it and every rank runs the whole instance,
+steps 2-3's pseudo batch too (``ModulatedConv`` folds that batch, so a
+split would change it).  The ranks then compute the same numbers and no
+reduction runs: ``loss_group`` stays None.
 Every step takes the device from the framework: CUDA unless
 ``device="cpu"`` was passed.
 """
@@ -44,6 +51,7 @@ import torch.nn.functional as F
 
 from ...core.renderer.renderer_nr import NrRenderer, get_transform_matrices
 from ...ops.resize import resize_bilinear
+from ...parallel.collectives import global_mean
 from ...utils.device import resolve_device
 from ...utils.from_flax import load_flax_params
 from ..backbones.encoder import Encoder
@@ -61,13 +69,14 @@ _BATCH_KEYS = ("input_im", "input_mask", "latent_w", "depth", "albedo",
 _DRAW_KEYS = ("dxy", "rand", "views")
 
 
-def photometric_loss(pred, target, mask=None):
-    """L1 with soft validity mask (reference utils.photometric_loss)."""
+def photometric_loss(pred, target, mask=None, group=None):
+    """L1 with soft validity mask (reference utils.photometric_loss); over
+    the global batch of ``group``'s ranks (``collectives.global_mean``)."""
     loss = torch.abs(pred - target)
     if mask is not None:
         loss = loss * mask
-        return loss.sum() / torch.clamp(mask.expand(loss.shape).sum(), min=1.0)
-    return loss.mean()
+        return global_mean(loss, group, mask.expand(loss.shape).sum(), 1.0)
+    return global_mean(loss, group)
 
 
 def smooth_loss(x):
@@ -123,6 +132,7 @@ class Gan2Shape(BaseFramework):
         self._parser = None
         self.gan_ckpt = cfg.get("gan_ckpt")
         self.mode = "step1"
+        self.loss_group = None
         self.test_cfg = test_cfg
         self.device = resolve_device(device)
 
@@ -167,6 +177,11 @@ class Gan2Shape(BaseFramework):
                                            device=self.device)
         return self._parser.parse_mask(self._on_device(images), self.category,
                                        out_size=self.image_size)
+
+    def set_mesh(self, mesh) -> bool:
+        """Replicated on every rank of ``mesh``: no loss group."""
+        self.loss_group = None
+        return False
 
     def set_mode(self, mode: str):
         if mode not in ("step1", "step2", "step3"):
@@ -295,8 +310,9 @@ class Gan2Shape(BaseFramework):
         im = batch["input_im"]
         out, recon_mask, diffuse = self._step1(params, batch)
         recon_im = out["recon_im"]
-        loss_l1 = photometric_loss(recon_im, im, recon_mask)
-        loss_perc = self.perceptual(recon_im * recon_mask, im * recon_mask).mean()
+        loss_l1 = photometric_loss(recon_im, im, recon_mask, self.loss_group)
+        loss_perc = global_mean(self.perceptual(recon_im * recon_mask, im * recon_mask),
+                                self.loss_group)
         loss_sm = smooth_loss(out["depth"]) + smooth_loss(diffuse)
         total = loss_l1 + self.lam_perc * loss_perc + self.lam_smooth * loss_sm
         log = dict(loss_l1=loss_l1, loss_perc=loss_perc, loss_smooth=loss_sm)
@@ -374,7 +390,7 @@ class Gan2Shape(BaseFramework):
             pseudo_im, mask = self.sample_pseudo_imgs(rng, canon, self.batchsize, draws)
         proj_im, offset = self.gan_invert(params, model_state, pseudo_im,
                                           batch["latent_w"], rng)
-        loss_l1 = photometric_loss(proj_im, pseudo_im, mask)
+        loss_l1 = photometric_loss(proj_im, pseudo_im, mask, self.loss_group)
         disc = model_state["disc_params"]
 
         def disc_features(x):
@@ -407,8 +423,9 @@ class Gan2Shape(BaseFramework):
         recon_im, _, recon_mask = self._render(texture, depth, rot_mat, trans_xyz)
         recon_mask = recon_mask * mask
 
-        loss_l1 = photometric_loss(recon_im, proj_im, recon_mask)
-        loss_perc = self.perceptual(recon_im * recon_mask, proj_im * recon_mask).mean()
+        loss_l1 = photometric_loss(recon_im, proj_im, recon_mask, self.loss_group)
+        loss_perc = global_mean(self.perceptual(recon_im * recon_mask, proj_im * recon_mask),
+                                self.loss_group)
         total = total1 + loss_l1 + self.lam_perc * loss_perc
         log = dict(log1, step3_l1=loss_l1, step3_perc=loss_perc)
         return total, log, out1

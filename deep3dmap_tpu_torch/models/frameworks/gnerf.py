@@ -36,6 +36,14 @@ gradients without the graph.  ``forward_test`` renders rays in chunks of
 256-wide activations would take 31 GB each in one batch; the chunked
 render is per ray (no jitter, no noise), so the numbers are those of one
 batch.
+
+On a mesh (``set_mesh``) each rank holds its share of the batch (split
+over the ``data`` axis), draws the global batch's tensors from the shared
+generator and keeps its slice (``collectives.rank_slice``), so two ranks
+draw what one rank draws for the whole batch; every mean is the global
+batch's (``collectives.global_mean``).  A pose row's gradient comes from
+the rank whose images gather it (``take_rows``), and the runner's sum
+over the ranks puts the rows together.
 """
 from __future__ import annotations
 
@@ -50,6 +58,7 @@ from ...core.renderer.samples.patch_sampler import (FlexPatchSampler, FullImageS
                                                     RescalePatchSampler,
                                                     sample_image_patches)
 from ...core.renderer.samples.ray_sampler import RaySampler
+from ...parallel.collectives import global_mean, group_size, rank_slice
 from ...utils.device import DeviceLike, resolve_device
 from ..builder import RECONSTRUCTORS
 from ..layers import init_flax_defaults
@@ -136,6 +145,12 @@ class GanNerf(BaseFramework):
         self.n_train_images = cfg.get("n_train_images", 1)
         self.n_val_images = cfg.get("n_val_images", 1)
         self.noise_end_it = cfg.get("noise_end_it", 5000)
+        self.loss_group = None
+
+    def set_mesh(self, mesh) -> bool:
+        """The batch's draws and means go over the mesh's ``data`` axis."""
+        self.loss_group = mesh.group("data")
+        return False
 
     # -- state machine contract ----------------------------------------------
     def set_info_from_datasets(self, datasets):
@@ -226,8 +241,10 @@ class GanNerf(BaseFramework):
             src = torch.as_tensor(batch["val_imgs"], dtype=torch.float32).to(dev)
         else:
             src = imgs
+        g = self.loss_group
         if draws is None:
-            draws = self.draws(rng, opt_seq, src.shape[0] if "val" in opt_seq else B)
+            n = (src.shape[0] if "val" in opt_seq else B) * group_size(g)
+            draws = rank_slice(self.draws(rng, opt_seq, n), g)
         draws = _to(draws, dev)
 
         if opt_seq in ("generator_trainstep", "discriminator_trainstep"):
@@ -238,7 +255,7 @@ class GanNerf(BaseFramework):
             if opt_seq == "generator_trainstep":
                 _, fake = self._render_patches(net, draws["render"], poses, coords, it)
                 d_fake, stats = net.discriminator(fake, y, stats, draws["disc"][0])
-                loss = F.softplus(-d_fake).mean()
+                loss = global_mean(F.softplus(-d_fake), g)
                 new_state["it"] = it + 1
                 log["g_loss"] = loss
             else:
@@ -247,8 +264,9 @@ class GanNerf(BaseFramework):
                 real = sample_image_patches(imgs, coords)
                 d_real, stats = net.discriminator(real, y, stats, draws["disc"][0])
                 d_fake, stats = net.discriminator(fake, y, stats, draws["disc"][1])
-                loss = (F.softplus(-d_real) + F.softplus(d_fake)).mean()
-                log.update(d_loss=loss, d_real=d_real.mean(), d_fake=d_fake.mean())
+                loss = global_mean(F.softplus(-d_real) + F.softplus(d_fake), g)
+                log.update(d_loss=loss, d_real=global_mean(d_real, g),
+                           d_fake=global_mean(d_fake, g))
             new_state["disc_stats"] = stats
 
         elif opt_seq == "inversion_net_trainstep":
@@ -256,7 +274,8 @@ class GanNerf(BaseFramework):
             poses = self.ray_sampler.random_poses(draws["poses"])
             with torch.no_grad():
                 _, fake = self._render_patches(net, draws["render"], poses, coords, it)
-            loss = ((net.inv_net(fake) - self._pose_embed_target(poses)) ** 2).mean()
+            err = net.inv_net(fake) - self._pose_embed_target(poses)
+            loss = global_mean(err ** 2, g)
             log["inv_loss"] = loss
 
         elif opt_seq in ("training_pose_regularization", "val_pose_regularization"):
@@ -266,7 +285,7 @@ class GanNerf(BaseFramework):
             with torch.no_grad():
                 pred = net.inv_net(sample_image_patches(src, coords))
             embed = take_rows(getattr(net, key).poses_embed, idx)
-            loss = ((embed - pred) ** 2).mean()
+            loss = global_mean((embed - pred) ** 2, g)
             log[f"{key}_reg_loss"] = loss
 
         elif opt_seq in ("training_refine_step", "val_refine_step"):
@@ -276,7 +295,8 @@ class GanNerf(BaseFramework):
                                                    self.patch_size, it)
             real = sample_image_patches(src, coords)
             fake_c, fake_f = self._render_patches(net, draws["render"], poses, coords, it)
-            loss = ((fake_f - real) ** 2).mean() + ((fake_c - real) ** 2).mean()
+            loss = (global_mean((fake_f - real) ** 2, g)
+                    + global_mean((fake_c - real) ** 2, g))
             log[f"{key}_refine_loss"] = loss
         else:
             raise ValueError(f"unknown opt_seq {opt_seq}")

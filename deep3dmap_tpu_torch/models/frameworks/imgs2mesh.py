@@ -15,6 +15,11 @@ calls it once per view; GroupNorm normalises each image alone, so the
 numbers are the same (``tests/test_torch_imgs2mesh.py``) and the card
 launches a third of the kernels at V = 3.
 
+On a mesh (``set_mesh``) the batch splits over the ``data`` axis by sample,
+each sample's V views on one rank (the consistency terms compare the views
+of a sample), and every mean is the global batch's
+(``parallel/collectives.py::global_mean``).
+
 Reference quirk kept: with ``use_sampling`` the ``sup`` state reads
 ``batch["uvtex"]``, which ``MultiPIEFaceTupleDataset`` does not give, so
 ``configs/pt3d_demos/imgs2face_multipie.py`` as published raises
@@ -31,6 +36,7 @@ from ...core.all3dmm.bfm_tools import load_bfm_mat, make_synthetic_bfm, param2po
 from ...core.all3dtrans.rotations import euler_angles_to_matrix
 from ...core.renderer.uv_sampler import (precompute_uv_rasterization, sample_uv_texture,
                                          vertex_visibility)
+from ...parallel.collectives import global_mean
 from ...utils.device import DeviceLike, resolve_device
 from ...utils.from_flax import load_flax_params
 from ..backbones.shape_encoder import Shape3dmmEncoder
@@ -87,6 +93,12 @@ class Imgs2Mesh(BaseFramework):
                 self.template_uvs, bfm.triangles.cpu().numpy(), self.texture_size,
                 device=self.device)
         self.net = Shape3dmmEncoder(n_param=self.bfm.n_shape + self.bfm.n_exp)
+        self.loss_group = None
+
+    def set_mesh(self, mesh) -> bool:
+        """The losses' means go over the mesh's ``data`` axis."""
+        self.loss_group = mesh.group("data")
+        return False
 
     def on_state_switch(self, state: str):
         self.state = state
@@ -122,13 +134,15 @@ class Imgs2Mesh(BaseFramework):
     def _losses(self, net, batch, state):
         imgs = self._t(batch["imgs"])
         outpts, outpose = self._forward(net, imgs)
+        g = self.loss_group
         V = len(outpts)
         losses = {}
 
         if "sup" in state and "unsup" not in state:
             gtaux = self._t(batch["gtaux"])    # (B, V, 152)
             gtobj = self._t(batch["gtobj"])    # (B, N, 3)
-            losses["ptsloss"] = sum(1e-4 * l1_loss(outpts[k], gtobj) for k in range(V))
+            losses["ptsloss"] = sum(1e-4 * l1_loss(outpts[k], gtobj, group=g)
+                                    for k in range(V))
             poseloss, lm68loss = 0.0, 0.0
             kp = self.bfm.keypoints
             for k in range(V):
@@ -137,13 +151,13 @@ class Imgs2Mesh(BaseFramework):
                 refs = gtaux[:, k, 136]
                 refT = gtaux[:, k, 146:149]
                 refAngle = gtaux[:, k, 149:152]
-                poseloss = poseloss + (20.0 * l1_loss(s, refs)
-                                       + l1_loss(outpose[k][:, 1:4], refAngle)
-                                       + l1_loss(T[:, :2], refT[:, :2]))
+                poseloss = poseloss + (20.0 * l1_loss(s, refs, group=g)
+                                       + l1_loss(outpose[k][:, 1:4], refAngle, group=g)
+                                       + l1_loss(T[:, :2], refT[:, :2], group=g))
                 angles = torch.clamp(outpose[k][:, 1:4], -ANGLE_CLIP, ANGLE_CLIP)
                 R = euler_angles_to_matrix(angles, "XYZ")
                 lm68 = self._project(outpts[k], s, R, T)[:, kp, :2]
-                lm68loss = lm68loss + 0.02 * l1_loss(lm68, reflm68)
+                lm68loss = lm68loss + 0.02 * l1_loss(lm68, reflm68, group=g)
             losses["poseloss"] = poseloss
             losses["lm68loss"] = lm68loss
 
@@ -152,20 +166,22 @@ class Imgs2Mesh(BaseFramework):
                 texloss = 0.0
                 for k in range(V):
                     uvimg, uvmask = self._uv_sample(imgs[:, k], outpts[k], outpose[k])
-                    texloss = texloss + 2.0 * (torch.abs(uvimg - uvtex) * uvmask).mean()
+                    texloss = texloss + 2.0 * global_mean(torch.abs(uvimg - uvtex) * uvmask, g)
                 losses["texloss"] = texloss
 
         if "unsup" in state:
             losses["pts_consistent_loss"] = sum(
-                0.01 * l1_loss(outpts[k], outpts[k + 1]) for k in range(V - 1))
+                0.01 * l1_loss(outpts[k], outpts[k + 1], group=g) for k in range(V - 1))
             losses["scale_consistent_loss"] = sum(
-                2000.0 * l1_loss(outpose[k][:, 0], outpose[k + 1][:, 0]) for k in range(V - 1))
+                2000.0 * l1_loss(outpose[k][:, 0], outpose[k + 1][:, 0], group=g)
+                for k in range(V - 1))
             if self.use_sampling:
                 uvs = [self._uv_sample(imgs[:, k], outpts[k], outpose[k]) for k in range(V)]
                 tex_c = 0.0
                 for k in range(V - 1):
                     m = uvs[k][1] * uvs[k + 1][1]
-                    tex_c = tex_c + 200.0 * (torch.abs(uvs[k][0] - uvs[k + 1][0]) * m).mean()
+                    tex_c = tex_c + 200.0 * global_mean(
+                        torch.abs(uvs[k][0] - uvs[k + 1][0]) * m, g)
                 losses["tex_consistent_loss"] = tex_c
         return losses, (outpts, outpose)
 

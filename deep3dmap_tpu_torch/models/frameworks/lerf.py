@@ -27,6 +27,12 @@ CLIP pyramid and DINO targets of ``datasets/lerf_rays.py``, trained by
   always taken and a later one only when its maximum is strictly larger,
   as in JAX.
 
+On a mesh (``set_mesh``) every rank takes the same global batch of rays
+and keeps its slice (the runner's ``shard_batch(global_batch=True)``),
+draws the global batch's uniforms and keeps its slice, and takes every
+mean over the global batch (``parallel/collectives.py``): two ranks then
+equal one rank on the global batch.
+
 ``init`` returns ``LERFNet``, whose children are JAX's param collections
 (``rgb_field``, ``lerf_field``, ``proposal``), so weights and Adam moments
 carry across by name (``utils/from_flax.py``).
@@ -42,6 +48,7 @@ import torch.nn as nn
 from ...core.renderer.renderer_lerf import render_clip, render_mean
 from ...core.renderer.renderer_nfvr import (sample_pdf, sample_pdf_differentiable,
                                             take_along_rows, volume_render)
+from ...parallel.collectives import global_mean, group_size, rank_slice
 from ...utils.device import DeviceLike, resolve_device
 from ..backbones.nerf import NeRF
 from ..builder import RECONSTRUCTORS
@@ -119,6 +126,12 @@ class LERFModel(BaseFramework):
         self.image_encoder = CLIPEncoder(embed_dim=self.clip_n_dims,
                                          weights_path=cfg.get("clip_weights"),
                                          device=self.device)
+        self.loss_group = None
+
+    def set_mesh(self, mesh) -> bool:
+        """The rays' draws and means go over the mesh's ``data`` axis."""
+        self.loss_group = mesh.group("data")
+        return False
 
     # -- framework contract ----------------------------------------------------
     def init(self, seed: int, batch):
@@ -171,7 +184,7 @@ class LERFModel(BaseFramework):
         rgb, depth, weights = volume_render(sigmas, rgbs, z_all, rays_d, far)
         mid = 0.5 * (z_all[:, :-1] + z_all[:, 1:])
         t_final = torch.cat([z_all[:, :1], mid, z_all[:, -1:]], -1)
-        prop_loss = interlevel_loss(edges, w_prop, t_final, weights)
+        prop_loss = interlevel_loss(edges, w_prop, t_final, weights, self.loss_group)
         return rgb, depth, weights, z_all, xyz, {"prop_loss": prop_loss}
 
     def _render_rays(self, net, rays_o, rays_d, draws, perturb: float = 1.0):
@@ -218,18 +231,19 @@ class LERFModel(BaseFramework):
         """(total loss, {"log_vars", "model_state"}); ``draws`` (``draws()``'s
         layout) replaces the draws from ``rng``."""
         b = self._batch(batch)
+        g = self.loss_group
         if draws is None:
-            draws = self.draws(rng, b["rays_o"].shape[0])
+            draws = rank_slice(self.draws(rng, b["rays_o"].shape[0] * group_size(g)), g)
         rgb, depth, weights, z_all, xyz, raux = self._render_rays(
             net, b["rays_o"], b["rays_d"], draws)
-        rgb_loss = ((rgb - b["rgb"]) ** 2).mean()
+        rgb_loss = global_mean((rgb - b["rgb"]) ** 2, g)
         w_top, xyz_top, z_top = self._lerf_samples(weights, z_all, xyz)
         scales = (b["clip_scales"][:, None] * z_top)[..., None]
         field_out = net.lerf_field(self._positions01(xyz_top.detach()), scales)
         clip_render = render_clip(field_out["clip"], w_top[..., None])
         dino_render = render_mean(field_out["dino"], w_top[..., None])
-        clip_loss = (clip_render - b["clip"]).abs().mean() * self.clip_loss_weight
-        dino_loss = ((dino_render - b["dino"]) ** 2).mean() * self.dino_loss_weight
+        clip_loss = global_mean((clip_render - b["clip"]).abs(), g) * self.clip_loss_weight
+        dino_loss = global_mean((dino_render - b["dino"]) ** 2, g) * self.dino_loss_weight
         total = rgb_loss + clip_loss + dino_loss
         log_vars = {"rgb_loss": rgb_loss, "clip_loss": clip_loss, "dino_loss": dino_loss}
         if "prop_loss" in raux:

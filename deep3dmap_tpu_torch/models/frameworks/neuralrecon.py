@@ -23,8 +23,9 @@ slower at the same peak memory, which the dense 3D nets set (PERF.md).
 already gives its gradient (``ops/back_project.py``).
 
 ``set_mesh`` (the runner calls it before ``init``): the fused loss then
-takes its sums over the mesh's ``data`` axis, so every rank's loss is the
-global batch's (``ops/fused_loss.py``).  On the dense path with a
+takes its sums over the mesh's ``data`` axis, so every rank's loss, in
+``loss_fn`` and in ``val_fn``, is the global batch's
+(``ops/fused_loss.py``).  On the dense path with a
 ``FUSION.SPATIAL_AXIS`` (``model``) of more than one rank, whose size
 divides every window and global dim, the global volumes live in X slabs,
 one per rank of that axis (``global_volume.read_windows_sharded`` /
@@ -607,9 +608,10 @@ class NeuralRecon(BaseFramework):
     # -- framework contract ------------------------------------------------
     def compute_level_loss(self, tsdf, occ, tsdf_target, occ_target, mask):
         """Masked per-level loss (neucon_network.py:216-260): the fused Triton
-        kernel for CUDA tensors, its plain version for CPU tensors."""
+        kernel for CUDA tensors, its plain version for CPU tensors; on a mesh
+        the global batch's (the sums all-reduced over ``loss_group``)."""
         return fused_tsdf_occ_loss(tsdf.squeeze(-1), occ.squeeze(-1), tsdf_target,
-                                   occ_target, mask, self.pos_weight)
+                                   occ_target, mask, self.pos_weight, self.loss_group)
 
     def loss_fn(self, params, model_state, batch, rng=None):
         """Training loss (parity: neuralrecon.py:754-771) with autograd on and

@@ -3,7 +3,10 @@
 
 ``ResFCN256`` regresses an (R, R, 3) position map; the loss is the weight
 mask's L1 over the map plus the L1 of the 68 landmark texels; NME is
-evaluated by the datasets (``core/evaluation/face_eval.py``).  The landmark
+evaluated by the datasets (``core/evaluation/face_eval.py``).  On a mesh
+(``set_mesh``) both L1 means are the global batch's over the ``data``
+axis: ResFCN256 normalises with GroupNorm, so nothing else couples the
+samples.  The landmark
 texel indices come, in JAX's order, from ``uv_kpt_ind`` (an array), then
 ``uv_kpt_ind_file``, then a BFM's ``.mat`` files (``bfm``), then the
 synthetic BFM.  Registered as ``FaceImg2UV`` and ``faceimg2uv``.
@@ -95,6 +98,12 @@ class FaceImg2UV(BaseFramework):
         self.weight_mask = torch.from_numpy(np.asarray(mask, np.float32).reshape(
             self.resolution, self.resolution, -1)[..., :1].copy()).to(self.device)
         self.net = ResFCN256(out_ch=3, base=self.base_channels)
+        self.loss_group = None
+
+    def set_mesh(self, mesh) -> bool:
+        """The loss's means go over the mesh's ``data`` axis."""
+        self.loss_group = mesh.group("data")
+        return False
 
     def _t(self, v) -> torch.Tensor:
         return torch.as_tensor(v, dtype=torch.float32, device=self.device)
@@ -117,13 +126,14 @@ class FaceImg2UV(BaseFramework):
         return self.net.to(self.device)
 
     def _loss_uv(self, uvpos, batch):
-        return mask_l1_loss(uvpos, self._t(batch["gt_uvimg"]), self.weight_mask[None])
+        return mask_l1_loss(uvpos, self._t(batch["gt_uvimg"]), self.weight_mask[None],
+                            group=self.loss_group)
 
     def loss_fn(self, params, model_state, batch, rng=None):
         uvpos = params(self._t(batch["faceimg"]))
         loss_uv = self._loss_uv(uvpos, batch)
-        loss_kpt = l1_loss(self._kpts(uvpos), self._kpts(self._t(batch["gt_uvimg"]))) \
-            * self.kpt_weight
+        loss_kpt = l1_loss(self._kpts(uvpos), self._kpts(self._t(batch["gt_uvimg"])),
+                           group=self.loss_group) * self.kpt_weight
         return loss_uv + loss_kpt, {"log_vars": {"loss_uv": loss_uv, "loss_kpt": loss_kpt},
                                     "model_state": model_state}
 

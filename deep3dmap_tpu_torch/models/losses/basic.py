@@ -1,49 +1,60 @@
 """Elementwise regression losses (port of
 ``deep3dmap_tpu/models/losses/basic.py``): the functions and the classes
-registered in ``LOSSES``."""
+registered in ``LOSSES``.
+
+``group`` (a framework's ``loss_group``, its data-parallel ranks, each
+holding its shard of the batch) makes a ``"mean"`` the global batch's on
+every rank (``parallel/collectives.py::global_mean``); None is one rank."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
+from ...parallel.collectives import global_mean
 from ..builder import LOSSES
 
 
-def reduce_loss(loss, reduction: str = "mean", avg_factor: Optional[float] = None):
+def reduce_loss(loss, reduction: str = "mean", avg_factor: Optional[float] = None,
+                group=None):
+    """``avg_factor`` is the shard's; with a ``group`` it is summed over the
+    ranks with the loss."""
     if reduction == "none":
         return loss
     if reduction == "sum":
         return loss.sum()
     if reduction == "mean":
         if avg_factor is not None:
-            return loss.sum() / max(avg_factor, 1e-12)
-        return loss.mean()
+            if group is None:
+                return loss.sum() / max(avg_factor, 1e-12)
+            return global_mean(loss, group, torch.as_tensor(avg_factor, device=loss.device),
+                               1e-12)
+        return global_mean(loss, group)
     raise ValueError(f"unknown reduction {reduction}")
 
 
-def l1_loss(pred, target, weight=None, reduction="mean", avg_factor=None):
+def l1_loss(pred, target, weight=None, reduction="mean", avg_factor=None, group=None):
     loss = torch.abs(pred - target)
     if weight is not None:
         loss = loss * weight
-    return reduce_loss(loss, reduction, avg_factor)
+    return reduce_loss(loss, reduction, avg_factor, group)
 
 
 def smooth_l1_loss(pred, target, weight=None, beta: float = 1.0,
-                   reduction="mean", avg_factor=None):
+                   reduction="mean", avg_factor=None, group=None):
     diff = torch.abs(pred - target)
     loss = torch.where(diff < beta, 0.5 * diff * diff / beta, diff - 0.5 * beta)
     if weight is not None:
         loss = loss * weight
-    return reduce_loss(loss, reduction, avg_factor)
+    return reduce_loss(loss, reduction, avg_factor, group)
 
 
-def mask_l1_loss(pred, target, mask, reduction="mean"):
+def mask_l1_loss(pred, target, mask, reduction="mean", group=None):
     """L1 weighted per pixel by ``mask`` (PRNet's UV loss), normalised by the
     mask's mass over the loss's shape."""
     loss = torch.abs(pred - target) * mask
     if reduction == "mean":
-        return loss.sum() / torch.clamp(mask.expand(loss.shape).sum(), min=1e-12)
+        return global_mean(loss, group, mask.expand(loss.shape).sum(), 1e-12)
     return reduce_loss(loss, reduction)
 
 

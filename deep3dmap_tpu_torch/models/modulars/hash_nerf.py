@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 
 from ...core.renderer.renderer_nfvr import _CumprodNonzero, take_along_rows
+from ...parallel.collectives import global_mean
 from ..layers import Dense
 from .hashgrid import HashGridEncoding
 
@@ -100,10 +101,11 @@ def weights_from_sigmas(sigmas: torch.Tensor, z_vals: torch.Tensor) -> torch.Ten
 
 
 def interlevel_loss(t_prop: torch.Tensor, w_prop: torch.Tensor, t_final: torch.Tensor,
-                    w_final: torch.Tensor) -> torch.Tensor:
+                    w_final: torch.Tensor, group=None) -> torch.Tensor:
     """Nerfacto's proposal loss: the final weights' mass beyond the proposal
     histogram's measure over each final interval, squared over the final
-    weight.  t_prop (N, P+1), w_prop (N, P), t_final (N, S+1), w_final (N, S)."""
+    weight.  t_prop (N, P+1), w_prop (N, P), t_final (N, S+1), w_final (N, S).
+    ``group``: the data-parallel ranks whose rays the mean covers."""
     cw = torch.cat([torch.zeros_like(w_prop[..., :1]), torch.cumsum(w_prop, -1)], -1)
     last = t_prop.shape[-1] - 2
     t_sorted = t_prop.detach().contiguous()
@@ -119,4 +121,4 @@ def interlevel_loss(t_prop: torch.Tensor, w_prop: torch.Tensor, t_final: torch.T
     w_outer = cum_at(t_final[..., 1:]) - cum_at(t_final[..., :-1])
     wf = w_final.detach()
     excess = torch.clamp(wf - w_outer, min=0.0)
-    return torch.mean(excess ** 2 / (wf + 1e-7))
+    return global_mean(excess ** 2 / (wf + 1e-7), group)

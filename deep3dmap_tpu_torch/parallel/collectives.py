@@ -143,6 +143,56 @@ class AllReduceSum(torch.autograd.Function):
         return all_reduce(g.clone(), ctx.group), None
 
 
+class _GlobalSums(torch.autograd.Function):
+    """The ranks' sums of each 0-d ``x`` (forward, one ``all_reduce``); the
+    cotangent passed to this rank's ``x`` unchanged (backward).  Every rank
+    then holds the global value, and its gradient flows through its own
+    shard only: summed over the ranks (``reduce_gradients``) it is the
+    global gradient."""
+
+    @staticmethod
+    def forward(ctx, group, *xs):
+        return tuple(all_reduce(torch.stack([x.detach() for x in xs]), group).unbind())
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None,) + gs
+
+
+def global_mean(x: torch.Tensor, group, count=None, min_count: float = 0.0):
+    """A batch reduction of this rank's shard ``x`` taken over the global
+    batch whose shards the ranks of ``group`` hold: ``x.mean()``, or with
+    ``count`` (the shard's mask mass) ``x.sum() / max(count, min_count)``,
+    the sums and counts all-reduced in one call.  At one rank (``group``
+    None or of size 1) the shard's own expression, as it always was."""
+    if group_size(group) <= 1:
+        if count is None:
+            return x.mean()
+        return x.sum() / torch.clamp(count, min=min_count)
+    s = x.sum()
+    n = s.new_tensor(x.numel()) if count is None else count.to(s.dtype)
+    s, n = _GlobalSums.apply(group, s, n)
+    return s / (n if count is None else torch.clamp(n, min=min_count))
+
+
+def rank_slice(tree, group):
+    """This rank's contiguous share, along dim 0, of every tensor of
+    ``tree`` (dicts and lists) whose leading dim divides over ``group``;
+    0-d tensors stay whole.  The draws of a global batch (made alike on
+    every rank from one generator) become this rank's draws."""
+    n, r = group_size(group), group_rank(group)
+    if n <= 1:
+        return tree
+    if isinstance(tree, dict):
+        return {k: rank_slice(v, group) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(rank_slice(v, group) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.dim() and tree.shape[0] % n == 0:
+        k = tree.shape[0] // n
+        return tree[r * k:(r + 1) * k]
+    return tree
+
+
 class SumGradOver(torch.autograd.Function):
     """Identity forward; the backward sums the cotangent over ``group``.  A
     replicated weight whose use is split over the ranks (a conv on one

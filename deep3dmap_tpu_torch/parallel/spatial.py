@@ -26,7 +26,7 @@ from ..core.tsdf.fusion import TSDFParams, tsdf_integrate
 from ..models.layers import _compute_dtype
 from ..models.modulars.global_volume import GlobalVolumeState
 from . import collectives
-from .collectives import SumGradOver, group_rank, group_size
+from .collectives import SumGradOver, gather_rows, group_rank, group_size
 from .mesh import Mesh, replicate
 
 
@@ -72,6 +72,18 @@ def shard_global_volumes(model_state, mesh: Mesh, axis: str = "model",
                 for x in v.volumes))
         out[k] = v
     return out
+
+
+def gather_global_volumes(model_state, mesh: Mesh, axis: str = "model"):
+    """The whole global volumes from this rank's X slabs (the inverse of
+    ``shard_global_volumes``; every rank of ``axis`` takes part), as
+    JAX's ``device_get`` gives them; other model-state entries stay."""
+    if not _active(mesh, axis) or "global_hidden" not in model_state:
+        return model_state
+    group = mesh.group(axis)
+    vols = tuple(gather_rows(v, group, 1) if v.dim() == 5 else v
+                 for v in model_state["global_hidden"].volumes)
+    return dict(model_state, global_hidden=GlobalVolumeState(volumes=vols))
 
 
 def shard_train_state(state, mesh: Mesh, axis: Optional[str] = "model",

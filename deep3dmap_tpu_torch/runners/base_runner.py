@@ -9,12 +9,21 @@ Training here is bitwise repeatable on the card (``utils/device.py``'s
 ``make_deterministic``).
 
 The mesh (``parallel/mesh.py``, one process per card): ``setup`` hands it to
-the framework's ``set_mesh`` before ``init`` (NeuralRecon then takes the
-fused loss's sums over the ``data`` axis and, with a ``model`` axis, the
-spatially sharded GRU), broadcasts the weights from rank 0 and shards the
-global volumes (``shard_train_state``); ``run_iter`` sums the gradients
-over the ``data`` axis.  Rank 0 logs and saves the checkpoints.  Without a
-process group the mesh is one rank and nothing of this runs.
+the framework's ``set_mesh`` before ``init`` (its batch reductions then
+run over the ``data`` axis, ``loss_group``: NeuralRecon's fused loss sums,
+the other frameworks' means through ``collectives.global_mean``; with a
+``model`` axis NeuralRecon's spatially sharded GRU), broadcasts the weights
+and the optimizer state from rank 0 and shards the global volumes
+(``shard_train_state``); ``run_iter`` sums the gradients over the ``data``
+axis.  A framework without ``set_mesh``, or whose ``loss_group`` stays None
+(Gan2Shape's one-instance batch), is placed as JAX's ``shard_batch``
+places a batch that does not divide: every rank runs the whole batch, and
+nothing is reduced.  Checkpoints hold the whole state, as JAX's
+``device_get``: every rank takes part in gathering the volumes' slabs
+(``whole_state``), rank 0 writes, and ``resume`` slices the whole volumes
+to the mesh it runs on.  ``val`` reports the global batch's loss.  Rank 0
+logs.  Without a process group the mesh is one rank and nothing of this
+runs.
 
 Framework contract (as in the JAX package, with ``params`` the network
 module):
@@ -27,11 +36,12 @@ module):
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import os.path as osp
 import time
-from typing import Callable, List, Optional
+from typing import Callable, List, Mapping, Optional
 
 import torch
 
@@ -58,11 +68,6 @@ class BaseRunner:
         self.logger = logger or get_root_logger(
             log_file=osp.join(self.work_dir, f"{self.timestamp}.log") if self.work_dir else None,
             rank=self.rank)
-        if self.world_size > 1 and not hasattr(framework, "set_mesh"):
-            # its loss is not a global batch's: summed gradients would be wrong
-            raise NotImplementedError(
-                f"{type(framework).__name__} has no set_mesh: it trains on one rank, "
-                f"not {self.world_size}")
         self.mesh = mesh if mesh is not None else make_mesh(
             device=getattr(framework, "device", "cpu"))
         self.meta = meta or {}
@@ -82,6 +87,7 @@ class BaseRunner:
 
         # populated by setup()
         self.state: Optional[TrainState] = None
+        self.spatial = False          # the global volumes in X slabs over "model"
         self.lr_schedule = None
         self.base_lr: float = 0.0
         self.val_fn = getattr(framework, "val_fn", None)
@@ -169,14 +175,20 @@ class BaseRunner:
         return bool(self.framework.set_mesh(self.mesh))
 
     def _place_state(self, spatial_on: bool) -> None:
-        """On a process group: the weights broadcast from rank 0 and, on the
-        spatial path, the global volumes as this rank's slabs."""
+        """On a process group: the weights and every optimizer's state
+        broadcast from rank 0 and, on the spatial path, the global volumes
+        as this rank's slabs."""
+        self.spatial = spatial_on
         if self.mesh.device_mesh is None:
             return
+        from ..parallel.mesh import replicate
         from ..parallel.spatial import shard_train_state
 
         self.state = shard_train_state(self.state, self.mesh,
                                        axis="model" if spatial_on else None)
+        opts = self.state.optimizer
+        for opt in (opts.values() if isinstance(opts, Mapping) else [opts]):
+            replicate(opt.state_dict(), self.mesh)
 
     def step_generator(self) -> torch.Generator:
         """The generator of the steps' random draws (JAX's
@@ -233,7 +245,8 @@ class BaseRunner:
         return prefetch_to_device(
             loader, self.framework.device, depth=depth,
             host_check=getattr(self.framework, "host_check_batch", None),
-            mesh=self.mesh if self.mesh.device_mesh is not None else None)
+            mesh=self.mesh if self.mesh.device_mesh is not None else None,
+            global_batch=getattr(loader, "global_batch", False))
 
     def _host_checked(self, data_batch):
         """The batch, checked by the framework's ``host_check_batch`` unless
@@ -273,13 +286,27 @@ class BaseRunner:
         self.mode = "train"
 
     # -- checkpointing -----------------------------------------------------
-    def save_checkpoint(self, out_dir=None, meta=None):
-        """Rank 0 saves; the others return None."""
+    def whole_state(self) -> TrainState:
+        """The state as one rank would hold it (JAX's ``device_get``): on
+        the spatial path the global volumes gathered from the ``model``
+        axis's slabs, which every rank of the mesh must call together."""
+        if not self.spatial:
+            return self.state
+        from ..parallel.spatial import gather_global_volumes
+
+        return dataclasses.replace(self.state, model_state=gather_global_volumes(
+            self.state.model_state, self.mesh))
+
+    def save_checkpoint(self, out_dir=None, meta=None, max_keep: int = -1):
+        """Every rank gathers the whole state (``whole_state``); rank 0
+        saves it, the others return None."""
         from .checkpoint import save_checkpoint
+        state = self.whole_state()
         if self.rank != 0:
             return None
-        return save_checkpoint(out_dir or self.work_dir, self.state,
-                               meta=dict(epoch=self.epoch + 1, iter=self.iter, **(meta or {})))
+        return save_checkpoint(out_dir or self.work_dir, state,
+                               meta={**dict(epoch=self.epoch + 1, iter=self.iter),
+                                     **(meta or {})}, max_keep=max_keep)
 
     def resume(self, checkpoint: Optional[str] = None):
         from .checkpoint import latest_checkpoint, load_checkpoint, load_meta
@@ -289,8 +316,15 @@ class BaseRunner:
             return False
         assert self.state is not None, "call setup() before resume()"
         try:
-            self.state = load_checkpoint(path, self.state,
+            # the checkpoint's volumes are whole: restore into a whole
+            # template, then keep this rank's slabs (JAX re-shards on restore)
+            self.state = load_checkpoint(path, self.whole_state(),
                                          map_location=self.framework.device)
+            if self.spatial:
+                from ..parallel.spatial import shard_global_volumes
+
+                self.state = dataclasses.replace(self.state, model_state=shard_global_volumes(
+                    self.state.model_state, self.mesh))
         except (ValueError, RuntimeError, KeyError) as e:
             raise ValueError(
                 f"Checkpoint at {path} does not match the current TrainState "

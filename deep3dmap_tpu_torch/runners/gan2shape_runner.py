@@ -28,6 +28,14 @@ mask comes from ``framework.parse_mask`` once per instance, before
 - Checkpoints (``runners/checkpoint.py``) hold the heads, each head's
   optimizer, the mapping net's centres, the step generator and the epoch;
   the frozen GAN comes from ``gan_ckpt`` or the seeded init.
+- On a mesh the runner places the instance as JAX's ``shard_batch`` does a
+  batch of one: replicated.  ``setup`` broadcasts the heads and their
+  optimizers from rank 0 (the frozen GAN is seeded alike everywhere), and
+  every rank fits the whole instance: the step generator, the pool's
+  seeds and ``step3_indices`` are the same on every rank, so the ranks
+  stay bit-equal to each other and to one rank, with no collective in a
+  step (``Gan2Shape.set_mesh`` leaves ``loss_group`` None).  Rank 0 logs
+  and saves.
 """
 from __future__ import annotations
 
@@ -88,12 +96,14 @@ class Gan2ShapeRunner(BaseRunner):
         make_optimizer = self._optimizer_factory(
             optimizer or self.optimizer_cfg, lr_config, optimizer_config, iters_per_epoch,
             dict(type="Adam", lr=1e-4))
+        spatial_on = self._set_mesh()
         net, model_state = fw.init(self.seed, sample_batch)
         self.state = TrainState(
             net=net, model_state=model_state,
             optimizer={name: make_optimizer(getattr(net, name), name)
                        for name in fw.network_names},
             rng=self.step_generator())
+        self._place_state(spatial_on)
         self._init_params = {n: p.detach().clone() for n, p in net.named_parameters()}
         self._log_init(net)
         return net, model_state

@@ -170,9 +170,11 @@ class CheckpointHook(Hook):
 
     def _save(self, runner, completed_iters):
         from .checkpoint import save_checkpoint
-        if getattr(runner, "rank", 0) != 0:     # rank 0 saves
+        # every rank takes part in gathering the whole state; rank 0 saves
+        state = runner.whole_state() if hasattr(runner, "whole_state") else runner.state
+        if getattr(runner, "rank", 0) != 0:
             return
-        save_checkpoint(runner.work_dir, runner.state,
+        save_checkpoint(runner.work_dir, state,
                         meta=dict(epoch=runner.epoch + 1, iter=completed_iters),
                         max_keep=self.max_keep_ckpts)
         runner.logger.info(f"Saved checkpoint at epoch {runner.epoch + 1} "
@@ -262,7 +264,10 @@ class EvalHook(Hook):
             self.best = val
             from .checkpoint import save_checkpoint
 
-            path = save_checkpoint(osp.join(runner.work_dir, "best"), runner.state,
+            state = runner.whole_state() if hasattr(runner, "whole_state") else runner.state
+            if getattr(runner, "rank", 0) != 0:
+                return
+            path = save_checkpoint(osp.join(runner.work_dir, "best"), state,
                                    meta={"best": float(val), "metric": self.save_best})
             runner.logger.info(f"New best {self.save_best}={val:.5f} -> {path}")
 

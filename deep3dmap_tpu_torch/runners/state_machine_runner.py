@@ -29,6 +29,11 @@ optimizer per parameter collection (port of
 - ``run`` trains on the loader whose ``state`` attribute names the current
   state, else on the workflow's own (the port's loaders, like JAX's, have
   no ``state``).
+- On a mesh (``BaseRunner``'s): ``setup`` hands it to the framework's
+  ``set_mesh`` and broadcasts the weights and every collection's optimizer
+  state from rank 0; each step sums the gradients of the collections it
+  updates over the framework's ``loss_group`` before their optimizers
+  step, as ``train_step`` does.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ from typing import Dict, Iterable, List, Optional, Sequence
 
 import torch
 
+from ..parallel.collectives import reduce_gradients
 from ..utils.device import make_deterministic
 from ..utils.from_flax import param_collection
 from .base_runner import BaseRunner
@@ -84,10 +90,12 @@ class StateMachineRunner(BaseRunner):
         make_deterministic()
         make_optimizer = self._optimizer_factory(optimizer, lr_config, optimizer_config,
                                                  iters_per_epoch, dict(type="Adam", lr=1e-3))
+        spatial_on = self._set_mesh()
         net, model_state = self.framework.init(self.seed, sample_batch)
         self.state = TrainState(net=net, model_state=model_state, optimizer={
             name: make_optimizer(m, name) for name, m in self.collections(net).items()},
             rng=self.step_generator())
+        self._place_state(spatial_on)
         self._log_init(net)
         return self.state
 
@@ -102,7 +110,11 @@ class StateMachineRunner(BaseRunner):
         loss, aux = self.framework.loss_fn(self.state.net, self.state.model_state, batch,
                                            rng=self.state.rng, **loss_kw)
         loss.backward()
-        for name in (names if names is not None else opts):
+        names = list(names if names is not None else opts)
+        group = getattr(self.framework, "loss_group", None)
+        if group is not None:
+            reduce_gradients([p for name in names for p in opts[name].params], group)
+        for name in names:
             for p in opts[name].params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)

@@ -16,11 +16,14 @@ and imgs2mesh (``configs/pt3d_demos/``, ``Imgs2Mesh`` on
 ``SyntheticFaceTupleDataset`` or ``MultiPIEFaceTupleDataset``, whose
 per-view outputs are collected as (V, B, ...) arrays; no ``evaluate``).  Without a checkpoint (none given and none in the work dir) it
 evaluates the seeded initial weights.  ``--launcher pytorch`` under
-``torchrun``: each rank streams its ``DistributedSampler`` share of the
-test split (the recurrent state carried over that share), the outputs are
-gathered with ``runners/forward_engine.py::collect_results`` and dealt
-back in turn (the split's order at ``samples_per_gpu=1``), and rank 0
-assembles the scenes and evaluates.  It runs on the card (``--device cuda``, the
+``torchrun``: every rank streams the whole split in order, with the
+recurrent state carried, as JAX's jitted forward does over its mesh
+(``cfg.mesh``, as ``tools/train.py`` reads it): a batch whose size divides
+over ``data`` is split over it and its outputs gathered back, one that
+does not runs whole on every rank (``runners/forward_engine.py``'s
+``local_batch``/``global_outputs``, ``shard_batch``'s rule); with a
+``model`` axis NeuralRecon's global volumes are sharded as in training.
+Rank 0 assembles the scenes and evaluates.  It runs on the card (``--device cuda``, the
 default) and raises on a machine without one unless ``--device cpu`` is
 given.
 
@@ -100,10 +103,9 @@ def main(argv=None):
 
     from ..datasets.builder import build_dataloader, build_dataset
     from ..models.builder import build_reconstruction
-    from ..parallel.mesh import get_dist_info, init_dist
-    from ..runners.forward_engine import collect_results
-    from ..runners.checkpoint import (latest_checkpoint, load_checkpoint_raw,
-                                      tree_leaves, tree_unflatten)
+    from ..parallel.mesh import get_dist_info, init_dist, make_mesh
+    from ..runners.checkpoint import latest_checkpoint
+    from ..runners.forward_engine import global_outputs, load_for_test, local_batch
     from .train import training_datasets
     from ..utils.config import Config
     from ..utils.device import resolve_device
@@ -122,23 +124,26 @@ def main(argv=None):
     dataset = build_dataset(cfg.data["test"], default_args=dict(device=device))
     loader = build_dataloader(dataset, samples_per_gpu=cfg.data.get("samples_per_gpu", 1),
                               workers_per_gpu=cfg.data.get("workers_per_gpu", 0),
-                              dist=world > 1, shuffle=False)
+                              shuffle=False)
     framework = build_reconstruction(cfg.model, device=device)
     if cfg.get("need_info_from_datasets") and hasattr(framework, "set_info_from_datasets"):
         framework.set_info_from_datasets(training_datasets(cfg, device))
+    mesh = None
+    spatial = False
+    if world > 1:
+        mesh_cfg = cfg.get("mesh", {})
+        mesh = make_mesh(axes=mesh_cfg.get("axes", ("data",)), shape=mesh_cfg.get("shape"),
+                         device=device)
+        spatial = bool(hasattr(framework, "set_mesh") and framework.set_mesh(mesh))
 
     batch0, _ = split_meta(next(iter(loader)))
-    net, mstate = framework.init(0, batch0)
+    net, mstate = framework.init(0, local_batch(batch0, mesh))
 
     ckpt = args.checkpoint
     if ckpt in (None, "auto"):
         ckpt = latest_checkpoint(work_dir)
     if ckpt:
-        restored = load_checkpoint_raw(ckpt, map_location=device)
-        net.load_state_dict(restored["net"])
-        leaves = restored.get("model_state") or []
-        if leaves and len(leaves) == len(tree_leaves(mstate)):
-            mstate = tree_unflatten(mstate, leaves)
+        mstate = load_for_test(ckpt, net, mstate, device, mesh, spatial)
         logger.info(f"Loaded checkpoint {ckpt}")
 
     assembler = None
@@ -151,17 +156,12 @@ def main(argv=None):
     batches = []
     for i, raw in enumerate(loader):
         batch, meta = split_meta(raw)
-        out, mstate = framework.forward_test(net, mstate, batch)
+        out, mstate = framework.forward_test(net, mstate, local_batch(batch, mesh))
+        out = global_outputs(out, batch, mesh)
         batches.append(({k: _to_host(v) for k, v in out.items()}, meta))
         logger.info(f"batch {i + 1}/{len(loader)} done")
-    if world > 1:
-        # the sampler deals sample k to rank k % world: at one sample a batch,
-        # batch j of rank r is the split's sample j * world + r (the padding
-        # that evens the ranks' shares repeats the first samples at the end)
-        per_rank = collect_results(batches)
-        batches = [per_rank[r][j] for j in range(len(batches)) for r in range(world)]
-        if rank != 0:
-            return None
+    if rank != 0:
+        return None
 
     outputs = {}
     for i, (out, meta) in enumerate(batches):

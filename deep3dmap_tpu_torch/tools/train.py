@@ -31,10 +31,15 @@ JAX's ``--launcher jax``), one process per card:
     torchrun --nproc_per_node N -m deep3dmap_tpu_torch.tools.train CONFIG \
         --launcher pytorch [--work-dir D]
 
-Each rank's loader yields its own batches (``DistributedSampler``), the
-mesh comes from ``cfg.mesh`` (``axes`` and ``shape``, JAX's keys; all
-ranks on ``data`` by default) and the runner takes it (``BaseRunner``);
-rank 0 logs and saves.  ``--device cpu`` runs the ranks on gloo.
+Each rank's loader yields its own batches (``DistributedSampler``; LERF's
+ray batches are alike on every rank, which keeps its slice), the mesh
+comes from ``cfg.mesh`` (``axes`` and ``shape``, JAX's keys; all ranks on
+``data`` by default) and the runner takes it (``BaseRunner``): every
+framework's batch reductions are the global batch's and the gradients are
+summed over ``data``; Gan2Shape's one instance runs whole on every rank.
+Rank 0 logs and saves.  ``--device cpu`` runs the ranks on gloo.  Every
+workload has a launcher script, ``deep3dmap_tpu_torch/scripts/<workload>/
+run_*.sh`` (``GPUS=N``).
 """
 import argparse
 import os
@@ -102,14 +107,16 @@ def main(argv=None):
 
     datasets = training_datasets(cfg, device, validate=not args.no_validate)
     workflow = [tuple(w) for w in cfg.get("workflow", [("train", 1)])]
-    loaders = [build_dataloader(ds, samples_per_gpu=cfg.data.get("samples_per_gpu", 1),
-                                workers_per_gpu=cfg.data.get("workers_per_gpu", 0),
-                                dist=world > 1, shuffle=True, seed=args.seed)
-               for ds in datasets]
-
     framework = build_reconstruction(cfg.model, device=device)
     if cfg.get("need_info_from_datasets") and hasattr(framework, "set_info_from_datasets"):
         framework.set_info_from_datasets(datasets)
+    # a framework with set_mesh takes its rank's share of the samples; one
+    # without runs every batch whole on every rank (JAX's replicated batch)
+    loaders = [build_dataloader(ds, samples_per_gpu=cfg.data.get("samples_per_gpu", 1),
+                                workers_per_gpu=cfg.data.get("workers_per_gpu", 0),
+                                dist=world > 1 and hasattr(framework, "set_mesh"),
+                                shuffle=True, seed=args.seed)
+               for ds in datasets]
 
     runner_cfg = dict(cfg.runner)
     runner_type = runner_cfg.pop("type", "EpochBasedRunner")

@@ -139,3 +139,19 @@ def test_scannet_evaluate_matches_jax(tmp_path):
     assert set(port) == {"AbsRel", "AbsDiff", "SqRel", "RMSE", "LogRMSE", "r1", "r2", "r3",
                          "complete", "dist1", "dist2", "prec", "recal", "fscore"}
     assert port["fscore"] > 0.5 and 0 < port["complete"] <= 1
+
+
+def test_scannet_evaluate_pool_matches_jax(tmp_path):
+    """Two scenes are scored in a pool of spawn workers (one scene in the
+    calling process): the same numbers as JAX's, and as one scene's."""
+    root = str(tmp_path / "data")
+    jax_write_fixture(root, splits=("test",), n_frames=12)
+    gt_v, gt_f = io_ply.read_ply(osp.join(root, "scans_test", SCENE, f"{SCENE}_vh_clean_2.ply"))
+    rs = np.random.RandomState(1)
+    pred = str(tmp_path / "pred.ply")
+    io_ply.write_ply(pred, gt_v + rs.normal(0, 0.02, gt_v.shape).astype(np.float32), gt_f)
+    two = dict(scene_name=[SCENE, SCENE], mesh_path=[pred, pred])
+    port = ScanNetDataset(root, mode="test").evaluate(two, metric="depth_mesh", n_proc=2)
+    assert port == JaxScanNetDataset(root, mode="test").evaluate(two, metric="depth_mesh")
+    one = dict(scene_name=[SCENE], mesh_path=[pred])
+    assert port == ScanNetDataset(root, mode="test").evaluate(one, metric="depth_mesh")

@@ -24,7 +24,11 @@
   package and ``SyncBatchNorm`` / ``lm_solve_sharded`` among them, and
   fills its registries as JAX's import does; the async producers' path
   and the torch-free utilities import no torch;
-  ``FaceAlignment`` defaults to the card.
+  ``FaceAlignment`` defaults to the card;
+- every launcher under ``scripts/`` has a twin under
+  ``deep3dmap_tpu_torch/scripts/`` that runs the port's CLIs (under
+  ``torchrun`` with ``--launcher pytorch`` where it trains or tests) and
+  names no JAX and nothing of the JAX package.
 """
 import ast
 import os
@@ -702,3 +706,24 @@ def test_new_exports_match_jax():
     five = list(rs.rand(10) * 100)
     assert ttrans.face_orientation(five) == jtrans.face_orientation(five)
     assert ttrans.is_rotation_matrix(np.eye(3)) and not ttrans.is_rotation_matrix(2 * np.eye(3))
+
+
+def test_launcher_twins_run_the_port():
+    jax_root = os.path.join(ROOT, "scripts")
+    twin_root = os.path.join(ROOT, "deep3dmap_tpu_torch", "scripts")
+    jax_scripts = sorted(os.path.relpath(os.path.join(d, n), jax_root)
+                         for d, _, names in os.walk(jax_root) for n in names
+                         if n.endswith(".sh"))
+    twins = sorted(os.path.relpath(os.path.join(d, n), twin_root)
+                   for d, _, names in os.walk(twin_root) for n in names if n.endswith(".sh"))
+    assert jax_scripts and twins == jax_scripts
+    for rel in twins:
+        text = open(os.path.join(twin_root, rel)).read()
+        words = text.replace("deep3dmap_tpu_torch", "")
+        assert "jax" not in words.lower() and "deep3dmap_tpu" not in words, rel
+        assert "$ROOT/tools" not in text and "XLA" not in text, rel
+        if "run_" in rel:
+            assert "launch train" in text or "launch test" in text, rel
+    common = open(os.path.join(twin_root, "common.sh")).read()
+    assert "torchrun" in common and "--launcher pytorch" in common
+    assert "deep3dmap_tpu_torch.tools." in common

@@ -14,9 +14,11 @@ import jax.numpy as jnp
 
 from deep3dmap_tpu.core.tsdf import fusion as JF
 from deep3dmap_tpu.datasets.builder import _stack_samples as jstack
+from deep3dmap_tpu.datasets import synthetic as JS
 from deep3dmap_tpu.datasets.synthetic import make_fragment_sample as jmake
 from deep3dmap_tpu_torch.core.tsdf import fusion as TF
 from deep3dmap_tpu_torch.datasets.builder import _stack_samples as tstack
+from deep3dmap_tpu_torch.datasets import synthetic as TS
 from deep3dmap_tpu_torch.datasets.synthetic import make_fragment_sample as tmake
 
 torch.set_num_threads(2)
@@ -41,6 +43,26 @@ def test_fragment_sample_matches(samples):
         assert a.dtype == b.dtype == np.float32
         np.testing.assert_array_equal(a, b)
     assert ts["occ_list"][0].sum() > 0
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_sphere_trace_depth_matches(dtype):
+    """The port marches blocks of rows, one array per coordinate: bit for
+    bit JAX's tracer over stacked points, across block edges (75 rows),
+    for float32 and float64 poses and spheres."""
+    rs = np.random.RandomState(3)
+    H, W, extent = 75, 53, 1.9
+    centre = np.array([extent / 2, extent / 2, 0.35 * extent], np.float32)
+    spheres = np.concatenate([rs.uniform(0.3, 1.6, (3, 3)), rs.uniform(0.2, 0.4, (3, 1))],
+                             1).astype(dtype)
+    intr = np.array([[W, 0, W / 2], [0, W, H / 2], [0, 0, 1]], np.float32)
+    for a in (0.2, 2.5):
+        eye = centre + np.array([2.1 * np.cos(a), 2.1 * np.sin(a), 0.85])
+        pose = JS.look_at_pose(eye, centre).astype(dtype)
+        want = JS.sphere_trace_depth(intr, pose, H, W, spheres, 0.19, max_depth=5.7)
+        got = TS.sphere_trace_depth(intr, pose, H, W, spheres, 0.19, max_depth=5.7)
+        assert got.dtype == want.dtype and (want > 0).mean() > 0.3
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
 def test_stack_samples_matches(samples):

@@ -278,6 +278,354 @@ def job_sync_bn_fsdp(inputs):
     return out
 
 
+def _tensors(tree):
+    """Numpy leaves of nested dicts and lists as tensors."""
+    import numpy as np
+
+    if isinstance(tree, dict):
+        return {k: _tensors(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tensors(v) for v in tree]
+    return torch.from_numpy(np.array(tree)) if not isinstance(tree, torch.Tensor) else tree
+
+
+def _numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_numpy(v) for v in tree]
+    return _np(tree)
+
+
+def dp_step(fw, net, mstate, batch, group, names=None, **kw):
+    """One data-parallel step of ``fw.loss_fn``: the backward, then the
+    gradients of the collections ``names`` (all of ``net`` when None)
+    summed over ``group``.  Returns the loss, the logs and those gradients
+    in flax layout (by collection when ``names`` is given)."""
+    from deep3dmap_tpu_torch.parallel.collectives import reduce_gradients
+    from deep3dmap_tpu_torch.utils.from_flax import to_flax_grads
+
+    net.zero_grad(set_to_none=True)
+    loss, aux = fw.loss_fn(net, mstate, batch, **kw)
+    loss.backward()
+    mods = [net] if names is None else [getattr(net, n) for n in names]
+    if group is not None:
+        reduce_gradients([p for m in mods for p in m.parameters()], group)
+    grads = (to_flax_grads(net) if names is None
+             else {n: to_flax_grads(m) for n, m in zip(names, mods)})
+    return dict(loss=float(loss.detach()),
+                logs={k: float(v.detach()) for k, v in aux["log_vars"].items()}, grads=grads)
+
+
+def own_means_step(fw, net, mstate, batch, group, names=None, **kw):
+    """``dp_step`` with the framework's means taken over this rank's shard
+    only (its ``loss_group`` None), the gradients still summed: the fault
+    the global means prevent."""
+    g, fw.loss_group = fw.loss_group, None
+    try:
+        return dp_step(fw, net, mstate, batch, group, names, **kw)
+    finally:
+        fw.loss_group = g
+
+
+def gan2shape_fit(cfg, batch, stage_iters, mesh):
+    """A ``Gan2ShapeRunner`` on ``mesh`` fitting one instance: its heads
+    after the fit, the stage logs and the step-3 indices it drew."""
+    from deep3dmap_tpu_torch.models.frameworks.gan2shape import Gan2Shape
+    from deep3dmap_tpu_torch.parallel import collectives
+    from deep3dmap_tpu_torch.runners import gan2shape_runner as gr
+
+    fw = Gan2Shape(dict(cfg, raster_mode="hard"), device="cpu")
+    runner = gr.Gan2ShapeRunner(fw, dict(type="Adam", lr=1e-4), stage_iters=stage_iters,
+                                num_stage=1, mesh=mesh)
+    runner.setup(batch)
+    drawn, real = [], gr.step3_indices
+
+    def spy(*a):
+        drawn.append(real(*a))
+        return drawn[-1]
+    gr.step3_indices = spy
+    collectives.reset_counts()
+    try:
+        runner.fit_instance(batch)
+    finally:
+        gr.step3_indices = real
+    return dict(heads={k: _np(v) for k, v in runner.net.state_dict().items()},
+                logs=runner.logs, step3=drawn, loss_group=fw.loss_group,
+                counts=dict(collectives.counts))
+
+
+def job_ddp_frameworks(inputs):
+    """PRNet, imgs2mesh, GNeRF and LERF data-parallel over this rank's share
+    of each global batch (``shard_batch(global_batch=True)``), one step of
+    each optimize sequence with the given weights and (sliced) draws: the
+    loss, the logs and the gradients summed over the ranks, and the same
+    with each rank's own means; GNeRF's importance samples and the draws
+    ``loss_fn`` takes from a generator; Gan2Shape's runner fitting one
+    instance on the mesh and, on rank 1, without one."""
+    from deep3dmap_tpu_torch.datasets.nerf_synthetic import SyntheticNerfDataset
+    from deep3dmap_tpu_torch.models.frameworks import gnerf as tg
+    from deep3dmap_tpu_torch.models.frameworks import lerf as tl
+    from deep3dmap_tpu_torch.models.frameworks.imgs2mesh import Imgs2Mesh
+    from deep3dmap_tpu_torch.models.frameworks.prnet import FaceImg2UV
+    from deep3dmap_tpu_torch.models.modulars import gnerf as tgm
+    from deep3dmap_tpu_torch.parallel import make_mesh, shard_batch
+    from deep3dmap_tpu_torch.parallel.collectives import rank_slice
+    from deep3dmap_tpu_torch.parallel.mesh import Mesh
+    from deep3dmap_tpu_torch.utils.from_flax import load_flax_params
+
+    d = torch.load(inputs, weights_only=False)
+    mesh = make_mesh(device="cpu")
+    group = mesh.group("data")
+    out = {}
+
+    def local(b):
+        return shard_batch(b, mesh, global_batch=True)
+
+    # PRNet
+    c = d["prnet"]
+    fw = FaceImg2UV(c["cfg"], device="cpu")
+    fw.set_mesh(mesh)
+    net = fw.load_flax(c["params"])
+    b = local(c["batch"])
+    out["prnet"] = dict(step=dp_step(fw, net, {}, b, group),
+                        own=own_means_step(fw, net, {}, b, group))
+
+    # imgs2mesh, each state
+    c = d["imgs2mesh"]
+    fw = Imgs2Mesh(c["cfg"], device="cpu")
+    fw.set_mesh(mesh)
+    net = fw.load_flax(c["params"])
+    b = local(c["batch"])
+    out["imgs2mesh"] = {st: dp_step(fw, net, {}, b, group, state=st) for st in c["states"]}
+    out["imgs2mesh"]["own"] = own_means_step(fw, net, {}, b, group, state=c["states"][-1])
+
+    # GNeRF, each optimize sequence on JAX's draws, its samples recorded
+    c = d["gnerf"]
+    fw = tg.GanNerf(c["cfg"], device="cpu")
+    fw.set_info_from_datasets([SyntheticNerfDataset(**c["train_ds"]),
+                               SyntheticNerfDataset(**c["val_ds"])])
+    fw.set_mesh(mesh)
+    net, _ = fw.init(0, c["batch"])
+    load_flax_params(net, c["params"])
+    mstate = _tensors(c["mstate"])
+    b = local(c["batch"])
+    samples, real_pdf = [], tgm.sample_pdf
+
+    def rec(*a, **kw):
+        z = real_pdf(*a, **kw)
+        samples.append(_np(z))
+        return z
+    tgm.sample_pdf = rec
+    res = {}
+    try:
+        for seq in c["seqs"]:
+            del samples[:]
+            draws = rank_slice(_tensors(c["draws"][seq]), group)
+            res[seq] = dp_step(fw, net, mstate, b, group, fw.optseq2netnames(seq),
+                               state="A", opt_seq=seq, draws=draws)
+            res[seq]["samples"] = list(samples)
+        seq = c["seqs"][0]
+        res["own"] = own_means_step(fw, net, mstate, b, group, fw.optseq2netnames(seq),
+                                    state="A", opt_seq=seq,
+                                    draws=rank_slice(_tensors(c["draws"][seq]), group))
+    finally:
+        tgm.sample_pdf = real_pdf
+    out["gnerf"] = res
+    # the draws loss_fn takes from a generator: this rank's slice of the global batch's
+    kept, real_slice = [], tg.rank_slice
+
+    def keep(tree, g):
+        kept.append(real_slice(tree, g))
+        return kept[-1]
+    tg.rank_slice = keep
+    try:
+        fw.loss_fn(net, mstate, b, rng=torch.Generator().manual_seed(7), state="A",
+                   opt_seq=seq)
+    finally:
+        tg.rank_slice = real_slice
+    out["gnerf_rng_draws"] = _numpy(kept[0])
+
+    # LERF (the hash-grid field)
+    c = d["lerf"]
+    fw = tl.LERFModel(c["cfg"], device="cpu")
+    fw.set_mesh(mesh)
+    net, _ = fw.init(0, c["batch"])
+    load_flax_params(net, c["params"])
+    b = local(c["batch"])
+    draws = rank_slice(_tensors(c["draws"]), group)
+    out["lerf"] = dict(step=dp_step(fw, net, {}, b, group, draws=draws),
+                       own=own_means_step(fw, net, {}, b, group, draws=draws))
+    kept, real_slice = [], tl.rank_slice
+    tl.rank_slice = keep
+    try:
+        fw.loss_fn(net, {}, b, rng=torch.Generator().manual_seed(7))
+    finally:
+        tl.rank_slice = real_slice
+    out["lerf_rng_draws"] = _numpy(kept[0])
+
+    # Gan2Shape: replicated on the mesh; on rank 1 also without a mesh
+    c = d["gan2shape"]
+    out["gan2shape"] = gan2shape_fit(c["cfg"], c["batch"], c["stage_iters"], mesh)
+    out["gan2shape"]["loss_group"] = out["gan2shape"]["loss_group"] is None
+    if mesh.coordinate("data") == 1:
+        one = Mesh(("data",), (1,), None, torch.device("cpu"))
+        out["gan2shape_one"] = gan2shape_fit(c["cfg"], c["batch"], c["stage_iters"], one)
+        out["gan2shape_one"].pop("loss_group")
+    return out
+
+
+def register_stream_dataset():
+    """``StreamScanNetDataset``: the synthetic fragments of one scene in
+    order, the recurrent state reset only at the first (the test split of a
+    scene, as ``tools/test.py`` streams it).  Registered on first call."""
+    from deep3dmap_tpu_torch.datasets.builder import DATASETS
+    from deep3dmap_tpu_torch.datasets.synthetic import SyntheticScanNetDataset
+
+    if DATASETS.get("StreamScanNetDataset") is not None:
+        return
+
+    @DATASETS.register_module()
+    class StreamScanNetDataset(SyntheticScanNetDataset):
+        def __getitem__(self, idx):
+            import numpy as np
+
+            return dict(super().__getitem__(idx), scene_reset=np.float32(idx == 0))
+
+
+def record_test_outputs(argv):
+    """``tools/test.py``'s main on ``argv`` (a NeuralRecon config); each
+    ``forward_test`` call's outputs as host arrays, in order."""
+    from deep3dmap_tpu_torch.models.frameworks.neuralrecon import NeuralRecon
+    from deep3dmap_tpu_torch.tools import test as test_cli
+
+    register_stream_dataset()
+    seen, real = [], NeuralRecon.forward_test
+
+    def rec(self, *a, **kw):
+        out, state = real(self, *a, **kw)
+        seen.append({k: _np(v) for k, v in out.items()})
+        return out, state
+    NeuralRecon.forward_test = rec
+    try:
+        test_cli.main(argv)
+    finally:
+        NeuralRecon.forward_test = real
+    return seen
+
+
+def spatial_runner(cfg, batch, work_dir, mesh):
+    """NeuralRecon on ``EpochBasedRunner`` over ``mesh``, set up on
+    ``batch`` with plain Adam (no clip, so the gradients stay as summed)."""
+    from deep3dmap_tpu_torch.models.frameworks.neuralrecon import NeuralRecon
+    from deep3dmap_tpu_torch.runners.epoch_based_runner import EpochBasedRunner
+
+    runner = EpochBasedRunner(NeuralRecon(cfg, device="cpu"), work_dir=work_dir, mesh=mesh,
+                              max_epochs=1)
+    runner.setup(batch, optimizer=dict(type="Adam", lr=1e-3))
+    return runner
+
+
+def runner_step(runner, batch):
+    """One ``run_iter``: its loss and the gradient it stepped with."""
+    from deep3dmap_tpu_torch.utils.from_flax import to_flax_grads
+
+    log = runner.run_iter(batch)
+    return dict(loss=float(log["loss"]), grads=to_flax_grads(runner.state.net))
+
+
+def volumes(runner):
+    return [_np(v) for v in runner.state.model_state["global_hidden"].volumes]
+
+
+def job_ddp_runtime(inputs):
+    """The runtime on 2 ranks: (a) NeuralRecon over ("data", "model") =
+    (1, 2): a step, a checkpoint of the whole volumes, resumed on the mesh
+    (its slabs and the next step) and a one-rank checkpoint resumed on the
+    mesh; (b) ``val`` data-parallel on a global batch of 2; (c)
+    ``tools/test.py`` on a scene's fragments in order, on ("data",) and on
+    ("data", "model") = (1, 2).  A part that raises is recorded as its
+    error, and the others still run."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from deep3dmap_tpu_torch.parallel import make_mesh, shard_batch
+    from deep3dmap_tpu_torch.runners.checkpoint import latest_checkpoint
+
+    d = torch.load(inputs, weights_only=False)
+    out = {"errors": {}}
+
+    def part(name, fn):
+        try:
+            fn()
+        except Exception:
+            out["errors"][name] = traceback.format_exc()[-2000:]
+        dist.barrier()
+
+    grid = make_mesh(("data", "model"), (1, 2), device="cpu")
+    frags = d["frags"]
+
+    def checkpoint():
+        runner = spatial_runner(d["cfg"], frags[0], d["wd"], grid)
+        out["spatial_on"] = runner.framework.spatial_group is not None
+        out["step0"] = runner_step(runner, frags[0])
+        out["slabs"] = volumes(runner)
+        out["saved"] = runner.save_checkpoint()
+
+    def resume_mesh():
+        resumed = spatial_runner(d["cfg"], frags[0], d["wd2"], grid)
+        resumed.resume(latest_checkpoint(d["wd"]))
+        out["resumed_slabs"] = volumes(resumed)
+        out["resumed_step"] = runner_step(resumed, frags[1])
+
+    def resume_one():
+        from_one = spatial_runner(d["cfg"], frags[0], d["wd2"], grid)
+        from_one.resume(d["one_rank_ckpt"])
+        out["from_one_slabs"] = volumes(from_one)
+
+    def val():
+        flat = make_mesh(device="cpu")
+        local = shard_batch(d["pair"], flat, global_batch=True)
+        runner = spatial_runner(d["cfg"], local, d["wd2"], flat)
+        runner.val([local])
+        out["val_loss"] = [float(v) for v in runner.log_buffer.val_history["val_loss"]]
+
+    def test_cli():
+        out["test"] = {}
+        for name, opts in d["test_runs"].items():
+            out["test"][name] = record_test_outputs(
+                d["test_argv"] + ["--launcher", "pytorch", "--cfg-options", *opts])
+
+    for name, fn in (("checkpoint", checkpoint), ("resume_mesh", resume_mesh),
+                     ("resume_one", resume_one), ("val", val), ("test", test_cli)):
+        part(name, fn)
+    return out
+
+
+def job_ddp_cli(runs):
+    """``tools/train.py --launcher pytorch`` (and ``tools/test.py`` where a
+    run has ``test``) on each run's argv: the runner's type, epoch, step,
+    state, mesh and loss group, and the test's result."""
+    from deep3dmap_tpu_torch.tools import test as test_cli
+    from deep3dmap_tpu_torch.tools import train as train_cli
+
+    out = {}
+    for run in runs:
+        runner = train_cli.main(run["train"] + ["--launcher", "pytorch"])
+        fw = runner.framework
+        out[run["name"]] = dict(
+            type=type(runner).__name__, epoch=runner.epoch, iter=runner.iter,
+            step=runner.state.step, state=getattr(runner, "cur_state", None),
+            mesh=dict(runner.mesh.shape), grouped=getattr(fw, "loss_group", None) is not None,
+            heads=_numpy({k: v for k, v in runner.state.net.state_dict().items()}))
+        if run.get("test"):
+            res = test_cli.main(run["test"] + ["--launcher", "pytorch"])
+            out[run["name"]]["test"] = None if res is None else {
+                k: float(v) for k, v in res.items()}
+    return out
+
+
 class ToyNet(torch.nn.Module):
     """``tests/test_fsdp_amp.py``'s toy: relu(x @ dense + b) @ head, the
     mean squared error against y."""
@@ -294,7 +642,8 @@ class ToyNet(torch.nn.Module):
 
 
 JOBS = {"ddp_neuralrecon": job_ddp_neuralrecon, "mesh": job_mesh, "halo": job_halo,
-        "ba": job_ba, "sync_bn_fsdp": job_sync_bn_fsdp}
+        "ba": job_ba, "sync_bn_fsdp": job_sync_bn_fsdp, "ddp_frameworks": job_ddp_frameworks,
+        "ddp_runtime": job_ddp_runtime, "ddp_cli": job_ddp_cli}
 
 
 def main():
