@@ -430,6 +430,14 @@ import time
 import numpy as np
 import torch
 
+from deep3dmap_tpu_torch.utils.tracing import counter, reset_counters
+
+
+def loss_launches():
+    """(forward, backward) fused-loss kernel launches since the last reset."""
+    return counter("fused_loss.fwd_launches"), counter("fused_loss.bwd_launches")
+
+
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 # fused loss, per element: 5 loads converted, softplus (abs, neg, exp, add,
@@ -646,13 +654,13 @@ def phase_kernel_vs_plain(fused_loss):
     timed = {}
     for name, shape, kw in cases:
         args = loss_inputs(gen, shape, **kw)
-        before = fused_loss.launches
+        before = counter("fused_loss.fwd_launches")
         got = torch.stack(fused_loss.fused_tsdf_occ_loss(*args, pos_weight=1.5))
         again = torch.stack(fused_loss.fused_tsdf_occ_loss(*args, pos_weight=1.5))
         want = torch.stack(fused_loss.fused_tsdf_occ_loss_plain(*args,
                                                                 pos_weight=1.5))
         torch.cuda.synchronize()
-        check(fused_loss.launches == before + 2,
+        check(counter("fused_loss.fwd_launches") == before + 2,
               f"{name}: the wrapper did not launch the kernel")
         check(torch.isfinite(got).all().item(), f"{name}: non-finite loss {got}")
         check(torch.equal(got, again), f"{name}: two runs differ: {got} {again}")
@@ -703,12 +711,12 @@ def loss_back_to_back(fused_loss, gen) -> float:
     sizes = {"96^3": loss_inputs(gen, (1, 96, 96, 96)),
              "24^3": loss_inputs(gen, (1, 24, 24, 24))}
     order = ["96^3", "24^3", "24^3", "96^3", "24^3", "96^3"]
-    before = fused_loss.launches
+    before = counter("fused_loss.fwd_launches")
     outs = [torch.stack(fused_loss.fused_tsdf_occ_loss(*sizes[k], pos_weight=1.5))
             for k in order]
     torch.cuda.synchronize()
-    check(fused_loss.launches == before + len(order),
-          f"back to back: {fused_loss.launches - before} launches for {len(order)} calls")
+    n = counter("fused_loss.fwd_launches") - before
+    check(n == len(order), f"back to back: {n} launches for {len(order)} calls")
     err = 0.0
     for k, args in sizes.items():
         want = torch.stack(fused_loss.fused_tsdf_occ_loss_plain(*args, pos_weight=1.5))
@@ -759,12 +767,12 @@ def compare_loss_bwd(fused_loss, name, levels, g):
     max abs difference and the kernel's [(d_tsdf, d_occ), ...]."""
     sums = forward_sums(fused_loss, levels)
     n_launch = -(-len(levels) // fused_loss._BWD_LEVELS)
-    before = fused_loss.bwd_launches
+    before = counter("fused_loss.bwd_launches")
     got = fused_loss.fused_tsdf_occ_loss_bwd_cuda(levels, sums, g, 1.5)
     again = fused_loss.fused_tsdf_occ_loss_bwd_cuda(levels, sums, g, 1.5)
     torch.cuda.synchronize()
-    check(fused_loss.bwd_launches == before + 2 * n_launch,
-          f"{name}: {fused_loss.bwd_launches - before} backward launches for two "
+    n = counter("fused_loss.bwd_launches") - before
+    check(n == 2 * n_launch, f"{name}: {n} backward launches for two "
           f"calls on {len(levels)} levels, expected {2 * n_launch}")
     err = 0.0
     for i, (args, pair, pair2) in enumerate(zip(levels, got, again)):
@@ -890,14 +898,14 @@ def loss_bwd_through_autograd(fused_loss, gen) -> float:
     ins = [(lv[0].clone().requires_grad_(), lv[1].clone().requires_grad_(), *lv[2:])
            for lv in levels]
     lw = (1.0, 0.8, 0.64)
-    before = (fused_loss.launches, fused_loss.bwd_launches)
+    before = loss_launches()
     losses = fused_loss.fused_tsdf_occ_loss_levels(ins, pos_weight=1.5)
     total = sum(w * losses[i, 0] for i, w in enumerate(lw))
     got = torch.autograd.grad(total, [p for lv in ins for p in lv[:2]])
     torch.cuda.synchronize()
-    check((fused_loss.launches, fused_loss.bwd_launches) == (before[0] + 3, before[1] + 1),
-          "autograd: expected three forward launches and one backward launch, got "
-          f"{fused_loss.launches - before[0]} and {fused_loss.bwd_launches - before[1]}")
+    n = [a - b for a, b in zip(loss_launches(), before)]
+    check(n == [3, 1], "autograd: expected three forward launches and one backward "
+          f"launch, got {n[0]} and {n[1]}")
     g = torch.tensor([[w, 0.0, 0.0] for w in lw], device="cuda")
     err, direct = compare_loss_bwd(fused_loss, "autograd_levels", levels, g)
     for a, b in zip(got, [d for pair in direct for d in pair]):
@@ -1069,8 +1077,7 @@ def phase_train_cpu_vs_card(nr_module, train_mod, stack, make_sample):
 
 
 # ---------------------------------------------------------------- phase 4 --
-def phase_full_width(nr_module, fused_loss, stack, make_sample, card,
-                     profile_dir=None):
+def phase_full_width(nr_module, stack, make_sample, card, profile_dir=None):
     phase("full width: bench.py config, 9x480x640, 96^3, block, bf16")
     # PyTorch's defaults, which a user of the port runs with (the port
     # flips no flag): TF32 for float32 convs, full float32 for matmuls
@@ -1086,7 +1093,7 @@ def phase_full_width(nr_module, fused_loss, stack, make_sample, card,
     torch.cuda.synchronize()
     print(f"set-up (synthetic fragment, init) {time.perf_counter() - t0:.3f} s")
 
-    fused_loss.launches = 0                       # the main path starts here
+    reset_counters("fused_loss.fwd_launches")     # the main path starts here
     torch.cuda.reset_peak_memory_stats()
     out, state = fw.forward_test(net, state, first)
     for _ in range(WARMUP - 1):
@@ -1105,7 +1112,7 @@ def phase_full_width(nr_module, fused_loss, stack, make_sample, card,
         lat.append((time.perf_counter() - t0) * 1e3)
     val = fw.val_fn(net, state, cont)["log_vars"]["loss"]
     torch.cuda.synchronize()
-    launches = fused_loss.launches                # ... and ends here
+    launches = counter("fused_loss.fwd_launches")  # ... and ends here
     peak = torch.cuda.max_memory_allocated()
 
     check(launches == 3, f"val_fn launched the fused loss {launches} times, "
@@ -1137,16 +1144,12 @@ def phase_full_width(nr_module, fused_loss, stack, make_sample, card,
     print("host syncs: none in forward_test and val_fn "
           "(torch.cuda.set_sync_debug_mode('error'))", flush=True)
     if profile_dir:
-        import deep3dmap_tpu_torch.models.modulars.block_dense3d as bd
         st = [state]
 
         def fragment():
             st[0] = fw.forward_test(net, st[0], cont)[1]
-        # the framework's op calls, gather_halo and the network's top-level
-        # modules (trunk, UNets, GRUs, heads; backbone2d's forward is its fpn's)
-        profile("profile", "fragment", fragment, PROFILED_FRAGMENTS,
-                [(nr_module, n) for n in SPAN_OPS] + [(bd, "gather_halo")],
-                [(n, getattr(m, "fpn", m)) for n, m in net.named_children()],
+        # the program's own spans (the trunk, each level's layers, gather_halo)
+        profile("profile", "fragment", fragment, PROFILED_FRAGMENTS, [], [],
                 os.path.join(profile_dir, "kernels.txt"))
     return launches
 
@@ -1170,12 +1173,13 @@ def phase_train_full_width(nr_module, fused_loss, train_mod, stack,
     per_step, st = [], [state]
 
     def step():
-        f0, b0 = fused_loss.launches, fused_loss.bwd_launches
+        f0, b0 = loss_launches()
         st[0], log = train_mod.train_step(fw, st[0], dev)
-        per_step.append((fused_loss.launches - f0, fused_loss.bwd_launches - b0))
+        f1, b1 = loss_launches()
+        per_step.append((f1 - f0, b1 - b0))
         return log
 
-    fused_loss.launches = fused_loss.bwd_launches = 0   # the main path starts here
+    reset_counters("fused_loss.")                 # the main path starts here
     torch.cuda.reset_peak_memory_stats()
     for _ in range(TRAIN_WARMUP):
         step()
@@ -1191,7 +1195,7 @@ def phase_train_full_width(nr_module, fused_loss, train_mod, stack,
         log = step()
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t0) * 1e3)
-    launches = (fused_loss.launches, fused_loss.bwd_launches)   # ... and ends here
+    launches = loss_launches()                    # ... and ends here
     peak = torch.cuda.max_memory_allocated()
 
     n_steps = TRAIN_WARMUP + 2 * TRAIN_TIMED
@@ -1257,22 +1261,12 @@ def phase_train_full_width(nr_module, fused_loss, train_mod, stack,
           + f" bound_share={timed['bound_ms'] / timed['ms']:.6f} abs_err={err:.3g}",
           flush=True)
     if profile_dir:
-        import deep3dmap_tpu_torch.models.modulars.block_dense3d as bd
-        profile("train profile", "step", step, PROFILED_FRAGMENTS,
-                [(nr_module, n) for n in SPAN_OPS] + [(bd, "gather_halo")],
-                [(n, getattr(m, "fpn", m)) for n, m in net.named_children()],
+        profile("train profile", "step", step, PROFILED_FRAGMENTS, [], [],
                 os.path.join(profile_dir, "train_kernels.txt"))
     return dict(timed, launches=launches[1], max_abs_err=err,
                 step_ms_median=statistics.median(lat))
 
 
-# the framework's op calls, each wrapped in a profiler span by ``profile``
-SPAN_OPS = ("back_project_batch", "back_project_masked_batch",
-            "back_project_sparse_batch", "block_mask_from_voxels",
-            "child_block_mask", "select_blocks", "block_voxel_indices",
-            "dense_to_blocks", "blocks_to_dense", "blocks_to_dense_over",
-            "gather_parent_octants", "read_windows_batch",
-            "write_windows_batch", "fused_tsdf_occ_loss")
 PROFILED_FRAGMENTS = 3
 
 
@@ -1316,7 +1310,8 @@ def _span_hooks(wraps, modules):
 def profile(label, unit, call, n, wraps, modules, out_path, append=False):
     """torch.profiler over ``n`` calls of ``call`` (each one ``unit``): the
     device's busy share, kernel launches per unit, host and device time per
-    span (``_span_hooks(wraps, modules)``), and device time by kernel.
+    ``span:`` range (the program's own, and those ``_span_hooks(wraps,
+    modules)`` adds), and device time by kernel.
     Writes the tables to ``out_path`` (after what it holds, ``append``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -1495,12 +1490,13 @@ def raster_cases(renderer_mod):
 def compare_raster(raster, name, pts, K, bg):
     """Kernel vs plain on one input, bit for bit; returns the max abs diff
     and the number of triangles that took the overflow path."""
-    before = raster.launches
+    before = counter("raster.launches")
     got, n_big = raster.raster_grid_depth_hard_cuda(pts, K, bg, overflow=True)
     again = raster.raster_grid_depth_hard(pts, K, bg)
     want = raster.raster_grid_depth_hard_plain(pts, K, bg)
     torch.cuda.synchronize()
-    check(raster.launches == before + 2, f"{name}: the wrapper did not launch the kernel")
+    check(counter("raster.launches") == before + 2,
+          f"{name}: the wrapper did not launch the kernel")
     check(torch.equal(got, again), f"{name}: two runs differ")
     cov_g, cov_w = got != bg, want != bg
     n_diff = int((got != want).sum().item())
@@ -1633,9 +1629,9 @@ def phase_g2s_full_width(g2s_module, raster, dataset_cls, card, profile_dir=None
     per_call = []
 
     def hard():
-        before = raster.launches
+        before = counter("raster.launches")
         out, _ = fw.forward_test(net, state, batch)
-        per_call.append(raster.launches - before)
+        per_call.append(counter("raster.launches") - before)
         return out
 
     def synced_ms(fn):
@@ -1648,7 +1644,7 @@ def phase_g2s_full_width(g2s_module, raster, dataset_cls, card, profile_dir=None
     # (splat launches no raster kernel): the two modes are timed in turns,
     # hard first on even turns and splat first on odd ones, since the
     # host-bound call time drifts within a run
-    raster.launches = 0                           # the main path starts here
+    reset_counters("raster.")                     # the main path starts here
     for _ in range(G2S_WARMUP):
         out = hard()
         splat()
@@ -1661,7 +1657,7 @@ def phase_g2s_full_width(g2s_module, raster, dataset_cls, card, profile_dir=None
                 lat.append(ms)
             else:
                 splat_lat.append(synced_ms(splat)[0])
-    launches = raster.launches                    # ... and ends here
+    launches = counter("raster.launches")         # ... and ends here
     check(all(n == 1 for n in per_call),
           f"raster launches per forward_test: {per_call} (expected 1 each)")
     check(launches == G2S_WARMUP + G2S_TIMED, f"raster launched {launches} times")
@@ -1926,12 +1922,12 @@ def phase_g2s_train_full_width(g2s_module, runner_mod, raster, dataset_cls, card
     batches = dict(step1=dev)
 
     def step(mode):
-        before = raster.launches
+        before = counter("raster.launches")
         log = r.train_step(mode, batches[mode])
-        per_step[mode].append(raster.launches - before)
+        per_step[mode].append(counter("raster.launches") - before)
         return log
 
-    raster.launches = 0                           # the main path starts here
+    reset_counters("raster.")                     # the main path starts here
     torch.cuda.reset_peak_memory_stats()
     batches["step2"] = dict(dev, **r._collect_canon(dev))
     with torch.no_grad():
@@ -1968,12 +1964,12 @@ def phase_g2s_train_full_width(g2s_module, runner_mod, raster, dataset_cls, card
                 check(all(p.grad is None for p in ps.values()),
                       f"{mode}: a gradient reached {name}")
     t1 = time.perf_counter()
-    before = raster.launches
+    before = counter("raster.launches")
     r.fit_instance(data)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t1
-    fit_launches = raster.launches - before
-    launches = raster.launches                    # ... and ends here
+    fit_launches = counter("raster.launches") - before
+    launches = counter("raster.launches")         # ... and ends here
     peak = torch.cuda.max_memory_allocated()
 
     for mode, n in RASTER_PER_STEP.items():
@@ -2211,7 +2207,7 @@ def _timed_evaluate(scannet_mod):
     return took, lambda: setattr(scannet_mod.ScanNetDataset, "evaluate", orig)
 
 
-def phase_cli_full_width(fused_loss, train_mod, card, work, bare_step_ms, tools, hooks_mod,
+def phase_cli_full_width(train_mod, card, work, bare_step_ms, tools, hooks_mod,
                          scannet_mod, native, write_fixture, checkpoint_mod):
     phase("CLIs at full width: 480x640 fixture, data-gen, train (bench.py config, "
           "ScanNetDataset, 96^3, 1 epoch), test + evaluate")
@@ -2236,7 +2232,7 @@ def phase_cli_full_width(fused_loss, train_mod, card, work, bare_step_ms, tools,
             torch.cuda.synchronize()
             now = time.perf_counter()
             probe["gap_ms"].append((now - probe["t"]) * 1e3)
-            probe["t"], probe["l0"] = now, (fused_loss.launches, fused_loss.bwd_launches)
+            probe["t"], probe["l0"] = now, loss_launches()
             if runner.inner_iter == 1:
                 torch.cuda.set_sync_debug_mode("error")
 
@@ -2245,8 +2241,8 @@ def phase_cli_full_width(fused_loss, train_mod, card, work, bare_step_ms, tools,
             torch.cuda.synchronize()
             now = time.perf_counter()
             probe["step_ms"].append((now - probe["t"]) * 1e3)
-            probe["launches"].append((fused_loss.launches - probe["l0"][0],
-                                      fused_loss.bwd_launches - probe["l0"][1]))
+            probe["launches"].append(tuple(a - b for a, b in zip(loss_launches(),
+                                                                   probe["l0"])))
             probe["t"] = now
 
         def after_run(self, runner):
@@ -2258,9 +2254,9 @@ def phase_cli_full_width(fused_loss, train_mod, card, work, bare_step_ms, tools,
                             checkpoint_interval=1, log_interval=CLI_LOG_INTERVAL,
                             custom_hooks=[dict(type="ChipSmokeProbe")]))
     t0 = time.perf_counter()
-    fused_loss.launches = fused_loss.bwd_launches = 0   # the main path starts here
+    reset_counters("fused_loss.")                 # the main path starts here
     runner = tools.train.main([cfg])
-    launches = (fused_loss.launches, fused_loss.bwd_launches)   # ... and ends here
+    launches = loss_launches()                    # ... and ends here
     train_s = time.perf_counter() - t0
     n_steps = len(probe["step_ms"])
     check(launches == (3 * n_steps, n_steps), f"fused loss launches {launches}")
@@ -2479,7 +2475,7 @@ def _parse_card_vs_cpu(parser, cpu_parser, images, category, resize_bilinear):
                 classes=int(rcls.unique().numel()))
 
 
-def phase_g2s_cli(card, work, tools, hooks_mod, raster, dataset_cls, g2s_bare_ms):
+def phase_g2s_cli(card, work, tools, hooks_mod, dataset_cls, g2s_bare_ms):
     phase("Gan2Shape through the CLIs at full width: configs/gan2shape/celeba.py "
           "(use_mask, BiSeNet at 512², hard raster), train 2 epochs, resume a third, "
           "test; car.py and church.py parse_mask (PSPNet at 473²)")
@@ -2522,11 +2518,11 @@ def phase_g2s_cli(card, work, tools, hooks_mod, raster, dataset_cls, g2s_bare_ms
                 if runner.epoch != probe["first"]:
                     return step(mode, batch)
                 torch.cuda.synchronize()
-                t1, l0 = time.perf_counter(), raster.launches
+                t1, l0 = time.perf_counter(), counter("raster.launches")
                 out = step(mode, batch)
                 torch.cuda.synchronize()
                 probe["step_ms"][mode].append((time.perf_counter() - t1) * 1e3)
-                probe["step_launches"][mode].append(raster.launches - l0)
+                probe["step_launches"][mode].append(counter("raster.launches") - l0)
                 return out
 
             def timed_fit(batch):
@@ -2534,11 +2530,11 @@ def phase_g2s_cli(card, work, tools, hooks_mod, raster, dataset_cls, g2s_bare_ms
                 probe["masks"].append((tuple(m.shape), m.device.type, float(m.min()),
                                        float(m.max())))
                 torch.cuda.synchronize()
-                t1, l0 = time.perf_counter(), raster.launches
+                t1, l0 = time.perf_counter(), counter("raster.launches")
                 out = fit(batch)
                 torch.cuda.synchronize()
                 probe["fit_s"].append(time.perf_counter() - t1)
-                probe["fit_launches"].append(raster.launches - l0)
+                probe["fit_launches"].append(counter("raster.launches") - l0)
                 return out
             runner.train_step, runner.fit_instance = timed_step, timed_fit
 
@@ -2546,7 +2542,7 @@ def phase_g2s_cli(card, work, tools, hooks_mod, raster, dataset_cls, g2s_bare_ms
             probe["peak"] = torch.cuda.max_memory_allocated()
 
     opts = _celeba_options(root, npz)
-    raster.launches = 0                               # the main path starts here
+    reset_counters("raster.")                     # the main path starts here
     t1 = time.perf_counter()
     runner = tools.train.main([cfg, "--work-dir", wd, "--max-epochs", str(G2S_CLI_EPOCHS),
                                "--cfg-options", *opts])
@@ -2576,7 +2572,7 @@ def phase_g2s_cli(card, work, tools, hooks_mod, raster, dataset_cls, g2s_bare_ms
         test_s = time.perf_counter() - t1
     finally:
         g2s_module.Gan2Shape.forward_test = orig
-    launches = raster.launches                        # ... and ends here
+    launches = counter("raster.launches")         # ... and ends here
 
     s1, s2, s3 = G2S_CLI_ITERS
     per_instance = 1 + s1 + s2 + max(s2 // 4, 1) + 2 * s3   # + the canon snapshot, the pool
@@ -3646,26 +3642,15 @@ def _lerf_pub_options(root, ckpts):
             f"model.model_cfgs.clip_weights={ckpts['clip']}"]
 
 
-def _hash_spans():
-    """Wrap every ``HashGridEncoding.forward`` in a ``span:hashgrid``
-    profiler range; returns the undo."""
-    from deep3dmap_tpu_torch.models.modulars import hashgrid
-
-    orig = hashgrid.HashGridEncoding.forward
-
-    def fwd(self, x):
-        with torch.profiler.record_function("span:hashgrid"):
-            return orig(self, x)
-    hashgrid.HashGridEncoding.forward = fwd
-    return lambda: setattr(hashgrid.HashGridEncoding, "forward", orig)
+HASH_SPAN = "span:lerf.hashgrid"
 
 
 def _hash_attribution(prof) -> dict:
     """Each device kernel's µs once, by the op that launched it: inside a
-    ``span:hashgrid`` range (the hash grids' forward), under an autograd
-    node of an op from such a range (their backward; ``scatter`` is its
-    ``IndexBackward0``, the sorted ``index_put_`` of the table rows), or
-    elsewhere.  A backward node is matched to its forward op by sequence
+    ``span:lerf.hashgrid`` range (the hash grids' forward, the program's own
+    span), under an autograd node of an op from such a range (their
+    backward; ``scatter`` is its ``IndexBackward0``, the sorted
+    ``index_put_`` of the table rows), or elsewhere.  A backward node is matched to its forward op by sequence
     number; the nearest range or node decides.  ``total`` is every kernel
     counted this way."""
     events = prof.events()
@@ -3675,7 +3660,7 @@ def _hash_attribution(prof) -> dict:
             yield e
             e = e.cpu_parent
     in_span = {e.sequence_nr for e in events if e.sequence_nr >= 0
-               and any(a.name == "span:hashgrid" for a in chain(e))}
+               and any(a.name == HASH_SPAN for a in chain(e))}
     out = dict(total=0.0, forward=0.0, backward=0.0, scatter=0.0)
     node = "autograd::engine::evaluate_function: "
     for e in events:
@@ -3684,7 +3669,7 @@ def _hash_attribution(prof) -> dict:
                 continue
             out["total"] += k.duration
             for a in chain(e):
-                if a.name == "span:hashgrid":
+                if a.name == HASH_SPAN:
                     out["forward"] += k.duration
                     break
                 if a.name.startswith(node):
@@ -3705,17 +3690,13 @@ def _lerf_profile(step, n):
     time)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
-    undo = _hash_spans()
-    try:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                step()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        undo()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = device_kernels(prof)
     busy_us = sum(e.self_device_time_total for e in kernels)
     att = _hash_attribution(prof)
@@ -3938,12 +3919,16 @@ import time
 import numpy as np
 import torch
 
-from deep3dmap_tpu_torch.ops import fused_loss
 from deep3dmap_tpu_torch.runners.hooks import HOOKS, Hook
 from deep3dmap_tpu_torch.utils.from_flax import to_flax_params
+from deep3dmap_tpu_torch.utils.tracing import counter
 
 PROBE, MARKER, NPZ = {probe!r}, {marker!r}, {npz!r}
 FPN_HEAD = ("Conv_3", "Conv_4", "Conv_5", "Conv_6", "Conv_7")
+
+
+def loss_launches():
+    return counter("fused_loss.fwd_launches"), counter("fused_loss.bwd_launches")
 
 
 def _record(**kw):
@@ -3984,22 +3969,21 @@ class RuntimeProbe(Hook):
     def before_train_iter(self, runner):
         torch.cuda.synchronize()
         self.t = time.perf_counter()
-        self.l0 = (fused_loss.launches, fused_loss.bwd_launches)
+        self.l0 = loss_launches()
 
     def after_train_iter(self, runner):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - self.t) * 1e3
         _record(kind="step", iter=runner.iter, epoch=runner.epoch, ms=ms,
-                launches=[fused_loss.launches - self.l0[0],
-                          fused_loss.bwd_launches - self.l0[1]],
-                totals=[fused_loss.launches, fused_loss.bwd_launches],
+                launches=[a - b for a, b in zip(loss_launches(), self.l0)],
+                totals=list(loss_launches()),
                 loss=float(runner.log_buffer.val_history["loss"][-1]),
                 lr=runner.current_lr(), peak=torch.cuda.max_memory_allocated(),
                 time=time.time())
 
     def after_val_epoch(self, runner):
         _record(kind="val", epoch=runner.epoch,
-                totals=[fused_loss.launches, fused_loss.bwd_launches])
+                totals=list(loss_launches()))
 
 
 def _crash_once(runner):
@@ -4111,7 +4095,7 @@ def phase_runtime(card, work, run_elastic, import_weights, seeded_mnasnet, check
 DEMO_SYN_FRAGMENTS = 4
 
 
-def phase_demo(card, work, demo_mod, nr_module, fused_loss, train_mod, runtime_dir):
+def phase_demo(card, work, demo_mod, nr_module, train_mod, runtime_dir):
     phase("the streaming demo at full width: --scannet on phase 14's fixture (9 x 640x480, "
           "96^3, dense), preview every fragment; synthetic fragments, no preview")
     set_tf32(cudnn=True, matmul=False)
@@ -4141,12 +4125,12 @@ def phase_demo(card, work, demo_mod, nr_module, fused_loss, train_mod, runtime_d
     print(f"demo: phase 25's checkpoint into the demo's model: "
           f"{'loads' if why is None else 'refused: ' + why}", flush=True)
     # two training steps of the demo's own config, their checkpoint loaded
-    l0 = (fused_loss.launches, fused_loss.bwd_launches)
+    l0 = loss_launches()
     state = init_train_state(fw, 0, batch, ADAM, CLIP)
     for i in range(2):
         state, log = train_mod.train_step(fw, state, _stack_samples([ds[i]]))
     check(bool(torch.isfinite(log["loss"])), "the demo config's training loss is not finite")
-    launches = (fused_loss.launches - l0[0], fused_loss.bwd_launches - l0[1])
+    launches = tuple(a - b for a, b in zip(loss_launches(), l0))
     check(launches == (6, 2), f"fused loss launches {launches} in 2 steps")
     ckpt = save_checkpoint(os.path.join(work, "demo_train"), state)
 
@@ -5547,7 +5531,7 @@ def _worst_leaf(a: dict, b: dict):
     return name, rel[name], whole, all(torch.equal(a[n], b[n]) for n in a)
 
 
-def phase_published_trunk(nr_module, fused_loss, train_mod, stack, make_sample, card,
+def phase_published_trunk(nr_module, train_mod, stack, make_sample, card,
                           make_deterministic):
     phase("NeuralRecon's published training config (configs/neural_recon/scannet.py: "
           "fpn-mnas-1, fp32, dense, MODE scan, REMAT) against REMAT off, and BP_GRAD_FRAC "
@@ -5564,7 +5548,7 @@ def phase_published_trunk(nr_module, fused_loss, train_mod, stack, make_sample, 
     check("MODE" not in bb and "REMAT" not in bb and "DTYPE" not in bb
           and cfg.get("SPARSE_MODE", "dense") == "dense",
           f"{SCANNET_CFG} changed: {cfg}")
-    fused_loss.launches = fused_loss.bwd_launches = 0   # this path starts here
+    reset_counters("fused_loss.")                 # this path starts here
     runs = {}
     # the config as published (the defaults: MODE "scan", REMAT on), then
     # REMAT off from the same weights and fragment
@@ -5613,7 +5597,7 @@ def phase_published_trunk(nr_module, fused_loss, train_mod, stack, make_sample, 
           f"{[r['ms'] for r in fracs]!r} without_ms={plain['ms']!r} "
           f"max_memory_allocated_bytes={fracs[0]['peak']} (without {plain['peak']})",
           flush=True)
-    launches = (fused_loss.launches, fused_loss.bwd_launches)   # ... and ends here
+    launches = loss_launches()                    # ... and ends here
     print(f"trunk30: phase 30 took {time.perf_counter() - t_phase:.3f} s; loss launches "
           f"(forward, backward) {launches} card={card!r}", flush=True)
     return launches
@@ -5711,7 +5695,7 @@ def _lmk_near_tie(hm, b, lm, tol) -> bool:
             or (0 < y < H - 1 and abs(m[y + 1, x] - m[y - 1, x]) <= tol))
 
 
-def phase_face_leftovers(card, work, tools, g2s_module, raster):
+def phase_face_leftovers(card, work, tools, g2s_module):
     phase("the face leftovers and the importers: stylegan2/vgg16/bisenet through "
           "import_weights into Gan2Shape and PerceptualLoss; FaceAlignment card vs CPU; "
           "data_gen_prnet, PRNet's CLIs and AFLW2000; FaceTexUVAsyncDataset")
@@ -5760,11 +5744,11 @@ def phase_face_leftovers(card, work, tools, g2s_module, raster):
     fw = g2s_module.Gan2Shape(dict(g, gan_ckpt=npz["stylegan2"], parsing_ckpt=npz["bisenet"]))
     net, state = fw.init(0, data)
     batch = fw.batch_to_device(data)
-    raster.launches = 0                           # this path starts here
+    reset_counters("raster.")                     # this path starts here
     outs = []
     g2s_ms = _synced_ms(lambda: outs.append(fw.forward_test(net, state, batch)[0]),
                         FWD_WARMUP, FWD_TIMED)
-    g2s_launches = raster.launches                # ... and ends here
+    g2s_launches = counter("raster.launches")     # ... and ends here
     check(g2s_launches == FWD_WARMUP + FWD_TIMED,
           f"forward_test with the imported gan_ckpt: {g2s_launches} raster launches")
     check(all(torch.isfinite(v).all().item() for v in outs[-1].values()
@@ -6042,7 +6026,6 @@ def _p32_nccl_one(rank, work):
     data-parallel path at one NCCL rank; one more step under the sync
     debug mode."""
     from deep3dmap_tpu_torch.models.frameworks import neuralrecon as nr
-    from deep3dmap_tpu_torch.ops import fused_loss
     from deep3dmap_tpu_torch.parallel import collectives, make_mesh
     from deep3dmap_tpu_torch.runners import train_state as tm
     from deep3dmap_tpu_torch.utils.device import make_deterministic
@@ -6060,7 +6043,7 @@ def _p32_nccl_one(rank, work):
         dev = fw.batch_to_device(batch)
         losses, ms, launches, counts = [], [], [], []
         for _ in range(P32_STEPS):
-            fused_loss.launches = fused_loss.bwd_launches = 0
+            reset_counters("fused_loss.")
             collectives.reset_counts()
             log = {}
 
@@ -6069,8 +6052,8 @@ def _p32_nccl_one(rank, work):
                 log.update(o)
             ms.append(_events_step(step))
             losses.append(log["loss"].detach().clone())
-            launches.append([fused_loss.launches, fused_loss.bwd_launches])
-            counts.append(dict(collectives.counts))
+            launches.append(list(loss_launches()))
+            counts.append(collectives.counts())
         kept[arm] = (losses, [p.detach().clone() for p in box[0].net.parameters()])
         out[arm] = dict(losses=[float(x) for x in losses], ms=ms, launches=launches,
                         counts=counts)
@@ -6156,10 +6139,10 @@ def _p32_gloo_two(rank, work):
         t0[0] = time.perf_counter()
 
     def count(fn):
-        fused_loss.launches = fused_loss.bwd_launches = 0
+        reset_counters("fused_loss.")
         r = fn()
-        out["launches"][0] += fused_loss.launches
-        out["launches"][1] += fused_loss.bwd_launches
+        out["launches"][0] += counter("fused_loss.fwd_launches")
+        out["launches"][1] += counter("fused_loss.bwd_launches")
         return r
 
     # data parallel, the bench config as it is and at float32, one fragment
@@ -6189,7 +6172,7 @@ def _p32_gloo_two(rank, work):
         out["dp"][arm]["val"] = float(count(
             lambda: fw.val_fn(net, ms, local)["log_vars"]["loss"]))
         out["dp"][arm]["val_launches"] = [a - b for a, b in zip(out["launches"], launched)]
-        out["dp"][arm]["val_counts"] = dict(collectives.counts)
+        out["dp"][arm]["val_counts"] = collectives.counts()
         mine[arm] = (_p32_grads(net), [lv[4][0].cpu() for lv in levels])
         del fw, net, ms, seen, levels
         gc.collect()
@@ -6243,7 +6226,7 @@ def _p32_gloo_two(rank, work):
         log.update(o)
     out["spatial_ms"] = count(lambda: _events_step(spatial_step))
     out["spatial_loss"] = float(log["loss"])
-    out["spatial_counts"] = dict(collectives.counts)
+    out["spatial_counts"] = collectives.counts()
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     # the gradient the step took (summed over the model axis) and the weights after it
     sp_grads = _p32_grads(net)
@@ -6294,7 +6277,7 @@ def _p32_gloo_two(rank, work):
                          cam_fixed=torch.arange(6, device="cuda") < 2)
     collectives.reset_counts()
     res = sfm.lm_solve_sharded(mesh, *start, prob, iters=P32_BA_ITERS)
-    out["ba_counts"] = dict(collectives.counts)
+    out["ba_counts"] = collectives.counts()
     out["ba_cost"] = float(res.cost)
     if rank == 0:
         want = sfm.lm_solve(*start, prob, iters=P32_BA_ITERS)
@@ -6307,16 +6290,15 @@ def _p32_gloo_two(rank, work):
     out["fw"] = _p32_fw_arms(rank, work, mesh)
     lap("frameworks")
     # (d) Gan2Shape replicated on the mesh; rank 1 also without one
-    from deep3dmap_tpu_torch.ops import raster
     from deep3dmap_tpu_torch.parallel.mesh import Mesh
 
     g2s_batch = torch.load(os.path.join(work, "p32_arms.pt"), weights_only=False)["gan2shape"]
-    g2s, heads = _p32_g2s_fit(mesh, g2s_batch, raster)
+    g2s, heads = _p32_g2s_fit(mesh, g2s_batch)
     g2s["heads_sha1"] = _sha1(heads)
     out["raster_launches"] = g2s["launches"]["fit"]
     if rank == 1:
         one, one_heads = _p32_g2s_fit(Mesh(("data",), (1,), None, torch.device("cuda")),
-                                      g2s_batch, raster)
+                                      g2s_batch)
         g2s["one_rank_equal"] = (all(torch.equal(heads[n], one_heads[n]) for n in heads)
                                  and one["logs"] == g2s["logs"]
                                  and one["step3"] == g2s["step3"])
@@ -6324,8 +6306,7 @@ def _p32_gloo_two(rank, work):
     del heads
     lap("gan2shape")
     # (e) the spatial path's checkpoint of whole volumes, resumed on the mesh and on one rank
-    out["ckpt"] = count(lambda: _p32_ckpt_arm(rank, work, data["frag"], fused_loss,
-                                              ckpt_slabs))
+    out["ckpt"] = count(lambda: _p32_ckpt_arm(rank, work, data["frag"], ckpt_slabs))
     lap("checkpoint")
     # (g) tools/test.py on both ranks, the scene's fragments in order
     got = _p32_test_outputs([SCANNET_SYN_CFG, "--work-dir", os.path.join(work, "p32_test"),
@@ -6603,7 +6584,7 @@ def _p32_fw_arms(rank, work, mesh):
     return out
 
 
-def _p32_g2s_fit(mesh, batch, raster):
+def _p32_g2s_fit(mesh, batch):
     """celeba.py's Gan2Shape on ``Gan2ShapeRunner`` over ``mesh``: one step
     of each mode (``fit_instance`` at ``P32_G2S_ITERS``, one stage); the
     heads after it, its logs, its step-3 indices and the raster's launches
@@ -6626,28 +6607,28 @@ def _p32_g2s_fit(mesh, batch, raster):
         return real_idx(*a)
 
     def step(mode, b):
-        n = raster.launches
+        n = counter("raster.launches")
         log = real_step(mode, b)
-        launches[mode] = launches.get(mode, 0) + raster.launches - n
+        launches[mode] = launches.get(mode, 0) + counter("raster.launches") - n
         return log
     gr.step3_indices, runner.train_step = idx, step
     collectives.reset_counts()
-    n0 = raster.launches
+    n0 = counter("raster.launches")
     try:
         runner.fit_instance(batch)
     finally:
         gr.step3_indices = real_idx
-    launches["fit"] = raster.launches - n0
+    launches["fit"] = counter("raster.launches") - n0
     heads = {n: p.detach().cpu().clone() for n, p in runner.net.state_dict().items()}
     out = dict(logs=runner.logs, step3=drawn, launches=launches, grouped=fw.loss_group
-               is not None, counts=dict(collectives.counts))
+               is not None, counts=collectives.counts())
     del runner, fw
     gc.collect()
     torch.cuda.empty_cache()
     return out, heads
 
 
-def _p32_ckpt_arm(rank, work, frag, fused_loss, mine):
+def _p32_ckpt_arm(rank, work, frag, mine):
     """(e): (b)'s spatial checkpoint (``scannet.py``'s dense model over
     ("data", "model") = (1, 2) after its step; ``mine`` this rank's slabs
     then): whole volumes in the file, resumed on the mesh (each rank's
@@ -6672,11 +6653,11 @@ def _p32_ckpt_arm(rank, work, frag, fused_loss, mine):
         return r
 
     def step(r):
-        n = (fused_loss.launches, fused_loss.bwd_launches)
+        n = loss_launches()
         log = r.run_iter(frag)
         grads = {n: p.grad.detach().cpu().clone() for n, p in r.state.net.named_parameters()}
-        return float(log["loss"]), grads, [fused_loss.launches - n[0],
-                                           fused_loss.bwd_launches - n[1]]
+        return float(log["loss"]), grads, [counter("fused_loss.fwd_launches") - n[0],
+                                           counter("fused_loss.bwd_launches") - n[1]]
 
     def slabs(r):
         return [v.detach().cpu().clone() for v in r.state.model_state["global_hidden"].volumes]
@@ -7117,8 +7098,8 @@ def main():
     phase_cpu_vs_card(nr_module, _stack_samples, make_fragment_sample)
     phase_train_cpu_vs_card(nr_module, train_mod, _stack_samples,
                             make_fragment_sample)
-    launches = phase_full_width(nr_module, fused_loss, _stack_samples,
-                                make_fragment_sample, card, args.profile)
+    launches = phase_full_width(nr_module, _stack_samples, make_fragment_sample, card,
+                                args.profile)
     bwd = phase_train_full_width(nr_module, fused_loss, train_mod,
                                  _stack_samples, make_fragment_sample, card,
                                  make_deterministic, args.profile)
@@ -7133,13 +7114,13 @@ def main():
                       make_fragment_sample, SyntheticGanFaceDataset, make_deterministic)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         cli_launches = phase_cli_full_width(
-            fused_loss, train_mod, card, work, bwd["step_ms_median"], tools, hooks_mod,
+            train_mod, card, work, bwd["step_ms_median"], tools, hooks_mod,
             scannet_mod, native, write_scannet_fixture, checkpoint_mod)
         phase_learning(card, work, quality_regression)
-        g2s_cli = phase_g2s_cli(card, work, tools, hooks_mod, raster, SyntheticGanFaceDataset,
+        g2s_cli = phase_g2s_cli(card, work, tools, hooks_mod, SyntheticGanFaceDataset,
                                 g2s_train["step_ms"])
         # the face workloads, GNeRF and LERF launch none of the repo's kernels
-        counts = (fused_loss.launches, fused_loss.bwd_launches, raster.launches)
+        counts = loss_launches() + (counter("raster.launches"),)
         phase_prnet(card, work, tools)
         phase_imgs2mesh(card, work, tools)
         phase_gnerf_cpu_vs_card(card)
@@ -7148,39 +7129,39 @@ def main():
         phase_lerf_cpu_vs_card(card)
         ckpts = phase_lerf_full_width(card, work, root, args.profile)
         phase_lerf_cli(card, work, tools, root, ckpts)
-        check((fused_loss.launches, fused_loss.bwd_launches, raster.launches) == counts,
+        check(loss_launches() + (counter("raster.launches"),) == counts,
               "a face, GNeRF or LERF phase launched a kernel of the NeuralRecon or "
               "Gan2Shape paths")
         # phase 25 trains in the supervisor's child processes: their own
         # counters, reported by the probe hook and summed here
         runtime = phase_runtime(card, work, run_elastic, import_weights,
                                 seeded_mnasnet_state_dict, checkpoint_mod)
-        fused_loss.launches = fused_loss.bwd_launches = 0
-        demo_launches = phase_demo(card, work, demo_neucon, nr_module, fused_loss, train_mod,
+        reset_counters("fused_loss.")
+        demo_launches = phase_demo(card, work, demo_neucon, nr_module, train_mod,
                                    runtime["train_dir"])
-        check((fused_loss.launches, fused_loss.bwd_launches) == demo_launches,
+        check(loss_launches() == demo_launches,
               "the demo's streaming launched a loss kernel")
     # phase 32's second fragment builds in the background from here on
     p32_dir = tempfile.mkdtemp(prefix="chip_smoke_p32_")
     p32_prebuilt = _p32_prebuild(p32_dir)
     # the SfM layer and the detection data path launch none of the repo's kernels
-    counts = (fused_loss.launches, fused_loss.bwd_launches, raster.launches)
+    counts = loss_launches() + (counter("raster.launches"),)
     phase_sfm(card)
-    check((fused_loss.launches, fused_loss.bwd_launches, raster.launches) == counts,
+    check(loss_launches() + (counter("raster.launches"),) == counts,
           "the SfM phase launched a kernel of the repo")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_det_") as work:
         phase_detection(card, work)
-    check((fused_loss.launches, fused_loss.bwd_launches, raster.launches) == counts,
+    check(loss_launches() + (counter("raster.launches"),) == counts,
           "the detection phase launched a kernel of the repo")
     phase_zoo(card)
-    check((fused_loss.launches, fused_loss.bwd_launches, raster.launches) == counts,
+    check(loss_launches() + (counter("raster.launches"),) == counts,
           "the op zoo launched a kernel of the repo")
-    trunk_launches = phase_published_trunk(nr_module, fused_loss, train_mod, _stack_samples,
+    trunk_launches = phase_published_trunk(nr_module, train_mod, _stack_samples,
                                            make_fragment_sample, card, make_deterministic)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_face_") as work:
-        counts = (fused_loss.launches, fused_loss.bwd_launches)
-        face_launches = phase_face_leftovers(card, work, tools, g2s_module, raster)
-        check((fused_loss.launches, fused_loss.bwd_launches) == counts,
+        counts = loss_launches()
+        face_launches = phase_face_leftovers(card, work, tools, g2s_module)
+        check(loss_launches() == counts,
               "the face leftovers launched a loss kernel")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_multi_") as work:
         try:

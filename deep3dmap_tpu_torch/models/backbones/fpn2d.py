@@ -19,6 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...utils.tracing import span
 from ..builder import BACKBONES
 from ..layers import Conv, GroupNorm, num_groups
 
@@ -140,6 +141,11 @@ class MnasFPN(_NormSlots):
         self.Conv_7 = Conv(final, d[2], (3, 3), use_bias=False, dtype=dt)
 
     def forward(self, x):
+        # the span opens here, so a checkpointed trunk's recompute opens it too
+        with span("nr.trunk"):
+            return self._forward(x)
+
+    def _forward(self, x):
         h = F.relu(self._norm(0, self.Conv_0(x)))
         h = F.relu(self._norm(1, self.Conv_1(h)))
         h = self._norm(2, self.Conv_2(h))

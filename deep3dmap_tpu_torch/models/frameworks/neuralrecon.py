@@ -22,6 +22,15 @@ slower at the same peak memory, which the dense 3D nets set (PERF.md).
 ``BP_GRAD_FRAC`` is accepted as a no-op: the port's one sorted scatter
 already gives its gradient (``ops/back_project.py``).
 
+Under a profiler the step records spans at its layer boundaries
+(``utils/tracing.py``): ``nr.hidden_read``/``nr.hidden_write`` (the global
+volumes' windows), ``nr.trunk`` (in ``MnasFPN.forward``), per level i
+``nr.l{i}.select`` (block levels), ``.backproject``, ``.context``,
+``.net3d``, ``.gru`` and ``.heads``, and ``nr.loss`` (the op layer's
+``block_sparse.gather_halo`` opens inside the block levels' ``net3d`` and
+``gru``); and counts each row's active blocks (``nr.l{i}.blocks``) and back-projected
+voxels (``nr.l{i}.bp``) against their budgets.
+
 ``set_mesh`` (the runner calls it before ``init``): the fused loss then
 takes its sums over the mesh's ``data`` axis, so every rank's loss, in
 ``loss_fn`` and in ``val_fn``, is the global batch's
@@ -57,6 +66,7 @@ from ...ops.block_sparse import (block_mask_from_voxels, block_voxel_indices,
 from ...ops.fused_loss import fused_tsdf_occ_loss, fused_tsdf_occ_loss_levels
 from ...utils.device import resolve_device
 from ...utils.from_flax import load_flax_params
+from ...utils.tracing import span
 from ..backbones.fpn2d import MnasFPN
 from ..builder import RECONSTRUCTORS
 from ..layers import Dense, init_flax_defaults
@@ -206,131 +216,143 @@ class NeuralReconNet(nn.Module):
                         f"BLOCK_SIZE={bs}; level {i} is {dim}³")
                 nb = dim // bs
                 maxb = min(int(self.max_blocks[i] or nb ** 3), nb ** 3)
-                # active blocks = blocks holding any occupied parent voxel
-                if prev_block is None:
-                    bmask = block_mask_from_voxels(prev_mask, bs // 2)
-                else:
-                    bmask = child_block_mask(prev_block["occm"],
-                                             prev_block["bset"])
-                bset = select_blocks(bmask, maxb, bs)
-                vidx = block_voxel_indices(bset)                 # (B, MAXB*bs³)
-                slot_valid = bset.valid.repeat_interleave(bs ** 3, dim=1)
+                with span(f"nr.l{i}.select"):
+                    # active blocks = blocks holding any occupied parent voxel
+                    if prev_block is None:
+                        bmask = block_mask_from_voxels(prev_mask, bs // 2)
+                    else:
+                        bmask = child_block_mask(prev_block["occm"],
+                                                 prev_block["bset"])
+                    bset = select_blocks(bmask, maxb, bs, count_as=f"nr.l{i}.blocks")
+                    vidx = block_voxel_indices(bset)             # (B, MAXB*bs³)
+                    slot_valid = bset.valid.repeat_interleave(bs ** 3, dim=1)
 
-                f, cnt = back_project_sparse_batch(
-                    feats, proj, vol_origin_partial, vidx, slot_valid,
-                    dim=dim, voxel_size=self.voxel_size, interval=interval,
-                    gather_dtype=gdt)
-                volume_b = f.reshape(B, maxb, bs, bs, bs, f.shape[-1])
-                cnt_b = cnt.reshape(B, maxb, bs, bs, bs)
-                count_mask = blocks_to_dense(cnt_b[..., None], bset)[..., 0] > 1
+                with span(f"nr.l{i}.backproject"):
+                    f, cnt = back_project_sparse_batch(
+                        feats, proj, vol_origin_partial, vidx, slot_valid,
+                        dim=dim, voxel_size=self.voxel_size, interval=interval,
+                        gather_dtype=gdt)
+                    volume_b = f.reshape(B, maxb, bs, bs, bs, f.shape[-1])
+                    cnt_b = cnt.reshape(B, maxb, bs, bs, bs)
+                    count_mask = blocks_to_dense(cnt_b[..., None], bset)[..., 0] > 1
 
                 # parent-level context, gathered block-wise and upsampled 2x
-                if prev_block is None:
-                    pset = bset._replace(bs=bs // 2)
+                with span(f"nr.l{i}.context"):
+                    if prev_block is None:
+                        pset = bset._replace(bs=bs // 2)
 
-                    def gather_up(v):
-                        return _up2_block(dense_to_blocks(v, pset))
-                    up_feat = gather_up(prev_feat)
-                    up_tsdf = gather_up(prev_tsdf)
-                    up_occ = gather_up(prev_occ)
-                    vox_mask_b = gather_up(prev_mask[..., None].float())[..., 0]
-                else:
-                    # one octant gather for the context stack (feat | tsdf |
-                    # occ | mask); fill = empty space (tsdf=1) where the
-                    # parent block is inactive
-                    pb = prev_block
-                    Cp = pb["feat"].shape[-1]
-                    ctx = torch.cat([pb["feat"], pb["tsdf"], pb["occ"],
-                                     pb["occm"][..., None].to(pb["feat"].dtype)],
-                                    dim=-1)
-                    # built on the device: writing a host scalar into a
-                    # CUDA tensor would wait for the device
-                    fill = (torch.arange(Cp + 3, device=ctx.device)
-                            == Cp).to(ctx.dtype)
-                    g = _up2_block(gather_parent_octants(ctx, pb["bset"], bset,
-                                                         fill=fill))
-                    up_feat = g[..., :Cp]
-                    up_tsdf = g[..., Cp:Cp + 1]
-                    up_occ = g[..., Cp + 1:Cp + 2]
-                    vox_mask_b = g[..., Cp + 2]
-                parts = [volume_b, up_feat, up_tsdf, up_occ]
-                if self.add_coord_feats:
-                    world = _voxel_world_from_flat(
-                        vidx, dim, self.voxel_size,
-                        vol_origin_partial[:, None, :], interval)  # (B, K, 3)
-                    parts.append(self._aligned_coords(world, w2ac).reshape(
-                        B, maxb, bs, bs, bs, 3))
-                feat_in = torch.cat(parts, dim=-1)
-                feat_in = feat_in * vox_mask_b[..., None].to(feat_in.dtype)
+                        def gather_up(v):
+                            return _up2_block(dense_to_blocks(v, pset))
+                        up_feat = gather_up(prev_feat)
+                        up_tsdf = gather_up(prev_tsdf)
+                        up_occ = gather_up(prev_occ)
+                        vox_mask_b = gather_up(prev_mask[..., None].float())[..., 0]
+                    else:
+                        # one octant gather for the context stack (feat | tsdf |
+                        # occ | mask); fill = empty space (tsdf=1) where the
+                        # parent block is inactive
+                        pb = prev_block
+                        Cp = pb["feat"].shape[-1]
+                        ctx = torch.cat([pb["feat"], pb["tsdf"], pb["occ"],
+                                         pb["occm"][..., None].to(pb["feat"].dtype)],
+                                        dim=-1)
+                        # built on the device: writing a host scalar into a
+                        # CUDA tensor would wait for the device
+                        fill = (torch.arange(Cp + 3, device=ctx.device)
+                                == Cp).to(ctx.dtype)
+                        g = _up2_block(gather_parent_octants(ctx, pb["bset"], bset,
+                                                             fill=fill))
+                        up_feat = g[..., :Cp]
+                        up_tsdf = g[..., Cp:Cp + 1]
+                        up_occ = g[..., Cp + 1:Cp + 2]
+                        vox_mask_b = g[..., Cp + 2]
+                    parts = [volume_b, up_feat, up_tsdf, up_occ]
+                    if self.add_coord_feats:
+                        world = _voxel_world_from_flat(
+                            vidx, dim, self.voxel_size,
+                            vol_origin_partial[:, None, :], interval)  # (B, K, 3)
+                        parts.append(self._aligned_coords(world, w2ac).reshape(
+                            B, maxb, bs, bs, bs, 3))
+                    feat_in = torch.cat(parts, dim=-1)
+                    feat_in = feat_in * vox_mask_b[..., None].to(feat_in.dtype)
 
-                feat_b = unet(feat_in, bset)
+                with span(f"nr.l{i}.net3d"):
+                    feat_b = unet(feat_in, bset)
                 if self.fusion_on:
-                    h_b = dense_to_blocks(hidden_windows[i], bset)
-                    feat_b = gru(h_b, feat_b, bset)
-                    # inactive blocks keep their old hidden state
-                    outputs["new_hidden"].append(blocks_to_dense_over(
-                        feat_b, bset, hidden_windows[i]))
+                    with span(f"nr.l{i}.gru"):
+                        h_b = dense_to_blocks(hidden_windows[i], bset)
+                        feat_b = gru(h_b, feat_b, bset)
+                        # inactive blocks keep their old hidden state
+                        outputs["new_hidden"].append(blocks_to_dense_over(
+                            feat_b, bset, hidden_windows[i]))
 
-                tsdf_b = tsdf_pred(feat_b)
-                occ_b = occ_pred(feat_b)
-                outputs["tsdf"].append(blocks_to_dense(tsdf_b, bset, fill=1.0))
-                outputs["occ"].append(blocks_to_dense(occ_b, bset))
-                outputs["count_mask"].append(count_mask)
-                outputs["sparse_mask"].append(
-                    blocks_to_dense(vox_mask_b[..., None], bset)[..., 0] > 0.5)
+                with span(f"nr.l{i}.heads"):
+                    tsdf_b = tsdf_pred(feat_b)
+                    occ_b = occ_pred(feat_b)
+                    outputs["tsdf"].append(blocks_to_dense(tsdf_b, bset, fill=1.0))
+                    outputs["occ"].append(blocks_to_dense(occ_b, bset))
+                    outputs["count_mask"].append(count_mask)
+                    outputs["sparse_mask"].append(
+                        blocks_to_dense(vox_mask_b[..., None], bset)[..., 0] > 0.5)
 
-                # block-domain occupancy carries to the next level without
-                # touching the dense volume
-                occupancy_b = (occ_b[..., 0] > self.thresholds[i]) & (vox_mask_b > 0.5)
-                if not self.fusion_on:
-                    occupancy_b = occupancy_b & (cnt_b > 1)
+                    # block-domain occupancy carries to the next level without
+                    # touching the dense volume
+                    occupancy_b = (occ_b[..., 0] > self.thresholds[i]) & (vox_mask_b > 0.5)
+                    if not self.fusion_on:
+                        occupancy_b = occupancy_b & (cnt_b > 1)
                 prev_block = dict(bset=bset, feat=feat_b, tsdf=tsdf_b,
                                   occ=occ_b, occm=occupancy_b)
                 continue
 
-            if i > 0 and cap is not None and cap < dim ** 3:
-                up_mask = _up2(prev_mask[..., None])[..., 0]
-                volume, count = back_project_masked_batch(
-                    feats, proj, vol_origin_partial, up_mask, cap, dim,
-                    self.voxel_size, interval, gather_dtype=gdt)
-            else:
-                volume, count = back_project_batch(
-                    feats, proj, vol_origin_partial, dim, self.voxel_size,
-                    interval, gather_dtype=gdt)
-            count_mask = count > 1  # seen by >1 view (neucon_network.py:132)
+            with span(f"nr.l{i}.backproject"):
+                if i > 0 and cap is not None and cap < dim ** 3:
+                    up_mask = _up2(prev_mask[..., None])[..., 0]
+                    volume, count = back_project_masked_batch(
+                        feats, proj, vol_origin_partial, up_mask, cap, dim,
+                        self.voxel_size, interval, gather_dtype=gdt,
+                        count_as=f"nr.l{i}.bp")
+                else:
+                    volume, count = back_project_batch(
+                        feats, proj, vol_origin_partial, dim, self.voxel_size,
+                        interval, gather_dtype=gdt)
+                count_mask = count > 1  # seen by >1 view (neucon_network.py:132)
 
-            parts = [volume]
-            if i > 0:
-                parts.extend([_up2(prev_feat), _up2(prev_tsdf), _up2(prev_occ)])
-                sparse_mask = _up2(prev_mask[..., None])[..., 0]
-            else:
-                sparse_mask = torch.ones_like(count_mask)
-            if self.add_coord_feats:
-                r = torch.arange(dim, dtype=torch.float32,
-                                 device=imgs.device) * interval
-                gx, gy, gz = torch.meshgrid(r, r, r, indexing="ij")
-                grid = torch.stack([gx, gy, gz], dim=-1) * self.voxel_size
-                world = grid[None] + vol_origin_partial[:, None, None, None, :]
-                parts.append(self._aligned_coords(world, w2ac))
-            feat_in = torch.cat(parts, dim=-1)
-            # gate by the sparse set (where the reference's sparse conv runs)
-            feat_in = feat_in * sparse_mask[..., None].to(feat_in.dtype)
+            with span(f"nr.l{i}.context"):
+                parts = [volume]
+                if i > 0:
+                    parts.extend([_up2(prev_feat), _up2(prev_tsdf), _up2(prev_occ)])
+                    sparse_mask = _up2(prev_mask[..., None])[..., 0]
+                else:
+                    sparse_mask = torch.ones_like(count_mask)
+                if self.add_coord_feats:
+                    r = torch.arange(dim, dtype=torch.float32,
+                                     device=imgs.device) * interval
+                    gx, gy, gz = torch.meshgrid(r, r, r, indexing="ij")
+                    grid = torch.stack([gx, gy, gz], dim=-1) * self.voxel_size
+                    world = grid[None] + vol_origin_partial[:, None, None, None, :]
+                    parts.append(self._aligned_coords(world, w2ac))
+                feat_in = torch.cat(parts, dim=-1)
+                # gate by the sparse set (where the reference's sparse conv runs)
+                feat_in = feat_in * sparse_mask[..., None].to(feat_in.dtype)
 
-            feat = unet(feat_in)
+            with span(f"nr.l{i}.net3d"):
+                feat = unet(feat_in)
             if self.fusion_on:
-                feat = gru(hidden_windows[i], feat)
+                with span(f"nr.l{i}.gru"):
+                    feat = gru(hidden_windows[i], feat)
                 outputs["new_hidden"].append(feat)
 
-            tsdf = tsdf_pred(feat)
-            occ = occ_pred(feat)
-            outputs["tsdf"].append(tsdf)
-            outputs["occ"].append(occ)
-            outputs["count_mask"].append(count_mask)
-            outputs["sparse_mask"].append(sparse_mask)
+            with span(f"nr.l{i}.heads"):
+                tsdf = tsdf_pred(feat)
+                occ = occ_pred(feat)
+                outputs["tsdf"].append(tsdf)
+                outputs["occ"].append(occ)
+                outputs["count_mask"].append(count_mask)
+                outputs["sparse_mask"].append(sparse_mask)
 
-            occupancy = (occ[..., 0] > self.thresholds[i]) & sparse_mask.bool()
-            if not self.fusion_on:
-                occupancy = occupancy & count_mask
+                occupancy = (occ[..., 0] > self.thresholds[i]) & sparse_mask.bool()
+                if not self.fusion_on:
+                    occupancy = occupancy & count_mask
             prev_feat, prev_tsdf, prev_occ, prev_mask = feat, tsdf, occ, occupancy
         return outputs
 
@@ -586,24 +608,28 @@ class NeuralRecon(BaseFramework):
             # images travel quantised; IMG_NORM = (mean, std) in [0,1] units
             mean, std = self.img_norm
             imgs = (imgs.float() / 255.0 - mean) / std
-        if self.fusion_on and "scene_reset" in batch:
-            reset = batch["scene_reset"].bool()
-            dims = self._window_dims()
-            if all(self.global_dims[i] == dims[i] for i in range(self.n_layers)):
-                # windows cover the full extent: fold the reset into the read
-                # window -- exact, since the write overwrites whole volumes
-                hidden = self._read_hidden(model_state, batch)
-                keep = (~reset).reshape((-1,) + (1,) * 4)
-                hidden = [h * keep.to(h.dtype) for h in hidden]
+        with span("nr.hidden_read"):
+            if self.fusion_on and "scene_reset" in batch:
+                reset = batch["scene_reset"].bool()
+                dims = self._window_dims()
+                if all(self.global_dims[i] == dims[i] for i in range(self.n_layers)):
+                    # windows cover the full extent: fold the reset into the
+                    # read window -- exact, since the write overwrites whole
+                    # volumes
+                    hidden = self._read_hidden(model_state, batch)
+                    keep = (~reset).reshape((-1,) + (1,) * 4)
+                    hidden = [h * keep.to(h.dtype) for h in hidden]
+                else:
+                    model_state = dict(model_state, global_hidden=reset_volumes(
+                        model_state["global_hidden"], reset))
+                    hidden = self._read_hidden(model_state, batch)
             else:
-                model_state = dict(model_state, global_hidden=reset_volumes(
-                    model_state["global_hidden"], reset))
                 hidden = self._read_hidden(model_state, batch)
-        else:
-            hidden = self._read_hidden(model_state, batch)
         out = params(imgs, batch["proj_matrices"], batch["vol_origin_partial"],
                      batch["world_to_aligned_camera"], hidden_windows=hidden)
-        return out, self._write_hidden(model_state, batch, out["new_hidden"])
+        with span("nr.hidden_write"):
+            new_state = self._write_hidden(model_state, batch, out["new_hidden"])
+        return out, new_state
 
     # -- framework contract ------------------------------------------------
     def compute_level_loss(self, tsdf, occ, tsdf_target, occ_target, mask):
@@ -621,20 +647,21 @@ class NeuralRecon(BaseFramework):
         batch = self.batch_to_device(batch)
         params.train()
         out, new_state = self._apply(params, model_state, batch)
-        levels = []
-        for i in range(self.n_layers):
-            scale = self.n_layers - 1 - i
-            mask = out["sparse_mask"][i]
-            if not (self.fusion_on and self.fusion_full):
-                # FULL fusion supervises the whole sparse set
-                mask = mask & out["count_mask"][i]
-            # squeeze, not [..., 0]: the gradient comes back as a view
-            levels.append((out["tsdf"][i].squeeze(-1), out["occ"][i].squeeze(-1),
-                           batch["tsdf_list"][scale], batch["occ_list"][scale],
-                           mask))
-        # every level in one Function: one backward launch on the card; on a
-        # mesh the sums are the data axis's, in one all-reduce
-        losses = fused_tsdf_occ_loss_levels(levels, self.pos_weight, self.loss_group)
+        with span("nr.loss"):
+            levels = []
+            for i in range(self.n_layers):
+                scale = self.n_layers - 1 - i
+                mask = out["sparse_mask"][i]
+                if not (self.fusion_on and self.fusion_full):
+                    # FULL fusion supervises the whole sparse set
+                    mask = mask & out["count_mask"][i]
+                # squeeze, not [..., 0]: the gradient comes back as a view
+                levels.append((out["tsdf"][i].squeeze(-1), out["occ"][i].squeeze(-1),
+                               batch["tsdf_list"][scale], batch["occ_list"][scale],
+                               mask))
+            # every level in one Function: one backward launch on the card; on
+            # a mesh the sums are the data axis's, in one all-reduce
+            losses = fused_tsdf_occ_loss_levels(levels, self.pos_weight, self.loss_group)
         total = 0.0
         log_vars = {}
         for i in range(self.n_layers):

@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ...utils.tracing import span
+
 _PRIMES = (1, 2654435761, 805459861)
 _MASK = 0xFFFFFFFF
 
@@ -83,7 +85,12 @@ class HashGridEncoding(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (..., 3) in [0, 1] -> (..., n_levels * features_per_level),
-        level-major as JAX concatenates them."""
+        level-major as JAX concatenates them; the span ``lerf.hashgrid``
+        under a profiler."""
+        with span("lerf.hashgrid"):
+            return self._encode(x)
+
+    def _encode(self, x: torch.Tensor) -> torch.Tensor:
         pos = x[..., None, :] * self._res                      # (..., L, 3)
         p0 = torch.floor(pos)
         frac = pos - p0

@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import tracing
 from .block_sparse import first_nonzero
 
 
@@ -181,13 +182,16 @@ def back_project_batch(feats, proj, origin, dim: int, voxel_size: float,
 
 def back_project_masked_batch(feats, proj, origin, mask, capacity: int,
                               dim: int, voxel_size: float, interval: int,
-                              gather_dtype=None):
+                              gather_dtype=None, count_as: Optional[str] = None):
     """Sparse-capacity back-projection: up to ``capacity`` active voxels of
     ``mask`` (B, d, d, d) per batch element, scattered back into dense
-    volume/count arrays."""
+    volume/count arrays.  ``count_as`` names the counter of each row's
+    active voxels against ``capacity`` (``utils/tracing.py``)."""
     B, C = feats.shape[0], feats.shape[-1]
     N = dim ** 3
     flat_idx, n_active = first_nonzero(mask.reshape(B, N), capacity)
+    if count_as is not None:
+        tracing.count(count_as, n_active, cap=capacity)
     slot_valid = (torch.arange(capacity, device=feats.device)[None, :]
                   < n_active[:, None])
     f, cnt = back_project_sparse_batch(feats, proj, origin, flat_idx,

@@ -12,12 +12,17 @@ package's, so block ids and slots agree exactly.
 Selection (``first_nonzero``) compacts with a cumsum and a scatter instead
 of ``torch.nonzero``: the result is the same (the first ``size`` active ids in
 ascending linear order, padded with 0), and no step syncs with the host.
+``select_blocks(..., count_as=name)`` counts each row's active blocks
+against the budget (``utils/tracing.py``), and ``gather_halo`` records the
+span ``block_sparse.gather_halo`` under a profiler.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
+
+from ..utils import tracing
 
 
 class BlockSet(NamedTuple):
@@ -56,12 +61,16 @@ def first_nonzero(mask: torch.Tensor, size: int):
     return ids[:, :size], m.sum(dim=1)
 
 
-def select_blocks(block_mask: torch.Tensor, maxb: int, bs: int) -> BlockSet:
+def select_blocks(block_mask: torch.Tensor, maxb: int, bs: int,
+                  count_as: Optional[str] = None) -> BlockSet:
     """Pick up to ``maxb`` active blocks from a (B, nb, nb, nb) bool mask:
-    the first ``maxb`` active ids in ascending linear order."""
+    the first ``maxb`` active ids in ascending linear order.  ``count_as``
+    names the counter of each row's active blocks (budget ``maxb``)."""
     B, nb = block_mask.shape[0], block_mask.shape[1]
     dev = block_mask.device
     ids, n = first_nonzero(block_mask.reshape(B, nb ** 3), maxb)
+    if count_as is not None:
+        tracing.count(count_as, n, cap=maxb)
     valid = torch.arange(maxb, device=dev)[None, :] < n[:, None]
     # padding slots all carry id 0 -- route their writes to a scratch entry
     # so a real block 0 keeps its slot
@@ -182,6 +191,11 @@ def gather_halo(blocks: torch.Tensor, bset: BlockSet,
     each gathered with its own neighbour-slot table, so the gathered bytes
     are the window's, not 27 blocks'.
     """
+    with tracing.span("block_sparse.gather_halo"):
+        return _gather_halo(blocks, bset, halo)
+
+
+def _gather_halo(blocks: torch.Tensor, bset: BlockSet, halo: int) -> torch.Tensor:
     B, maxb, bs = blocks.shape[0], blocks.shape[1], blocks.shape[2]
     nb = bset.nb
     if halo > bs:

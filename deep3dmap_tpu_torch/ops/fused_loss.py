@@ -84,8 +84,8 @@ with a ``group`` one all-reduce between them);
 ``fused_tsdf_occ_loss`` is the same Function at L = 1.  CUDA tensors always
 launch the kernels and a failure raises; CPU tensors take
 ``partial_sums_plain`` and ``fused_tsdf_occ_loss_bwd_plain`` per level.
-``launches`` and ``bwd_launches`` count the forward and backward kernel
-launches.
+The counters ``fused_loss.fwd_launches`` and ``fused_loss.bwd_launches``
+(``utils/tracing.py``) count the forward and backward kernel launches.
 """
 from __future__ import annotations
 
@@ -95,6 +95,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel import collectives
+from ..utils import tracing
 
 _BLOCK = 2048          # elements per tile (16 per thread at 4 warps)
 _MAX_PROGRAMS = 528    # 4 resident programs on each of the H100's 132 SMs
@@ -104,9 +105,6 @@ _MAX_PROGRAMS = 528    # 4 resident programs on each of the H100's 132 SMs
 _BWD_BLOCK = 512
 _BWD_WARPS = 4
 _BWD_LEVELS = 3        # levels one backward launch takes (NeuralRecon's three)
-
-launches = 0           # forward kernel launches since the last reset
-bwd_launches = 0       # backward kernel launches since the last reset
 
 
 def _slog(t: torch.Tensor) -> torch.Tensor:
@@ -338,7 +336,6 @@ def fused_tsdf_occ_loss_cuda(tsdf, occ, tsdf_t, occ_t, mask,
     (Σm, Σm·y, ...) into the first 8 floats of ``out`` (a contiguous float32
     device tensor, e.g. a row of the backward's ``(L, 8)`` tensor), or into
     a new 8-float tensor."""
-    global launches
     ins = [_flat_for_kernel(a) for a in (tsdf, occ, tsdf_t, occ_t, mask)]
     n = ins[0].numel()
     if n >= 2 ** 31 - _BLOCK * _MAX_PROGRAMS:
@@ -358,7 +355,7 @@ def fused_tsdf_occ_loss_cuda(tsdf, occ, tsdf_t, occ_t, mask,
     loss_kernel[(nprog,)](*ins, part, _ticket(dev), out, n, tiles_per_prog,
                           float(pos_weight), BLOCK=_BLOCK,
                           NP=max(16, triton.next_power_of_2(nprog)), num_warps=4)
-    launches += 1
+    tracing.count("fused_loss.fwd_launches")
     return out
 
 
@@ -369,7 +366,6 @@ def fused_tsdf_occ_loss_bwd_cuda(levels, sums, g, pos_weight: float = 1.0):
     is level i's forward output, whose columns 3 and 4 are (Σm, Σm·y); row i
     of ``g`` (L, 3) its cotangents.  Both stay on the device.  One launch
     per ``_BWD_LEVELS`` levels."""
-    global bwd_launches
     n_lv = len(levels)
     if sums.dim() != 2 or sums.shape[0] != n_lv or sums.shape[1] < 5 \
             or sums.dtype != torch.float32 or sums.stride(1) != 1:
@@ -402,7 +398,7 @@ def fused_tsdf_occ_loss_bwd_cuda(levels, sums, g, pos_weight: float = 1.0):
         loss_bwd_kernel[(max(1, n_prog),)](
             *args, starts[1], starts[2], sums[first:], sums.stride(0), g[first:],
             float(pos_weight), BLOCK=_BWD_BLOCK, num_warps=_BWD_WARPS)
-        bwd_launches += 1
+        tracing.count("fused_loss.bwd_launches")
     return grads
 
 

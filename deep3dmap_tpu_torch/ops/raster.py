@@ -9,7 +9,7 @@ perspective-correct depth of the triangles that cover it, or ``background``.
   first use; a failed build or launch raises), a CPU tensor takes
   ``raster_grid_depth_hard_plain``.  The kernel projects the points itself,
   four threads per triangle, so a call is one ctypes call and no PyTorch op;
-  ``launches`` counts those calls.
+  the counter ``raster.launches`` (``utils/tracing.py``) counts those calls.
 - ``raster_grid_depth_hard_plain`` is the same function in PyTorch ops:
   ``project``, ``grid_mesh_triangles`` (the TPU kernel's triangle list, same
   order), then every pixel against every triangle, a chunk of triangles at
@@ -40,14 +40,13 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import tracing
 from . import _cuda
 
 EPS = 1e-7
 PLAIN_CHUNK = 1024
 # ops/csrc/raster_hard.cu: boxes of more pixels take the overflow kernel
 FAST_PIXELS = 64
-
-launches = 0     # kernel launches since the last reset
 
 
 def project(points3d: torch.Tensor, K: torch.Tensor
@@ -210,7 +209,6 @@ def raster_grid_depth_hard_cuda(points3d: torch.Tensor, K: torch.Tensor,
     """The CUDA kernel on CUDA tensors; raises on anything it does not take.
     With ``overflow`` it returns (depth, n) where ``n`` is a one-element
     int32 device tensor: the triangles that took the overflow path."""
-    global launches
     if points3d.device.type != "cuda" or K.device != points3d.device:
         raise ValueError("raster_grid_depth_hard_cuda: points3d and K must be "
                          f"on one CUDA device, got {points3d.device} and "
@@ -238,7 +236,7 @@ def raster_grid_depth_hard_cuda(points3d: torch.Tensor, K: torch.Tensor,
                  float(background), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"raster_grid_depth_hard: CUDA error {err} at launch")
-    launches += 1
+    tracing.count("raster.launches")
     return (out, scratch[:1]) if overflow else out
 
 

@@ -2,7 +2,7 @@
 
 Every collective of ``parallel/``, the fused loss's cross-rank sums and the
 gradient reduction of ``runners/train_state.py`` goes through here, so that
-``counts`` says what a step issued (``tools/benchmark_scaling.py`` reports
+``counts()`` says what a step issued (``tools/benchmark_scaling.py`` reports
 it per step, in place of the HLO collective counts the JAX tool reads).
 
 NCCL groups take CUDA tensors and gloo groups CPU tensors as they are.  A
@@ -14,17 +14,23 @@ compute never leaves the card.  A failed collective raises.
 """
 from __future__ import annotations
 
-from collections import Counter
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 import torch
 import torch.distributed as dist
 
-counts: Counter = Counter()   # collective calls since the last reset, by kind
+from ..utils import tracing
+
+_COUNTER = "collectives."     # the registry's counters, one per kind
+
+
+def counts() -> Dict[str, int]:
+    """Collective calls since the last reset, by kind."""
+    return {k[len(_COUNTER):]: v for k, v in tracing.read_counters(_COUNTER).items()}
 
 
 def reset_counts() -> None:
-    counts.clear()
+    tracing.reset_counters(_COUNTER)
 
 
 def group_size(group) -> int:
@@ -48,7 +54,7 @@ def _host(t: torch.Tensor) -> torch.Tensor:
 
 def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """In-place ``all_reduce`` of ``t`` over ``group``; returns ``t``."""
-    counts["all_reduce"] += 1
+    tracing.count(_COUNTER + "all_reduce")
     if _staged(group, [t]):
         h = _host(t)
         dist.all_reduce(h, op=op, group=group)
@@ -60,7 +66,7 @@ def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
 
 def broadcast(t: torch.Tensor, src: int) -> torch.Tensor:
     """In-place ``broadcast`` over every rank from rank ``src``; returns ``t``."""
-    counts["broadcast"] += 1
+    tracing.count(_COUNTER + "broadcast")
     if _staged(None, [t]):
         h = _host(t)
         dist.broadcast(h, src)
@@ -72,7 +78,7 @@ def broadcast(t: torch.Tensor, src: int) -> torch.Tensor:
 
 def all_gather(t: torch.Tensor, group) -> torch.Tensor:
     """The ranks' ``t`` concatenated along dim 0, in rank order."""
-    counts["all_gather"] += 1
+    tracing.count(_COUNTER + "all_gather")
     n = group_size(group)
     t = t.contiguous()
     if _staged(group, [t]):
@@ -88,7 +94,7 @@ def all_gather(t: torch.Tensor, group) -> torch.Tensor:
 
 def reduce_scatter(t: torch.Tensor, group) -> torch.Tensor:
     """The sum over the ranks of ``t``, split along dim 0: this rank's part."""
-    counts["reduce_scatter"] += 1
+    tracing.count(_COUNTER + "reduce_scatter")
     n = group_size(group)
     t = t.contiguous()
     if t.shape[0] % n:
@@ -110,7 +116,7 @@ def exchange(sends: Sequence, recvs: Sequence, group) -> List[torch.Tensor]:
     (tensor, group rank) pairs, ``recvs`` (template tensor, group rank)
     pairs; returns one received tensor per ``recvs`` entry, shaped and
     typed as its template."""
-    counts["send_recv"] += 1
+    tracing.count(_COUNTER + "send_recv")
     ts = [t for t, _ in sends] + [t for t, _ in recvs]
     staged = bool(ts) and _staged(group, ts)
     ops, outs = [], []

@@ -20,6 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils import tracing
 from .hooks import HOOKS, Hook
 
 
@@ -80,13 +81,16 @@ class ProfilerHook(Hook):
     """A ``torch.profiler`` trace over iterations ``start_iter`` to
     ``start_iter + n_iters - 1``, written as a Chrome trace under
     ``out_dir`` (``work_dir/profile`` by default); the card's kernels are
-    traced when there is one."""
+    traced when there is one, beside the program's ``span:`` ranges, and
+    the counters (``utils/tracing.py``) are logged with the trace's path,
+    each as its change over the traced iterations."""
 
     def __init__(self, start_iter: int = 2, n_iters: int = 3, out_dir: Optional[str] = None):
         self.start_iter = start_iter
         self.n_iters = n_iters
         self.out_dir = out_dir
         self._prof = None
+        self._counted = {}
         self.trace_path = None
 
     def before_train_iter(self, runner):
@@ -94,6 +98,7 @@ class ProfilerHook(Hook):
             acts = [torch.profiler.ProfilerActivity.CPU]
             if torch.cuda.is_available():
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._counted = tracing.read_counters()
             self._prof = torch.profiler.profile(activities=acts)
             self._prof.__enter__()
 
@@ -104,8 +109,9 @@ class ProfilerHook(Hook):
         self.trace_path = osp.join(out, f"trace_{self.start_iter}_{runner.iter}.json")
         self._prof.export_chrome_trace(self.trace_path)
         self._prof = None
+        counted = {k: v - self._counted.get(k, 0) for k, v in tracing.read_counters().items()}
         runner.logger.info(f"Profiler trace written ({self.start_iter}..{runner.iter}) "
-                           f"-> {self.trace_path}")
+                           f"-> {self.trace_path}; counters {counted}")
 
     def after_train_iter(self, runner):
         if self._prof is not None and runner.iter >= self.start_iter + self.n_iters - 1:

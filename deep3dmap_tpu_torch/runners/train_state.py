@@ -16,6 +16,10 @@ global gradient.  The clip and ``grad_norm`` then see it, as
 ``clip_by_global_norm`` does in JAX's sharded step.  A plain collective
 after the backward, not a DDP wrapper: the step stays the single-card one,
 and its collectives are counted (``parallel/collectives.py``).
+
+Under a profiler the step records the spans ``step`` and, inside it,
+``step.forward``, ``step.backward``, ``step.grad_reduce`` (on a mesh) and
+``step.optimizer`` (``utils/tracing.py``).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 import torch
 
 from ..parallel.collectives import reduce_gradients
+from ..utils.tracing import span
 from .optim import ClippedAdam, build_optimizer
 
 
@@ -59,15 +64,20 @@ def train_step(framework, state: TrainState, batch
     with a generator hands it to ``loss_fn`` as ``rng``.  The framework's
     ``loss_group`` (the data-parallel ranks its loss is the global batch's
     over) sums the gradients over it before the step."""
-    opt = state.optimizer
-    opt.zero_grad()
-    kw = {} if state.rng is None else {"rng": state.rng}
-    loss, aux = framework.loss_fn(state.net, state.model_state, batch, **kw)
-    loss.backward()
-    group = getattr(framework, "loss_group", None)
-    if group is not None:
-        reduce_gradients(state.net.parameters(), group)
-    grad_norm = opt.step()
+    with span("step"):
+        opt = state.optimizer
+        opt.zero_grad()
+        kw = {} if state.rng is None else {"rng": state.rng}
+        with span("step.forward"):
+            loss, aux = framework.loss_fn(state.net, state.model_state, batch, **kw)
+        with span("step.backward"):
+            loss.backward()
+        group = getattr(framework, "loss_group", None)
+        if group is not None:
+            with span("step.grad_reduce"):
+                reduce_gradients(state.net.parameters(), group)
+        with span("step.optimizer"):
+            grad_norm = opt.step()
     log_vars = {k: v.detach() for k, v in aux["log_vars"].items()}
     log_vars["loss"] = loss.detach()
     log_vars["grad_norm"] = grad_norm

@@ -132,7 +132,7 @@ def run_rank(args):
             state, logs = train_step(fw, state, local)
             losses.append(float(logs["loss"]))       # waits for the step
             times.append((time.perf_counter() - t0) * 1e3)
-            counts = dict(collectives.counts)
+            counts = collectives.counts()
         if rank == 0:
             timed = sorted(times[1:]) or times
             with open(osp.join(work, "result.json"), "w") as f:

@@ -19,12 +19,18 @@ import torch
 from deep3dmap_tpu.models.frameworks.neuralrecon import NeuralRecon as JaxNeuralRecon
 from deep3dmap_tpu.ops.pallas_loss import fused_tsdf_occ_loss as jax_fused
 from deep3dmap_tpu_torch.ops import fused_loss
+from deep3dmap_tpu_torch.utils.tracing import counter
 
 RTOL = 1e-5  # fp32 sums over <= 3456 elements, different summation order
 # backward, f32: elementwise, the same ops; sigmoid and log differ by an ulp
 GRAD_TOL = dict(rtol=1e-5, atol=1e-10)
 # backward into bf16 predictions: an ulp of f32 may round to the next bf16
 GRAD_TOL_BF16 = dict(rtol=2 ** -7, atol=1e-10)
+
+
+def _launches():
+    """(forward, backward) loss kernel launches so far."""
+    return counter("fused_loss.fwd_launches"), counter("fused_loss.bwd_launches")
 
 
 def _jnp_path(tsdf, occ, tsdf_t, occ_t, mask, pos_weight):
@@ -105,11 +111,11 @@ def test_wrapper_routes_cpu_tensors_to_plain(rng):
     """CPU tensors take the plain version and launch nothing; mixed devices
     and mismatched shapes raise."""
     data = _torch(*_data(rng))
-    before = fused_loss.launches
+    before = counter("fused_loss.fwd_launches")
     got = fused_loss.fused_tsdf_occ_loss(*data, pos_weight=1.5)
     _check(got, fused_loss.fused_tsdf_occ_loss_plain(*data, pos_weight=1.5),
            rtol=0.0)
-    assert fused_loss.launches == before
+    assert counter("fused_loss.fwd_launches") == before
     with pytest.raises(ValueError, match="shapes differ"):
         fused_loss.fused_tsdf_occ_loss(data[0][:1], *data[1:])
     meta = tuple(a.to("meta") for a in data)
@@ -129,10 +135,10 @@ def _torch_vjp(data, pos_weight, g):
     t, x, *rest = _torch(*data)
     t.requires_grad_()
     x.requires_grad_()
-    before = (fused_loss.launches, fused_loss.bwd_launches)
+    before = _launches()
     out = fused_loss.fused_tsdf_occ_loss(t, x, *rest, pos_weight=pos_weight)
     grads = torch.autograd.grad(out, (t, x), [torch.tensor(v) for v in g])
-    assert (fused_loss.launches, fused_loss.bwd_launches) == before
+    assert _launches() == before
     return [a.float().numpy() for a in grads]
 
 

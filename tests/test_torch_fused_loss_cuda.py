@@ -14,12 +14,18 @@ import pytest
 import torch
 
 from deep3dmap_tpu_torch.ops import fused_loss
+from deep3dmap_tpu_torch.utils.tracing import counter
 
 RTOL = 1e-4   # float32 sums of up to 884,736 terms, in another order
 # backward: elementwise, the same ops (sigmoid, log and FMAs may differ by an
 # ulp); a bf16 gradient may round one f32 ulp to the next bf16 value
 BWD_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-12),
            torch.bfloat16: dict(rtol=2 ** -7, atol=1e-12)}
+
+
+def _launches():
+    """(forward, backward) loss kernel launches so far."""
+    return counter("fused_loss.fwd_launches"), counter("fused_loss.bwd_launches")
 
 
 @pytest.fixture
@@ -48,10 +54,10 @@ def _inputs(n, device, pred_dtype=torch.float32):
                          ids=["f32", "bf16"])
 def test_kernel_matches_plain_on_card(cuda_device, n, pred_dtype):
     data = _inputs(n, cuda_device, pred_dtype)
-    before = fused_loss.launches
+    before = counter("fused_loss.fwd_launches")
     got = fused_loss.fused_tsdf_occ_loss(*data, pos_weight=1.5)
     want = fused_loss.fused_tsdf_occ_loss_plain(*data, pos_weight=1.5)
-    assert fused_loss.launches == before + 1
+    assert counter("fused_loss.fwd_launches") == before + 1
     for g, w in zip(got, want):
         np.testing.assert_allclose(float(g), float(w), rtol=RTOL)
     again = fused_loss.fused_tsdf_occ_loss(*data, pos_weight=1.5)
@@ -93,11 +99,11 @@ def _bwd_pair(data, g):
     against ``fused_tsdf_occ_loss_bwd_plain`` on the same inputs and sums."""
     t = data[0].clone().requires_grad_()
     x = data[1].clone().requires_grad_()
-    before = (fused_loss.launches, fused_loss.bwd_launches)
+    before = _launches()
     out = fused_loss.fused_tsdf_occ_loss(t, x, *data[2:], pos_weight=1.5)
     gv = torch.tensor(g, device=t.device)
     got = torch.autograd.grad(out, (t, x), list(gv.unbind()))
-    assert (fused_loss.launches, fused_loss.bwd_launches) == (before[0] + 1,
+    assert _launches() == (before[0] + 1,
                                                              before[1] + 1)
     sums = fused_loss.partial_sums_plain(*data)[:2]
     want = fused_loss.fused_tsdf_occ_loss_bwd_plain(*data, sums, gv, pos_weight=1.5)
@@ -141,12 +147,12 @@ def _levels_pair(levels, g):
     ins = [(d[0].clone().requires_grad_(), d[1].clone().requires_grad_(), *d[2:])
            for d in levels]
     gv = torch.tensor(g, device=levels[0][0].device)
-    before = (fused_loss.launches, fused_loss.bwd_launches)
+    before = _launches()
     losses = fused_loss.fused_tsdf_occ_loss_levels(ins, pos_weight=1.5)
     got = torch.autograd.grad(losses, [p for lv in ins for p in lv[:2]], gv)
     losses = losses.detach()
     n_bwd = -(-len(levels) // 3)
-    assert (fused_loss.launches, fused_loss.bwd_launches) == (
+    assert _launches() == (
         before[0] + len(levels), before[1] + n_bwd)
     for i, d in enumerate(levels):
         want_losses = fused_loss.fused_tsdf_occ_loss_plain(*d, pos_weight=1.5)

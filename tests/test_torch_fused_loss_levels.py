@@ -23,6 +23,7 @@ from deep3dmap_tpu_torch.datasets.builder import _stack_samples
 from deep3dmap_tpu_torch.datasets.synthetic import make_fragment_sample
 from deep3dmap_tpu_torch.models.frameworks import neuralrecon as torch_nr
 from deep3dmap_tpu_torch.ops import fused_loss
+from deep3dmap_tpu_torch.utils.tracing import counter
 
 torch.set_num_threads(2)
 
@@ -32,6 +33,11 @@ GRAD_TOL = dict(rtol=1e-5, atol=1e-10)
 # backward into bf16 predictions: an ulp of f32 may round to the next bf16
 GRAD_TOL_BF16 = dict(rtol=2 ** -7, atol=1e-10)
 POS_WEIGHT = 1.5
+
+
+def _launches():
+    """(forward, backward) loss kernel launches so far."""
+    return counter("fused_loss.fwd_launches"), counter("fused_loss.bwd_launches")
 
 
 def _level(rng, shape, pred=np.float32, mask_bool=True, empty_target=False,
@@ -100,12 +106,12 @@ def test_levels_match_jax_per_level(rng, case):
     levels = [_level(rng, **kw) for kw in CASES[case]]
     g = rng.uniform(-1, 2, (len(levels), 3)).astype(np.float32)
     ins = [_torch_level(lv) for lv in levels]
-    before = (fused_loss.launches, fused_loss.bwd_launches)
+    before = _launches()
     losses = fused_loss.fused_tsdf_occ_loss_levels(ins, pos_weight=POS_WEIGHT)
     assert losses.shape == (len(levels), 3) and losses.dtype == torch.float32
     preds = [p for lv in ins for p in lv[:2]]
     grads = torch.autograd.grad(losses, preds, torch.from_numpy(g))
-    assert (fused_loss.launches, fused_loss.bwd_launches) == before
+    assert _launches() == before
     for i, lv in enumerate(levels):
         want_losses, want_grads = _jax_level(lv, g[i])
         np.testing.assert_allclose(losses[i].detach().numpy(), want_losses,

@@ -16,11 +16,11 @@ import torch
 from deep3dmap_tpu_torch.datasets.builder import _stack_samples
 from deep3dmap_tpu_torch.datasets.synthetic import make_fragment_sample
 from deep3dmap_tpu_torch.models.frameworks.neuralrecon import NeuralRecon
-from deep3dmap_tpu_torch.ops import fused_loss
 from deep3dmap_tpu_torch.parallel import collectives, make_mesh
 from deep3dmap_tpu_torch.runners.optim import build_optimizer
 from deep3dmap_tpu_torch.runners.train_state import TrainState, train_step
 from deep3dmap_tpu_torch.utils.device import make_deterministic
+from deep3dmap_tpu_torch.utils.tracing import counter, reset_counters
 
 CFG = dict(N_LAYER=3, N_VOX=[32, 32, 32], VOXEL_SIZE=0.08, TRAIN_NUM_SAMPLE=[64, 256],
            FUSION=dict(FUSION_ON=True, FULL=True), LW=[1.0, 0.8, 0.64],
@@ -54,12 +54,13 @@ def _run(mesh, batches):
                                                  dict(max_norm=1.0)))
     losses, launches, counts = [], [], []
     for b in batches:
-        fused_loss.launches = fused_loss.bwd_launches = 0
+        reset_counters("fused_loss.")
         collectives.reset_counts()
         state, logs = train_step(fw, state, b)
         losses.append(logs["loss"].clone())
-        launches.append((fused_loss.launches, fused_loss.bwd_launches))
-        counts.append(dict(collectives.counts))
+        launches.append((counter("fused_loss.fwd_launches"),
+                         counter("fused_loss.bwd_launches")))
+        counts.append(collectives.counts())
     torch.cuda.synchronize()
     return losses, [p.detach().clone() for p in net.parameters()], launches, counts
 

@@ -25,6 +25,7 @@ from deep3dmap_tpu.core.renderer.renderer_nr import \
 from deep3dmap_tpu.ops import raster_pallas as J
 from deep3dmap_tpu_torch.ops import _cuda
 from deep3dmap_tpu_torch.ops import raster as T
+from deep3dmap_tpu_torch.utils.tracing import counter
 from test_raster_pallas import BG, _make_points, numpy_raster_reference
 
 torch.set_num_threads(2)
@@ -162,9 +163,9 @@ def test_raster_depth_st_gradient_matches_jax():
 
 def test_wrapper_on_cpu_takes_plain_and_counts_no_launch():
     pts, K = _jitter6()
-    before = T.launches
+    before = counter("raster.launches")
     got = T.raster_grid_depth_hard(_t(pts), _t(K), BG)
-    assert T.launches == before
+    assert counter("raster.launches") == before
     assert torch.equal(got, T.raster_grid_depth_hard_plain(_t(pts), _t(K), BG))
     with pytest.raises(ValueError, match="CUDA"):
         T.raster_grid_depth_hard_cuda(_t(pts), _t(K), BG)
@@ -184,7 +185,8 @@ def test_import_needs_no_nvcc(tmp_path):
     env = dict(os.environ, PATH=str(tmp_path))
     code = ("import deep3dmap_tpu_torch.ops.raster as r; "
             "import deep3dmap_tpu_torch.core.renderer.renderer_nr; "
-            "print(r.launches)")
+            "from deep3dmap_tpu_torch.utils.tracing import counter; "
+            "print(counter('raster.launches'))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -19,6 +19,7 @@ import torch
 from deep3dmap_tpu_torch.core.renderer.renderer_nr import (
     NrRenderer, get_transform_matrices)
 from deep3dmap_tpu_torch.ops import raster
+from deep3dmap_tpu_torch.utils.tracing import counter
 
 BG = 2.0
 
@@ -43,11 +44,11 @@ def _grid_points(rng, B, H, W, jitter, f=8.0):
 def _compare(pts, K, dev, bg=BG):
     p = torch.from_numpy(np.ascontiguousarray(pts)).to(dev)
     k = torch.from_numpy(K).to(dev)
-    before = raster.launches
+    before = counter("raster.launches")
     got, n_big = raster.raster_grid_depth_hard_cuda(p, k, bg, overflow=True)
     want = raster.raster_grid_depth_hard_plain(p, k, bg)
     torch.cuda.synchronize()
-    assert raster.launches == before + 1
+    assert counter("raster.launches") == before + 1
     assert torch.equal(got != bg, want != bg), \
         f"{int((got != want).sum())} pixels differ"
     assert (got - want).abs().max().item() <= 1e-6

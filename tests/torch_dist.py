@@ -93,7 +93,7 @@ def job_ddp_neuralrecon(inputs, n_steps):
         collectives.reset_counts()
         state, logs = train_step(fw, state, b)
         curve.append(float(logs["loss"]))
-        out["counts"] = dict(collectives.counts)
+        out["counts"] = collectives.counts()
     out["curve"] = curve
     # the group= path at one rank: bit-equal to no group
     own = [dist.new_group([r]) for r in range(dist.get_world_size())][dist.get_rank()]
@@ -219,7 +219,7 @@ def job_ba(inputs, iters):
         r = sfm.lm_solve_sharded(mesh, *d["start"], d["prob"], iters=n, huber=d["huber"])
         res.append({k: _np(getattr(r, k)) for k in ("R", "t", "X", "cost", "lam",
                                                      "initial_cost")})
-        res[-1]["counts"] = dict(collectives.counts)
+        res[-1]["counts"] = collectives.counts()
     return res
 
 
@@ -352,7 +352,7 @@ def gan2shape_fit(cfg, batch, stage_iters, mesh):
         gr.step3_indices = real
     return dict(heads={k: _np(v) for k, v in runner.net.state_dict().items()},
                 logs=runner.logs, step3=drawn, loss_group=fw.loss_group,
-                counts=dict(collectives.counts))
+                counts=collectives.counts())
 
 
 def job_ddp_frameworks(inputs):
